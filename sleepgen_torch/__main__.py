@@ -1,0 +1,27 @@
+"""Umbrella CLI: ``python -m sleepgen_torch <command> [args...]``."""
+from __future__ import annotations
+
+import sys
+
+COMMANDS = {
+    "sample": "sleepgen_torch.cli.sample_trials",
+}
+
+
+def main():
+    if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help"):
+        print("usage: python -m sleepgen_torch <command> [args...]\ncommands:")
+        for k in COMMANDS:
+            print(f"  {k}")
+        return 0 if len(sys.argv) >= 2 else 2
+    cmd = sys.argv.pop(1)
+    if cmd not in COMMANDS:
+        print(f"unknown command '{cmd}'", file=sys.stderr)
+        return 2
+    import importlib
+
+    return importlib.import_module(COMMANDS[cmd]).main()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""Noise schedules and the DDIM transition, in PyTorch.
+
+Counterpart of ``sleepgen/diffusion/schedules.py`` (MONAI DDPMScheduler /
+DDIMScheduler semantics). Beta tables are computed in float64 with numpy,
+as the reference does, and held as float32 tensors; the step math is fp32.
+Table lookups take a Python int or a per-sample integer tensor and
+broadcast against sample batches of shape (B, ...); the DDIM step takes
+the sampler loop's scalar timesteps.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+PREDICTION_TYPES = ("epsilon", "sample", "v_prediction")
+
+
+def make_betas(schedule: str, num_timesteps: int, beta_start: float = 1e-4,
+               beta_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """Beta table (float64). "linear_beta"/"linear" is MONAI's plain
+    linspace; "scaled_linear_beta"/"scaled_linear"/"ldm_linear" is the
+    sqrt-space linspace squared."""
+    t = np.float64
+    if schedule in ("linear_beta", "linear", "sqrt_linear"):
+        betas = np.linspace(beta_start, beta_end, num_timesteps, dtype=t)
+    elif schedule in ("scaled_linear_beta", "scaled_linear", "ldm_linear"):
+        betas = np.linspace(beta_start**0.5, beta_end**0.5, num_timesteps, dtype=t) ** 2
+    elif schedule == "cosine":
+        steps = np.arange(num_timesteps + 1, dtype=t) / num_timesteps + cosine_s
+        alphas = np.cos(steps / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        betas = np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    elif schedule == "sqrt":
+        betas = np.linspace(beta_start, beta_end, num_timesteps, dtype=t) ** 0.5
+    elif schedule == "sigmoid_beta":
+        sig = 1 / (1 + np.exp(-np.linspace(-6, 6, num_timesteps, dtype=t)))
+        betas = sig * (beta_end - beta_start) + beta_start
+    else:
+        raise ValueError(f"unknown beta schedule '{schedule}'")
+    return betas
+
+
+class NoiseSchedule:
+    """Schedule tables (fp32, on one device) and the conversions every
+    sampler needs."""
+
+    def __init__(self, betas: np.ndarray, prediction_type: str = "epsilon",
+                 device: torch.device | str = "cpu"):
+        if prediction_type not in PREDICTION_TYPES:
+            raise ValueError(f"unknown prediction_type '{prediction_type}'")
+        self.num_timesteps = int(len(betas))
+        self.prediction_type = prediction_type
+        self.betas = torch.as_tensor(betas, dtype=torch.float32, device=device)
+        self.alphas_cumprod = torch.as_tensor(np.cumprod(1.0 - betas),
+                                              dtype=torch.float32, device=device)
+
+    @classmethod
+    def create(cls, schedule: str = "linear_beta", num_timesteps: int = 1000,
+               beta_start: float = 1e-4, beta_end: float = 2e-2,
+               prediction_type: str = "epsilon",
+               device: torch.device | str = "cpu") -> "NoiseSchedule":
+        return cls(make_betas(schedule, num_timesteps, beta_start, beta_end),
+                   prediction_type, device)
+
+    def _gather(self, table: torch.Tensor, t, ndim: int) -> torch.Tensor:
+        """table[t] broadcast to an ndim-rank sample batch. A Python int
+        indexes without a host-to-device copy (which would wait for the
+        card once per sampler step)."""
+        out = table[t] if isinstance(t, int) else table[torch.as_tensor(t, device=table.device)]
+        return out.reshape(out.shape + (1,) * (ndim - out.dim()))
+
+    def sqrt_acp(self, t, ndim: int) -> torch.Tensor:
+        return torch.sqrt(self._gather(self.alphas_cumprod, t, ndim))
+
+    def sqrt_one_minus_acp(self, t, ndim: int) -> torch.Tensor:
+        return torch.sqrt(1.0 - self._gather(self.alphas_cumprod, t, ndim))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(acp_t) x0 + sqrt(1 - acp_t) eps."""
+        return self.sqrt_acp(t, x0.dim()) * x0 + self.sqrt_one_minus_acp(t, x0.dim()) * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """v = sqrt(acp_t) eps - sqrt(1 - acp_t) x0."""
+        return self.sqrt_acp(t, x0.dim()) * noise - self.sqrt_one_minus_acp(t, x0.dim()) * x0
+
+    def to_x0_eps(self, model_out: torch.Tensor, x_t: torch.Tensor,
+                  t) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Network output under this schedule's prediction type ->
+        (pred_x0, pred_eps)."""
+        sa = self.sqrt_acp(t, x_t.dim())
+        sb = self.sqrt_one_minus_acp(t, x_t.dim())
+        if self.prediction_type == "epsilon":
+            return (x_t - sb * model_out) / sa, model_out
+        if self.prediction_type == "sample":
+            return model_out, (x_t - sa * model_out) / sb
+        return sa * x_t - sb * model_out, sa * model_out + sb * x_t
+
+
+def ddim_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:
+    """Descending inference timesteps (MONAI set_timesteps)."""
+    ratio = num_train_timesteps // num_inference_steps
+    return (np.arange(0, num_inference_steps) * ratio).round()[::-1].copy().astype(np.int32)
+
+
+def ddim_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, t_prev: int,
+              x_t: torch.Tensor, eta: float = 0.0, clip_sample: bool = False,
+              noise: torch.Tensor | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DDIM step x_t -> x_{t_prev} at scalar timesteps; returns
+    (x_prev, pred_x0). A negative t_prev (the last step) uses acp_prev = 1."""
+    ndim = x_t.dim()
+    acp_t = sched._gather(sched.alphas_cumprod, t, ndim)
+    acp_prev = (sched._gather(sched.alphas_cumprod, t_prev, ndim) if t_prev >= 0
+                else torch.ones_like(acp_t))
+    x0, eps = sched.to_x0_eps(model_out, x_t, t)
+    if clip_sample:
+        x0 = x0.clamp(-1.0, 1.0)
+    var = (1.0 - acp_prev) / (1.0 - acp_t) * (1.0 - acp_t / acp_prev)
+    std = eta * torch.sqrt(var)
+    x_prev = torch.sqrt(acp_prev) * x0 + torch.sqrt(1.0 - acp_prev - std**2) * eps
+    if eta > 0:
+        if noise is None:
+            raise ValueError("eta > 0 requires noise")
+        x_prev = x_prev + std * noise
+    return x_prev, x0

@@ -1,0 +1,109 @@
+"""Shared building blocks of the port's networks, in torch's (B, C, L) layout.
+
+Counterparts of ``sleepgen/nn/layers.py``. Parameters of every GroupNorm
+stay fp32; convolutions and linear layers run in the model's compute dtype
+(``cast_compute_dtype``). Normalisation statistics and the attention
+softmax are fp32 in either dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sleepgen_torch.kernels.group_norm import group_norm_silu
+
+
+def conv1d(in_channels: int, out_channels: int, kernel: int = 3,
+           stride: int = 1, padding: int | None = None) -> nn.Conv1d:
+    """1-D convolution on (B, C, L); padding defaults to SAME (k // 2)."""
+    return nn.Conv1d(in_channels, out_channels, kernel, stride=stride,
+                     padding=kernel // 2 if padding is None else padding)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with eps 1e-6 and fp32 statistics, optionally followed by
+    SiLU (``fuse_silu``), over (B, C, L). Runs kernel K1 on CUDA tensors
+    and its plain version on CPU tensors; output in the input's dtype."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 eps: float = 1e-6, fuse_silu: bool = False):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.fuse_silu = fuse_silu
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x.contiguous(), self.weight, self.bias, self.num_groups,
+                               self.eps, self.fuse_silu)
+
+
+def cast_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every parameter to ``dtype`` except GroupNorm's, which stay fp32
+    (the kernels take the affine in fp32). In place; returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, GroupNorm32):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embeddings (B,) -> (B, dim), [cos | sin], fp32,
+    zero-padded when dim is odd."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device)
+                      / half)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class SelfAttention1d(nn.Module):
+    """Self-attention over the length axis of (B, C, L), without residual.
+
+    One 1x1 qkv convolution; per head, q and k are each scaled by d^-1/4
+    in fp32 and cast back to the compute dtype; softmax in fp32 (inside
+    ``scaled_dot_product_attention``, with its own scale set to 1); a 1x1
+    output projection."""
+
+    def __init__(self, channels: int, num_heads: int = 1):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"channels {channels} not divisible by heads {num_heads}")
+        self.num_heads = num_heads
+        self.qkv = conv1d(channels, 3 * channels, 1)
+        self.proj_out = conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, l = x.shape
+        h = self.num_heads
+        d = c // h
+        q, k, v = self.qkv(x).reshape(b, h, 3 * d, l).split(d, dim=2)
+        scale = 1.0 / math.sqrt(math.sqrt(d))
+        q = (q.float() * scale).to(x.dtype).transpose(-1, -2)  # (B, h, L, d)
+        k = (k.float() * scale).to(x.dtype).transpose(-1, -2)
+        out = F.scaled_dot_product_attention(q, k, v.transpose(-1, -2),
+                                             scale=1.0)
+        return self.proj_out(out.transpose(-1, -2).reshape(b, c, l))
+
+
+class AttentionBlock1d(SelfAttention1d):
+    """GroupNorm (no SiLU) -> self-attention -> residual add. Parameters are
+    named as the reference UNet's AttentionBlock (norm, qkv, proj_out)."""
+
+    def __init__(self, channels: int, num_heads: int = 1, num_groups: int = 32):
+        super().__init__(channels, num_heads)
+        self.norm = GroupNorm32(channels, num_groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + super().forward(self.norm(x))

@@ -1,0 +1,173 @@
+"""1-D diffusion UNet in torch's (B, C, L) layout.
+
+Counterpart of ``sleepgen/nn/unet1d.py`` (reference ``UNetModel`` with the
+LDM configuration: model_channels 128, channel_mult [1, 2, 4], two
+resblocks per level, attention at ds 4 and in the middle, one head,
+resblocks that resample, no scale-shift norm). Submodules carry the
+reference UNetModel's names (``time_embed.0``, ``input_blocks.1.0.in_layers.2``,
+...), so state dicts of ``sleepgen.utils.torch_export.export_unet1d`` load
+with ``strict=True``.
+
+Every resblock GroupNorm -> SiLU -> Conv1d(k=3) chain runs as kernel K2:
+chain 1 when the block does not resample, chain 2 always. The up/down
+chain 1, the attention norms and the output norm run kernel K1.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sleepgen_torch.kernels.fused_resblock import gn_silu_conv3
+from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, conv1d,
+                                      timestep_embedding)
+
+
+def _chain(norm: GroupNorm32, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """conv(SiLU(norm(x))) as one K2 call (cuDNN may hand back strided
+    convolution outputs; the kernel takes contiguous ones)."""
+    return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight, conv.bias,
+                         norm.num_groups, norm.eps)
+
+
+class TimestepResBlock(nn.Module):
+    """Resblock with an additive timestep embedding and optional built-in
+    nearest-upsample (``up``) or average-pool (``down``) of both h and x
+    after the first norm. ModuleDict keys keep the reference's Sequential
+    indices (in_layers.0 norm, in_layers.2 conv, emb_layers.1 linear,
+    out_layers.0 norm, out_layers.3 conv)."""
+
+    def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
+                 num_groups: int = 32, up: bool = False, down: bool = False):
+        super().__init__()
+        self.up, self.down = up, down
+        self.in_layers = nn.ModuleDict({
+            "0": GroupNorm32(in_channels, num_groups, fuse_silu=True),
+            "2": conv1d(in_channels, out_channels, 3)})
+        self.emb_layers = nn.ModuleDict({"1": nn.Linear(emb_channels, out_channels)})
+        self.out_layers = nn.ModuleDict({
+            "0": GroupNorm32(out_channels, num_groups, fuse_silu=True),
+            "3": conv1d(out_channels, out_channels, 3)})
+        self.skip_connection = (conv1d(in_channels, out_channels, 1)
+                                if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, emb_act: torch.Tensor) -> torch.Tensor:
+        """x (B, C_in, L); emb_act = SiLU(emb), (B, emb_channels)."""
+        norm1, conv1 = self.in_layers["0"], self.in_layers["2"]
+        if self.up or self.down:
+            h = norm1(x)
+            if self.up:
+                h, x = h.repeat_interleave(2, dim=-1), x.repeat_interleave(2, dim=-1)
+            else:
+                h, x = F.avg_pool1d(h, 2), F.avg_pool1d(x, 2)
+            h = conv1(h)
+        else:
+            h = _chain(norm1, conv1, x)
+        h = h + self.emb_layers["1"](emb_act)[:, :, None]
+        h = _chain(self.out_layers["0"], self.out_layers["3"], h)
+        if self.skip_connection is not None:
+            x = self.skip_connection(x)
+        return x + h
+
+
+class UNet1d(nn.Module):
+    """Diffusion UNet: (B, in_channels, L) noisy latent and (B,) timesteps
+    (and (B,) labels when ``num_classes`` > 0; a label < 0 is the
+    classifier-free-guidance null label) -> (B, out_channels, L) fp32.
+
+    Only the reference configurations' options are ported: resblocks that
+    resample (``resblock_updown``) and additive timestep conditioning."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 model_channels: int = 128, channel_mult: Sequence[int] = (1, 2, 4),
+                 num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 4),
+                 num_heads: int = 1, num_groups: int = 32, num_classes: int = 0,
+                 resblock_updown: bool = True, use_scale_shift_norm: bool = False,
+                 dropout: float = 0.0):
+        super().__init__()
+        if not resblock_updown or use_scale_shift_norm or dropout:
+            raise NotImplementedError(
+                "the port supports resblock_updown=True, use_scale_shift_norm="
+                "False and dropout=0 (every reference configuration)")
+        mc = model_channels
+        emb_ch = 4 * mc
+        levels = len(channel_mult)
+        self.model_channels = mc
+        self.levels = levels
+        self.num_classes = num_classes
+        self.time_embed = nn.ModuleDict({"0": nn.Linear(mc, emb_ch),
+                                         "2": nn.Linear(emb_ch, emb_ch)})
+        if num_classes:
+            self.label_emb = nn.Embedding(num_classes, emb_ch)
+
+        def res(cin, cout, **kw):
+            return TimestepResBlock(cin, cout, emb_ch, num_groups, **kw)
+
+        def attn(ch):
+            return AttentionBlock1d(ch, num_heads, num_groups)
+
+        blocks = [nn.ModuleList([conv1d(in_channels, mc, 3)])]
+        skip_chans = [mc]
+        ch, ds = mc, 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, mult * mc)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                blocks.append(nn.ModuleList(layers))
+                skip_chans.append(ch)
+            if level != levels - 1:
+                blocks.append(nn.ModuleList([res(ch, ch, down=True)]))
+                skip_chans.append(ch)
+                ds *= 2
+        self.input_blocks = nn.ModuleList(blocks)
+        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
+        blocks = []
+        for level in reversed(range(levels)):
+            mult = channel_mult[level]
+            for i in range(num_res_blocks + 1):
+                layers = [res(ch + skip_chans.pop(), mult * mc)]
+                ch = mult * mc
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                if level > 0 and i == num_res_blocks:
+                    layers.append(res(ch, ch, up=True))
+                    ds //= 2
+                blocks.append(nn.ModuleList(layers))
+        self.output_blocks = nn.ModuleList(blocks)
+        self.out = nn.ModuleDict({"0": GroupNorm32(ch, num_groups, fuse_silu=True),
+                                  "2": conv1d(ch, out_channels, 3)})
+
+    @staticmethod
+    def _run(layers: nn.ModuleList, h: torch.Tensor, emb_act: torch.Tensor) -> torch.Tensor:
+        for m in layers:
+            h = m(h, emb_act) if isinstance(m, TimestepResBlock) else m(h)
+        return h
+
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: torch.Tensor | None = None) -> torch.Tensor:
+        if x.shape[-1] % 2 ** (self.levels - 1):
+            raise ValueError(f"length {x.shape[-1]} must divide 2**{self.levels - 1}")
+        conv_in = self.input_blocks[0][0]
+        dtype = conv_in.weight.dtype
+        t_emb = timestep_embedding(timesteps, self.model_channels).to(dtype)
+        emb = self.time_embed["2"](F.silu(self.time_embed["0"](t_emb)))
+        if self.num_classes:
+            if y is None:
+                raise ValueError("class-conditional model needs labels y")
+            l_emb = self.label_emb(y.clamp(min=0))
+            emb = emb + torch.where((y >= 0)[:, None], l_emb, torch.zeros_like(l_emb))
+        emb_act = F.silu(emb)
+
+        h = conv_in(x.to(dtype))
+        hs = [h]
+        for layers in self.input_blocks[1:]:
+            h = self._run(layers, h, emb_act)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb_act)
+        for layers in self.output_blocks:
+            h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb_act)
+        return self.out["2"](self.out["0"](h)).float()
