@@ -20,24 +20,29 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, one line each:
   5. full width: ``sample_ldm_trials`` at the flagship configuration
      (UNet mc 128 / [1, 2, 4] / attention [8, 4] / G 32 / latent 768 x 1,
      AEKL [32, 32, 64], bf16), batch 64, 200 DDIM steps, seeded random
-     weights; the launch counts must equal those derived from the
-     configuration; prints windows/s;
+     weights, called once per batch for three batches after the warm-up;
+     each batch's launch counts must equal those derived from the
+     configuration; prints each batch's seconds and the median windows/s;
+     then one batch in a fresh process (``--cold-batch``), the first batch
+     a user of the entry point pays for (kernels already on disk);
   6. timings: each kernel at each main-path shape in bf16: kernel, plain
      version, one-PyTorch-call yardstick (``library_ms``) and the bound;
-  7. profile: model build and one AEKL decode on the host clock; five
-     full-width DDIM steps on the host clock, then again under
-     torch.profiler: device time per step by kernel, and the device's
-     busy share of the wall time.
+  7. profile: model build and one AEKL decode on the host clock; the PSD's
+     scipy import (fresh process) and DPSS taper solve; five full-width
+     DDIM steps on the host clock, then again under torch.profiler: device
+     time per step by kernel, and the device's busy share of the wall time.
 
 The line before the device line at the end is one JSON object with every
-kernel's launches, error and times (summed over the main path's launches,
-in ms per batch); the last line is {"ok": true, "device": {...}}. Per-shape
-details go to chiprun_out/chip_smoke_report.json. Any failure raises and
-the script exits non-zero without the last line.
+kernel's launches in one batch of the main path, its error and its times
+(each shape's time times its launches in that batch, summed: ms per
+batch); the last line is {"ok": true, "device": {...}}. Per-shape details
+go to chiprun_out/chip_smoke_report.json. Any failure raises and the
+script exits non-zero without the last line.
 """
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -53,11 +58,12 @@ sys.path.insert(0, str(ROOT))
 
 from sleepgen_torch.config import Config  # noqa: E402
 from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
-from sleepgen_torch.nn.layers import cast_compute_dtype  # noqa: E402
-from sleepgen_torch.sample.sample_ldm import (build_aekl, build_unet,  # noqa: E402
-                                              sample_ldm_trials, sampling_schedule)
+from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
+from sleepgen_torch.sample.sample_ldm import (build_aekl, build_models,  # noqa: E402
+                                              build_unet, sample_ldm_trials,
+                                              sampling_schedule)
 from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
-from sleepgen_torch.utils.weights import load_numpy_state, seeded_state_dict  # noqa: E402
+from sleepgen_torch.utils.weights import seeded_state_dict  # noqa: E402
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
 # fp32 CUDA-core operations/s.
@@ -66,8 +72,9 @@ BF16_TC_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 GN_OPS_PER_ELEMENT = 12  # stats 4, normalise + affine 4, SiLU 4
 BATCH, STEPS, SEED = 64, 200, 0
+TIMED_BATCHES = 3
 
-K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"
+K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
 K1_REPLACES = "sleepgen/pallas_kernels/group_norm.py:125"
 K2_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:142"
@@ -166,11 +173,14 @@ def k1_bound(key, dtype):
 
 
 def k2_bound(key, dtype):
+    """The convolution's products on the tensor cores and the GroupNorm's
+    fp32 work on the CUDA cores can overlap, so the least time is the
+    largest of the three times, not a sum."""
     b, cin, cout, l, *_ = key
     t_bytes = ((b * cin * l + cout * cin * 3 + cout + b * cout * l) * dtype.itemsize
                + 8 * cin) / HBM_BYTES_PER_S
-    t_ops = (2 * 3 * b * l * cin * cout / BF16_TC_OPS_PER_S
-             + GN_OPS_PER_ELEMENT * b * cin * l / FP32_OPS_PER_S)
+    t_ops = max(2 * 3 * b * l * cin * cout / BF16_TC_OPS_PER_S,
+                GN_OPS_PER_ELEMENT * b * cin * l / FP32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -247,8 +257,7 @@ def phase_device() -> str:
 def phase_build() -> dict:
     t0 = time.perf_counter()
     logs = _build.build()
-    for name in _build.LIBRARIES:
-        _build.load(name)
+    _build.load()
     say("build", seconds=f"{time.perf_counter() - t0:.2f}", built=",".join(logs) or "cached")
     return logs
 
@@ -256,9 +265,10 @@ def phase_build() -> dict:
 def phase_checks(tmp: Path) -> tuple:
     """One DDIM step of the main path records the shapes it gives each
     kernel (the counts of that warm-up run are discarded), then every
-    kernel is checked at every shape. The warm-up also fills the
-    process's caches (cuDNN plans, the PSD's DPSS tapers, which scipy
-    takes seconds to solve), so phase 5 times a steady-state batch."""
+    kernel is checked at every shape. The warm-up also pays the
+    process's one-time costs (cuDNN plans, the import of scipy.signal for
+    the PSD's tapers, which takes seconds), so phase 5 times steady-state
+    batches."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     reset_counts()
@@ -292,28 +302,63 @@ def phase_tiny(tmp: Path) -> None:
 
 
 def phase_full(tmp: Path) -> dict:
+    """Three full-width batches, each one call of the entry point as a
+    user makes it (model build, 200 steps, decode, artifacts), with the
+    counts set to 0 before and read after each."""
     cfg = flagship_config(steps=STEPS)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
-    reset_counts()
-    torch.cuda.synchronize()
+    want = expected_launches(cfg, unet_forwards=STEPS, decodes=1)
+    seconds = []
+    for i in range(TIMED_BATCHES):
+        seeds = (i * BATCH, (i + 1) * BATCH)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "full", *seeds, BATCH)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = {"K1": group_norm.launches, "K2": fused_resblock.launches}
+        shapes = {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes)}
+        if out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"full-width output {out.shape}, finite={np.isfinite(out).all()}")
+        if launches != want or min(launches.values()) == 0:
+            raise AssertionError(f"batch {i}: launches {launches}, expected {want}")
+        if not (tmp / "full" / f"sample_{seeds[1] - 1}.npy").exists():
+            raise AssertionError("artifacts missing")
+        say("full", batch=i, shape=out.shape, seconds=f"{seconds[-1]:.3f}",
+            k1_launches=launches["K1"], k2_launches=launches["K2"], out_std=f"{out.std():.4f}")
+    median = statistics.median(seconds)
+    say("full", batches=TIMED_BATCHES, median_seconds=f"{median:.3f}",
+        min_seconds=f"{min(seconds):.3f}", max_seconds=f"{max(seconds):.3f}",
+        windows_per_s=f"{BATCH / median:.3f}")
+    return dict(seconds=seconds, median_seconds=median, windows_per_s=BATCH / median,
+                launches=launches, shapes=shapes)
+
+
+def cold_batch(out_dir: str) -> None:
+    """Body of ``--cold-batch``: one full-width batch through the entry
+    point in this fresh process; prints its seconds as JSON. The clock
+    starts after ``import torch`` and the weights are made, before the
+    process first touches the card, so it includes the CUDA context."""
+    cfg = flagship_config(steps=STEPS)
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
     t0 = time.perf_counter()
-    out = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "full", 0, BATCH, BATCH)
+    out = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, out_dir, 0, BATCH, BATCH)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"K1": group_norm.launches, "K2": fused_resblock.launches}
-    shapes = {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes)}
     if out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
-        raise AssertionError(f"full-width output {out.shape}, finite={np.isfinite(out).all()}")
-    want = expected_launches(cfg, unet_forwards=STEPS, decodes=1)
-    if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    if not (tmp / "full" / f"sample_{BATCH - 1}.npy").exists():
-        raise AssertionError("artifacts missing")
-    say("full", shape=out.shape, seconds=f"{seconds:.3f}",
-        windows_per_s=f"{BATCH / seconds:.3f}", k1_launches=launches["K1"],
-        k2_launches=launches["K2"], out_std=f"{out.std():.4f}")
-    return dict(seconds=seconds, windows_per_s=BATCH / seconds, launches=launches,
-                shapes=shapes)
+        raise AssertionError(f"cold batch output {out.shape}")
+    print(json.dumps({"cold_seconds": seconds}), flush=True)
+
+
+def phase_cold(tmp: Path) -> dict:
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cold-batch",
+                           str(tmp / "cold")], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cold batch failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    seconds = json.loads(proc.stdout.strip().splitlines()[-1])["cold_seconds"]
+    say("cold", seconds=f"{seconds:.3f}", windows_per_s=f"{BATCH / seconds:.3f}")
+    return dict(seconds=seconds, windows_per_s=BATCH / seconds)
 
 
 def phase_timings(full: dict, checks: dict) -> list:
@@ -353,12 +398,31 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def time_psd_setup() -> dict:
+    """The PSD's one-time costs: importing scipy's windows module in a
+    fresh process that has numpy loaded, and solving the 3000-sample DPSS
+    tapers (cache cleared before each of three solves; median)."""
+    code = ("import time, numpy; t = time.perf_counter(); import scipy.signal.windows; "
+            "print(time.perf_counter() - t)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          check=True, timeout=120)
+    scipy_import_ms = float(proc.stdout.strip().splitlines()[-1]) * 1e3
+    solves = []
+    for _ in range(3):
+        dpss_tapers.cache_clear()
+        t0 = time.perf_counter()
+        dpss_tapers(3000)
+        solves.append((time.perf_counter() - t0) * 1e3)
+    return dict(scipy_import_ms=scipy_import_ms, dpss_ms=statistics.median(solves),
+                dpss_ms_all=solves)
+
+
 def phase_profile() -> dict:
     """Where a full-width batch's time goes: model build (as
-    sample_ldm_trials does it), five DDIM steps (UNet forward + step,
-    batch 64, bf16) on the host clock and then under torch.profiler
-    (device time per step by kernel; busy share = device time / wall
-    time), and one AEKL decode."""
+    sample_ldm_trials does it), the PSD's one-time set-up, five DDIM
+    steps (UNet forward + step, batch 64, bf16) on the host clock and then
+    under torch.profiler (device time per step by kernel; busy share =
+    device time / wall time), and one AEKL decode."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -366,13 +430,10 @@ def phase_profile() -> dict:
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.device("cuda"):
-        unet = load_numpy_state(build_unet(cfg, 1, 1), unet_sd)
-        ae = load_numpy_state(build_aekl(cfg), ae_sd)
-    cast_compute_dtype(unet.eval(), torch.bfloat16)
-    cast_compute_dtype(ae.eval(), torch.bfloat16)
+    unet, ae = build_models(cfg, unet_sd, ae_sd, torch.device("cuda"))
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
+    psd_setup = time_psd_setup()
     sched = sampling_schedule(cfg, "cuda")
     x = torch.randn((BATCH, 1, 768), device="cuda")
     n = 5
@@ -395,11 +456,13 @@ def phase_profile() -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     by_name = sorted(((_device_us(e) / 1e3 / n, e.key) for e in kernels), reverse=True)
     device_ms = sum(ms for ms, _ in by_name)
-    out = dict(build_ms=build_ms, decode_ms=decode_ms, step_ms=step_ms,
+    out = dict(build_ms=build_ms, decode_ms=decode_ms, step_ms=step_ms, **psd_setup,
                device_ms_per_step=device_ms,
                busy_share=device_ms / step_ms if step_ms else 0.0,
                top=[dict(ms_per_step=ms, kernel=name[:120]) for ms, name in by_name[:12]])
     say("profile", build_ms=f"{build_ms:.1f}", decode_ms=f"{decode_ms:.3f}",
+        scipy_import_ms=f"{psd_setup['scipy_import_ms']:.1f}",
+        dpss_ms=f"{psd_setup['dpss_ms']:.1f}",
         step_ms=f"{step_ms:.3f}", device_ms_per_step=f"{device_ms:.3f}",
         busy_share=f"{out['busy_share']:.3f}", kernels=len(kernels))
     for row in out["top"][:8]:
@@ -417,10 +480,12 @@ def main() -> int:
         _, checks = phase_checks(tmp)
         phase_tiny(tmp)
         full = phase_full(tmp)
+        cold = phase_cold(tmp)
     rows, per_shape = phase_timings(full, checks)
     prof = phase_profile()
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
-                  full_seconds=full["seconds"], batch=BATCH, steps=STEPS,
+                  full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
+                  cold=cold, batch=BATCH, steps=STEPS,
                   kernels=rows, per_shape=per_shape, profile=prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
@@ -435,4 +500,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold-batch"]:
+        cold_batch(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -238,9 +238,8 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
                           int G, float eps, cudaStream_t stream) {
   const int n = (Cin / G) * L;
   const int nchunks = stats_chunks(n);
-  gn_partial_stats<T><<<dim3(B * G, nchunks), kStatsThreads, 0, stream>>>(
-      static_cast<const T*>(x), n, nchunks, static_cast<float3*>(partial));
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
+                                               static_cast<float3*>(partial), stream);
   if (err != cudaSuccess) return err;
   const float3* part = static_cast<const float3*>(partial);
   const float* sc = static_cast<const float*>(scale);
@@ -264,11 +263,6 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
 
 extern "C" {
 
-// Floats of scratch the wrapper allocates for the partial statistics.
-int sg_gn_scratch_floats(int B, int C, int L, int G) {
-  return 3 * B * G * sg::stats_chunks((C / G) * L);
-}
-
 // x: (B, Cin, L), w: (Cout, Cin, 3), b: (Cout,), y: (B, Cout, L), all
 // contiguous in one dtype (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32.
 // Returns the cudaError_t of the launches (0 = success).
@@ -286,7 +280,5 @@ int sg_gn_silu_conv3(const void* x, const void* scale, const void* bias, const v
                                           eps, s);
   return (int)cudaErrorInvalidValue;
 }
-
-const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

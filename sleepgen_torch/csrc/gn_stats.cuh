@@ -4,9 +4,9 @@
 // Layout: x is (B, C, L), contiguous, so the group (b, g) is one contiguous
 // run of n = (C / G) * L elements starting at (b * G + g) * n.
 //
-// Pass 1 (gn_partial_stats) cuts every group into chunks of kStatsChunk
-// elements, one block per (group, chunk), and writes each chunk's
-// (count, mean, M2) in fp32: a two-pass mean, then sum of squared
+// Pass 1 (launch_partial_stats, gn_stats.cu) cuts every group into chunks
+// of kStatsChunk elements, one block per (group, chunk), and writes each
+// chunk's (count, mean, M2) in fp32: a two-pass mean, then sum of squared
 // deviations, over values held in registers. The consumer kernels merge a
 // group's chunks with Chan's parallel formula (merge_group). Splitting the
 // reduction over blocks keeps the card busy when groups are few and long
@@ -40,54 +40,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
-// Sum over the block (blockDim.x a multiple of 32, at most 1024); every
-// thread gets the result. red needs 33 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) red[32] = v;
-  }
-  __syncthreads();
-  return red[32];
-}
-
-// grid (B * G, nchunks), kStatsThreads threads; partial[(b*G + g) * nchunks + chunk].
-template <typename T>
-__global__ void __launch_bounds__(kStatsThreads)
-gn_partial_stats(const T* __restrict__ x, int n, int nchunks, float3* __restrict__ partial) {
-  __shared__ float red[33];
-  const int64_t bg = blockIdx.x;
-  const int start = blockIdx.y * kStatsChunk;
-  const int cnt = min(kStatsChunk, n - start);
-  const T* xg = x + bg * n + start;
-  float v[kStatsPerThread];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kStatsPerThread; ++i) {
-    const int idx = i * kStatsThreads + threadIdx.x;
-    v[i] = idx < cnt ? to_f(xg[idx]) : 0.f;
-    s += v[i];
-  }
-  const float mean = block_sum(s, red) / cnt;
-  float m2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < kStatsPerThread; ++i) {
-    const int idx = i * kStatsThreads + threadIdx.x;
-    const float d = v[i] - mean;
-    m2 += idx < cnt ? d * d : 0.f;
-  }
-  m2 = block_sum(m2, red);
-  if (threadIdx.x == 0) partial[bg * nchunks + blockIdx.y] = make_float3((float)cnt, mean, m2);
-}
-
 // Chan et al.'s pairwise update over one group's chunks -> mean, 1/sqrt(var + eps)
 // with the biased variance, as torch's GroupNorm.
 __device__ __forceinline__ void merge_group(const float3* __restrict__ p, int nchunks, float eps,
@@ -106,5 +58,12 @@ __device__ __forceinline__ void merge_group(const float3* __restrict__ p, int nc
 }
 
 inline int stats_chunks(int n) { return (n + kStatsChunk - 1) / kStatsChunk; }
+
+// Pass 1 over `groups` groups of n elements each: writes
+// partial[group * stats_chunks(n) + chunk]. Defined for float and
+// __nv_bfloat16 in gn_stats.cu.
+template <typename T>
+cudaError_t launch_partial_stats(const T* x, int groups, int n, float3* partial,
+                                 cudaStream_t stream);
 
 }  // namespace sg

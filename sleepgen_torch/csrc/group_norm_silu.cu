@@ -52,9 +52,8 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, vo
   const int n = cpg * L;
   const int nchunks = stats_chunks(n);
   const dim3 grid(B * G, nchunks);
-  gn_partial_stats<T><<<grid, kStatsThreads, 0, stream>>>(
-      static_cast<const T*>(x), n, nchunks, static_cast<float3*>(partial));
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
+                                               static_cast<float3*>(partial), stream);
   if (err != cudaSuccess) return err;
   gn_apply<T><<<grid, kStatsThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float3*>(partial), nchunks,
@@ -66,11 +65,6 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, vo
 }  // namespace sg
 
 extern "C" {
-
-// Floats of scratch the wrapper allocates for the partial statistics.
-int sg_gn_scratch_floats(int B, int C, int L, int G) {
-  return 3 * B * G * sg::stats_chunks((C / G) * L);
-}
 
 // x, y: (B, C, L) contiguous, dtype 0 = fp32, 1 = bf16; scale, bias: (C,) fp32.
 // Returns the cudaError_t of the launches (0 = success).
@@ -86,7 +80,5 @@ int sg_group_norm_silu(const void* x, const void* scale, const void* bias, void*
                                           apply_silu, s);
   return (int)cudaErrorInvalidValue;
 }
-
-const char* sg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

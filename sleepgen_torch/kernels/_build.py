@@ -1,10 +1,12 @@
-"""Builds the port's CUDA sources and loads them with ctypes.
+"""Builds the port's CUDA sources into one library and loads it with ctypes.
 
-Each ``sleepgen_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, at first use,
-into ``sleepgen_torch/_build/<name>-<hash>.so``. The hash covers every
-source under ``csrc/`` and the compiler flags, so an edited source builds
-anew and a stale library is never loaded. Nothing here runs at import.
+Every ``sleepgen_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``), one process per source, all started together; the objects
+are linked into one shared library with a plain C interface, at first
+use, as ``sleepgen_torch/_build/sleepgen_torch_kernels-<hash>.so``. The
+hash covers every source under ``csrc/`` and the compiler flags, so an
+edited source builds anew and a stale library is never loaded. Nothing
+here runs at import.
 """
 from __future__ import annotations
 
@@ -15,17 +17,26 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-LIBRARIES = ("group_norm_silu", "gn_silu_conv3")
+LIBRARY = "sleepgen_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_TIMEOUT_S = 900
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The library's C entry points: (argument types, result type).
+SIGNATURES = {
+    "sg_error_string": ([_i], ctypes.c_char_p),
+    "sg_gn_scratch_floats": ([_i] * 4, _i),
+    "sg_group_norm_silu": ([_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i, _i, _p], _i),
+    "sg_gn_silu_conv3": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p], _i),
+}
+
+_loaded: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
@@ -42,69 +53,80 @@ def find_nvcc() -> str:
     return path
 
 
-def _sources_digest() -> str:
+def _sources():
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.iterdir()):
-        if src.suffix in (".cu", ".cuh"):
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{LIBRARY}-{h.hexdigest()[:16]}.so"
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_sources_digest()}.so"
-
-
-def build(names: Sequence[str] = LIBRARIES) -> Dict[str, str]:
-    """Compile the libraries in ``names`` that are not built yet, one
-    ``nvcc`` process per source, all started together. Returns each newly
-    built library's compiler output (ptxas register and shared-memory
-    report); raises with the compiler's output if a build fails."""
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, out)
+def _run(procs: Dict[str, subprocess.Popen]) -> Dict[str, str]:
+    """Wait for every process; raise with its output if one failed."""
     logs = {}
-    try:
-        for name, (proc, tmp, out) in jobs.items():
-            log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                                   f"(exit {proc.returncode}):\n{log}")
-            os.replace(tmp, out)  # atomic: concurrent builds race safely
-            logs[name] = log
-    finally:
-        for proc, tmp, _ in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            tmp.unlink(missing_ok=True)
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):\n{log}")
+        logs[name] = log
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library ``name``, built first if needed; loaded once per process."""
+def build() -> Dict[str, str]:
+    """Compile and link the library unless it is built already. Returns
+    each source's compiler output (the ptxas register and shared-memory
+    report), empty if nothing was built; raises with the compiler's output
+    if a step fails."""
+    out = library_path()
+    if out.exists():
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"  # concurrent builds use their own files
+    objects = {src.name: BUILD_DIR / f"{src.stem}.{tag}.o"
+               for src in _sources() if src.suffix == ".cu"}
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+
+    def start(cmd):
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    procs = {}
+    try:
+        for name, obj in objects.items():
+            procs[name] = start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                 str(CSRC_DIR / name)])
+        logs = _run(procs)
+        procs = {"link": start([nvcc, "-shared", "-o", str(tmp),
+                                *map(str, objects.values())])}
+        _run(procs)
+        os.replace(tmp, out)  # atomic: concurrent builds race safely
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objects.values(), tmp):
+            path.unlink(missing_ok=True)
+    return logs
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built first if needed; loaded once per process."""
+    global _loaded
     with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
-            lib = ctypes.CDLL(str(path))
-            lib.sg_error_string.argtypes = [ctypes.c_int]
-            lib.sg_error_string.restype = ctypes.c_char_p
-            lib.sg_gn_scratch_floats.argtypes = [ctypes.c_int] * 4
-            lib.sg_gn_scratch_floats.restype = ctypes.c_int
-            _loaded[name] = lib
-    return lib
+        if _loaded is None:
+            build()
+            lib = ctypes.CDLL(str(library_path()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _loaded = lib
+    return _loaded
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

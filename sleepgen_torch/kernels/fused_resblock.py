@@ -17,7 +17,6 @@ back. Inference only: it has no gradient, as the Pallas kernels have none.
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +32,6 @@ launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
-_LIB = "gn_silu_conv3"
 
 
 def reset_counts() -> None:
@@ -51,17 +49,6 @@ def gn_silu_conv3_reference(x: torch.Tensor, scale: torch.Tensor,
     h = group_norm_silu_reference(x, scale, bias, num_groups, eps, True)
     y = F.conv1d(h.float(), w.to(x.dtype).float(), padding=1)
     return (y + b.float()[:, None]).to(x.dtype)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    fn = lib.sg_gn_silu_conv3
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = i
-    return lib
 
 
 def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -90,7 +77,7 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             or b.device != x.device or not b.is_contiguous()):
         raise ValueError(f"b must be a contiguous ({c_out},) {x.dtype} tensor "
                          f"on {x.device}")
-    lib = _lib()
+    lib = _build.load()
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
                           dtype=torch.float32, device=x.device)

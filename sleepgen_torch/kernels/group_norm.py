@@ -14,7 +14,6 @@ falls back.
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -28,7 +27,6 @@ launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_LIB = "group_norm_silu"
 
 
 def reset_counts() -> None:
@@ -51,17 +49,6 @@ def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
     if apply_silu:
         y = F.silu(y)
     return y.to(x.dtype)
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    fn = lib.sg_group_norm_silu
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = i
-    return lib
 
 
 def check_group_inputs(x: torch.Tensor, scale: torch.Tensor,
@@ -101,7 +88,7 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"no kernel for device {x.device}")
     check_group_inputs(x, scale, bias, num_groups)
     b, c, l = x.shape
-    lib = _lib()
+    lib = _build.load()
     y = torch.empty_like(x)
     scratch = torch.empty(lib.sg_gn_scratch_floats(b, c, l, num_groups),
                           dtype=torch.float32, device=x.device)

@@ -15,7 +15,7 @@ as the JAX package's does.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Mapping, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,22 @@ def build_aekl(cfg: Config) -> AutoencoderKL:
                          attention_levels=tuple(a.attention_levels),
                          with_encoder_nonlocal_attn=a.with_encoder_nonlocal_attn,
                          with_decoder_nonlocal_attn=a.with_decoder_nonlocal_attn)
+
+
+def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
+                 ae_state: Mapping[str, np.ndarray], device: torch.device,
+                 aekl_cfg: Optional[Config] = None) -> Tuple[UNet1d, AutoencoderKL]:
+    """The UNet and the AEKL on ``device`` with the given state dicts, in
+    eval mode and cast to ``cfg.dtype``."""
+    aekl_cfg = aekl_cfg or cfg
+    lc = aekl_cfg.aekl.latent_channels
+    dtype = DTYPES[cfg.dtype]
+    with torch.device(device):
+        unet = load_numpy_state(build_unet(cfg, lc, lc), unet_state)
+        ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
+    cast_compute_dtype(unet.eval(), dtype)
+    cast_compute_dtype(ae.eval(), dtype)
+    return unet, ae
 
 
 def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
@@ -121,16 +137,10 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
     dev = resolve_device(device)
     if cfg.unet.num_classes:
         raise NotImplementedError("conditional sampling is not ported yet")
-    aekl_cfg = aekl_cfg or cfg
-    lc = aekl_cfg.aekl.latent_channels
-    dtype = DTYPES[cfg.dtype]
-    with torch.device(dev):
-        unet = load_numpy_state(build_unet(cfg, lc, lc), unet_state)
-        ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
-    cast_compute_dtype(unet.eval(), dtype)
-    cast_compute_dtype(ae.eval(), dtype)
+    unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg)
     sampler = make_ldm_sampler(unet, ae, sampling_schedule(cfg, dev),
-                               latent_len=cfg.unet.image_size, latent_channels=lc,
+                               latent_len=cfg.unet.image_size,
+                               latent_channels=(aekl_cfg or cfg).aekl.latent_channels,
                                num_inference_steps=cfg.diffusion.num_inference_steps,
                                border_pad=border_pad, sampler=cfg.diffusion.sampler,
                                device=dev)

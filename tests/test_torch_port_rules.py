@@ -6,7 +6,8 @@ AST walk checks the source, since this image's interpreter imports jax at
 start-up and ``sys.modules`` cannot tell.
 
 Device: entry points run on the GPU unless given ``device="cpu"``; with no
-GPU they raise rather than fall back.
+GPU they raise rather than fall back. The kernels' build raises a clear
+error when the CUDA compiler is missing.
 """
 import ast
 from pathlib import Path
@@ -81,3 +82,15 @@ def test_cpu_device_runs_the_plain_versions():
     assert out.shape == (2, 4 * 32 - 72, 1) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     assert (group_norm.launches, fused_resblock.launches) == before
+
+
+def test_kernel_build_names_the_missing_compiler(monkeypatch, tmp_path):
+    from sleepgen_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    assert _build.library_path().parent == tmp_path / "_build"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "_build").exists()
