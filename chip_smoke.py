@@ -2,18 +2,28 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. Phases, one line each:
+CUDA toolkit: ``python3 chip_smoke.py``. It drives two paths: LDM
+sampling and stage-2 LDM training. Phases, one line each:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
      source, in parallel;
-  3. kernel checks: a one-step run of the main path records the shapes it
-     gives each kernel; at every one of them, each kernel is held to its
-     plain PyTorch version, in fp32 (TF32 off; K1 rtol 1e-5 / atol 2e-6,
-     K2 2e-4, the bounds of tests/test_pallas_kernels.py) and in bf16
-     (against the plain version in fp32 on the same bf16 inputs, to bf16
-     rounding: K1 |err| <= 2^-8 |ref| + 1e-5, K2 |err| <= 2^-8 |ref| +
-     2^-6 rms(ref), as K2 also rounds h to bf16 before its convolution);
+  3. kernel checks: one-step runs of both paths record the shapes they
+     give each kernel (a DDIM step of the sampler at batch 64; one
+     full-width training step at batch 1024, whose launch counts must
+     equal those derived from the configuration, K2 none); at every one of
+     them, each kernel is held to its plain PyTorch version, in fp32 (TF32
+     off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
+     the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
+     atol scaled by sqrt(B L), as fp32 rounding of a B L-term sum grows
+     with its square root) and in bf16 (against the plain version in fp32
+     on the same bf16 inputs, to bf16 rounding: K1 and K3's dx |err| <=
+     2^-8 |ref| + 1e-5, K2 |err| <= 2^-8 |ref| + 2^-6 rms(ref), as K2
+     also rounds h to bf16 before its convolution; K3's dscale and dbias
+     are fp32 sums, held to the fp32 bound). K3 is also checked at the
+     AEKL's G = 1 shapes at stage 1's batch 2048, B2 at its long window
+     (16, 32, 49152, G 1) and B3 at the Pallas test shapes and one
+     sampler shape;
   4. tiny sampler: 4 DDIM steps plus decode at tiny widths, on the card
      with the kernels against the CPU with the plain versions, same seeds
      and weights, fp32, at the model parity bound (rtol 2e-3 / atol 2e-4);
@@ -25,19 +35,31 @@ CUDA toolkit: ``python3 chip_smoke.py``. Phases, one line each:
      configuration; prints each batch's seconds and the median windows/s;
      then one batch in a fresh process (``--cold-batch``), the first batch
      a user of the entry point pays for (kernels already on disk);
-  6. timings: each kernel at each main-path shape in bf16: kernel, plain
-     version, one-PyTorch-call yardstick (``library_ms``) and the bound;
-  7. profile: model build and one AEKL decode on the host clock; the PSD's
+  6. tiny trainer: two Adam steps at tiny widths, fp32, on the card and on
+     the CPU from the same weights, batch, t, noise and encoder eps, loss
+     and parameters at the model bound; then one ``train_ldm`` run on the
+     card that reaches an eval, the in-training DDPM sample and a
+     checkpoint;
+  7. full-width trainer: ``train_ldm`` on a synthetic npy tree at
+     ldm.yaml's width, batch 1024, bf16, seven one-step epochs: median ms
+     per step after the first (min-max), windows/s, peak memory; launch
+     counts equal those derived from the configuration; finite losses;
+  8. timings: each kernel at each shape of its path in bf16: kernel,
+     plain version, one-PyTorch-call yardstick (``library_ms``) and the
+     bound;
+  9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
-     time per step by kernel, and the device's busy share of the wall time.
+     time per step by kernel, and the device's busy share of the wall time;
+     one full-width training step the same way.
 
 The line before the device line at the end is one JSON object with every
-kernel's launches in one batch of the main path, its error and its times
-(each shape's time times its launches in that batch, summed: ms per
-batch); the last line is {"ok": true, "device": {...}}. Per-shape details
-go to chiprun_out/chip_smoke_report.json. Any failure raises and the
-script exits non-zero without the last line.
+kernel's launches in one run of its path (K1, K2: a sampler batch; K3: a
+training step; B2, B3: on no path), its error and its times (each shape's
+time times its launches in that run, summed); the last line is
+{"ok": true, "device": {...}}. Per-shape details go to
+chiprun_out/chip_smoke_report.json. Any failure raises and the script
+exits non-zero without the last line.
 """
 from __future__ import annotations
 
@@ -57,13 +79,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from sleepgen_torch.config import Config  # noqa: E402
-from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
+from sleepgen_torch.data.synthetic import (make_synthetic_dataset, write_ids_csv,  # noqa: E402
+                                           write_synthetic_npy_tree)
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
-from sleepgen_torch.sample.sample_ldm import (build_aekl, build_models,  # noqa: E402
+from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models,  # noqa: E402
                                               build_unet, sample_ldm_trials,
                                               sampling_schedule)
 from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
-from sleepgen_torch.utils.weights import seeded_state_dict  # noqa: E402
+from sleepgen_torch.train import train_ldm as T  # noqa: E402
+from sleepgen_torch.utils.weights import load_numpy_state, seeded_state_dict  # noqa: E402
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
 # fp32 CUDA-core operations/s.
@@ -71,13 +97,29 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TC_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
 GN_OPS_PER_ELEMENT = 12  # stats 4, normalise + affine 4, SiLU 4
+# backward: xhat 2, z 2, sigmoid 3, dz 5, dxhat 1, row sums 3, dx 4
+GN_BWD_OPS_PER_ELEMENT = 20
 BATCH, STEPS, SEED = 64, 200, 0
 TIMED_BATCHES = 3
+TRAIN_BATCH = 1024  # ldm.yaml
+TRAIN_EPOCHS = 7  # one step each; the first is not timed
+VALID_WINDOWS = 64
+AEKL_BATCH = 2048  # aekl_eeg.yaml, for K3 at the AEKL's G = 1 shapes
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
+K3_SRC = "sleepgen_torch/csrc/group_norm_silu_bwd.cu"
 K1_REPLACES = "sleepgen/pallas_kernels/group_norm.py:125"
 K2_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:142"
+K3_REPLACES = "sleepgen/pallas_kernels/group_norm.py:226"
+B2_REPLACES = "sleepgen/pallas_kernels/group_norm.py:159"
+B3_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:180"
+# B2's long window, (B, C, L, G, silu, dtype) in the port's layout
+B2_SHAPES = [(16, 32, 49152, 1, True, "torch.bfloat16")]
+# B3 at the Pallas test shapes (tests/test_pallas_kernels.py:122-145) and one
+# sampler shape, (B, C_in, C_out, L, G, dtype)
+B3_SHAPES = [(2, 32, 64, 96, 32, "torch.bfloat16"), (3, 16, 16, 64, 8, "torch.bfloat16"),
+             (2, 32, 32, 128, 1, "torch.bfloat16"), (64, 512, 512, 192, 32, "torch.bfloat16")]
 
 
 def say(phase: str, **fields) -> None:
@@ -88,6 +130,7 @@ def flagship_config(steps: int) -> Config:
     cfg = Config()  # UNet mc 128 [1,2,4] attn [8,4] G 32, AEKL [32,32,64], bf16
     cfg.unet.image_size = 768
     cfg.diffusion.num_inference_steps = steps
+    cfg.train.batch_size = TRAIN_BATCH
     return cfg
 
 
@@ -109,27 +152,60 @@ def seeded_weights(cfg: Config, seed: int):
     return seeded_state_dict(unet, seed), seeded_state_dict(ae, seed + 1)
 
 
-def expected_launches(cfg: Config, unet_forwards: int, decodes: int) -> dict:
-    """Kernel launches of the sampler, derived from the configuration: K2
-    runs both chains of every plain resblock and chain 2 of every
-    resampling one; K1 runs chain 1 of the resampling resblocks, every
-    attention norm and the UNet's output norm, and every AEKL decoder
-    GroupNorm (two per resblock and norm_out)."""
+def gn_counts(cfg: Config) -> dict:
+    """The UNet's resblocks that do not resample (``plain``), those that do,
+    its attention blocks and GroupNorms, and the AEKL encoder's GroupNorms
+    (two per resblock and norm_out)."""
     u, a = cfg.unet, cfg.aekl
     levels, nrb = len(u.channel_mult), u.num_res_blocks
     plain = levels * nrb + 2 + levels * (nrb + 1)
     resampling = 2 * (levels - 1)
     attn = 1 + sum((nrb + nrb + 1) for level in range(levels)
                    if 2**level in u.attention_resolutions)
-    k1_unet = resampling + attn + 1
-    k1_decode = 2 * len(a.num_channels) * a.num_res_blocks + 1
-    return {"K1": unet_forwards * k1_unet + decodes * k1_decode,
-            "K2": unet_forwards * (2 * plain + resampling)}
+    return dict(plain=plain, resampling=resampling, attn=attn,
+                unet_gn=2 * (plain + resampling) + attn + 1,
+                coder_gn=2 * len(a.num_channels) * a.num_res_blocks + 1)
+
+
+def expected_launches(cfg: Config, unet_forwards: int, decodes: int) -> dict:
+    """Kernel launches of the sampler, derived from the configuration: K2
+    runs both chains of every plain resblock and chain 2 of every
+    resampling one; K1 runs chain 1 of the resampling resblocks, every
+    attention norm and the UNet's output norm, and every AEKL decoder
+    GroupNorm."""
+    n = gn_counts(cfg)
+    return {"K1": unet_forwards * (n["resampling"] + n["attn"] + 1) + decodes * n["coder_gn"],
+            "K2": unet_forwards * (2 * n["plain"] + n["resampling"])}
+
+
+def expected_train_launches(cfg: Config, steps: int, eval_batches: int,
+                            encodes: int = 0) -> dict:
+    """Kernel launches of training, derived from the configuration. A
+    training step runs K1 at every UNet and encoder GroupNorm and K3 at
+    every UNet GroupNorm, and no K2 (it has no backward); an eval batch
+    runs the UNet without autograd (the sampler's K1 and K2) and the
+    encoder; the scale factor is one more encode."""
+    n = gn_counts(cfg)
+    unet_eval = expected_launches(cfg, 1, 0)
+    return {"K1": steps * (n["unet_gn"] + n["coder_gn"])
+            + eval_batches * (unet_eval["K1"] + n["coder_gn"]) + encodes * n["coder_gn"],
+            "K2": eval_batches * unet_eval["K2"],
+            "K3": steps * n["unet_gn"]}
 
 
 def reset_counts() -> None:
     group_norm.reset_counts()
     fused_resblock.reset_counts()
+
+
+def read_counts() -> dict:
+    return {"K1": group_norm.launches, "K2": fused_resblock.launches,
+            "K3": group_norm.backward_launches}
+
+
+def read_shapes() -> dict:
+    return {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes),
+            "K3": dict(group_norm.backward_launch_shapes)}
 
 
 # -- kernel inputs, references, yardsticks ------------------------------------
@@ -154,6 +230,15 @@ def k2_inputs(key, dtype, seed):
     return (x, scale, bias, w, bb, g, 1e-6)
 
 
+def k3_inputs(key, dtype, seed):
+    """x, dy, scale, bias, the forward's stats (from K1), G, silu."""
+    x, scale, bias, g, eps, silu = k1_inputs(key, dtype, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    stats = group_norm.group_norm_silu_forward(x, scale, bias, g, eps, silu)[1]
+    return (x, dy, scale, bias, stats, g, silu)
+
+
 def k1_library(x, scale, bias, g, eps, silu):
     y = F.group_norm(x, g, scale.to(x.dtype), bias.to(x.dtype), eps)
     return F.silu(y) if silu else y
@@ -162,6 +247,17 @@ def k1_library(x, scale, bias, g, eps, silu):
 def k2_library(x, scale, bias, w, bb, g, eps):
     h = F.silu(F.group_norm(x, g, scale.to(x.dtype), bias.to(x.dtype), eps))
     return F.conv1d(h, w, bb, padding=1)
+
+
+def k3_library(x, dy, scale, bias, stats, g, silu):
+    """The autograd backward of F.silu(F.group_norm(...)) at the same
+    inputs: returns the call to time, the forward done outside it."""
+    xr = x.detach().requires_grad_()
+    w = scale.to(x.dtype).requires_grad_()
+    b = bias.to(x.dtype).requires_grad_()
+    y = F.group_norm(xr, g, w, b, 1e-6)
+    y = F.silu(y) if silu else y
+    return lambda: torch.autograd.grad(y, (xr, w, b), dy, retain_graph=True)
 
 
 def k1_bound(key, dtype):
@@ -184,13 +280,34 @@ def k2_bound(key, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k3_bound(key, dtype):
+    """Read x and dy once, write dx once, plus the (B, G) stats and the
+    (C,) scale, bias, dscale and dbias in fp32."""
+    b, c, l, g, *_ = key
+    n = b * c * l
+    t_bytes = (3 * n * dtype.itemsize + 8 * b * g + 16 * c) / HBM_BYTES_PER_S
+    t_ops = GN_BWD_OPS_PER_ELEMENT * n / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 KERNELS = {
-    "K1": dict(name="group_norm_silu", module=group_norm, src=K1_SRC, replaces=K1_REPLACES,
-               inputs=k1_inputs, kernel=group_norm.group_norm_silu,
+    "K1": dict(name="group_norm_silu", src=K1_SRC, replaces=K1_REPLACES, inputs=k1_inputs,
+               kernel=group_norm.group_norm_silu, plain=group_norm.group_norm_silu_reference,
+               library=k1_library, bound=k1_bound, fp32_tol=(1e-5, 2e-6)),
+    "K2": dict(name="gn_silu_conv3", src=K2_SRC, replaces=K2_REPLACES, inputs=k2_inputs,
+               kernel=fused_resblock.gn_silu_conv3,
+               plain=fused_resblock.gn_silu_conv3_reference, library=k2_library,
+               bound=k2_bound, fp32_tol=(2e-4, 2e-4)),
+    "K3": dict(name="group_norm_silu_backward", src=K3_SRC, replaces=K3_REPLACES,
+               inputs=k3_inputs, kernel=group_norm.group_norm_silu_backward,
+               plain=group_norm.group_norm_silu_backward_reference, library=k3_library,
+               bound=k3_bound, fp32_tol=(1e-4, 1e-5)),
+    "B2": dict(name="group_norm_silu_tiled", src=K1_SRC, replaces=B2_REPLACES,
+               inputs=k1_inputs, kernel=group_norm.group_norm_silu_tiled,
                plain=group_norm.group_norm_silu_reference, library=k1_library,
-               bound=k1_bound, fp32_tol=(1e-5, 2e-6)),
-    "K2": dict(name="gn_silu_conv3", module=fused_resblock, src=K2_SRC, replaces=K2_REPLACES,
-               inputs=k2_inputs, kernel=fused_resblock.gn_silu_conv3,
+               bound=k1_bound, fp32_tol=(2e-5, 2e-5)),
+    "B3": dict(name="fused_gn_silu_conv3", src=K2_SRC, replaces=B3_REPLACES,
+               inputs=k2_inputs, kernel=fused_resblock.fused_gn_silu_conv3,
                plain=fused_resblock.gn_silu_conv3_reference, library=k2_library,
                bound=k2_bound, fp32_tol=(2e-4, 2e-4)),
 }
@@ -198,32 +315,51 @@ KERNELS = {
 
 def bf16_tolerance(kid: str, ref: torch.Tensor) -> torch.Tensor:
     rtol = 2.0**-8
-    if kid == "K1":
-        return rtol * ref.abs() + 1e-5
-    return rtol * ref.abs() + 4 * rtol * ref.square().mean().sqrt()
+    if kid in ("K2", "B3"):
+        return rtol * ref.abs() + 4 * rtol * ref.square().mean().sqrt()
+    return rtol * ref.abs() + 1e-5
+
+
+def _compare(kid: str, key, got, want, bf16: bool) -> float:
+    """Max abs error of got against want, raising past the kernel's bound.
+    For K3, got and want are (dx, dscale, dbias): dx is held like an
+    output, dscale and dbias to the fp32 bound with atol scaled by
+    sqrt(B L)."""
+    rtol, atol = KERNELS[kid]["fp32_tol"]
+    if kid == "K3":
+        (dx, *params), (dx_ref, *params_ref) = got, want
+        b, l = key[0], key[2]
+        for g, w in zip(params, params_ref):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol * (b * l) ** 0.5,
+                                       msg=lambda m: f"K3 dscale/dbias at {key}: {m}")
+        err = max(float((g - w).abs().max()) for g, w in zip(params, params_ref))
+        got, want = dx, dx_ref
+    else:
+        err = 0.0
+    if bf16:
+        e = (got.float() - want.float()).abs()
+        if not bool((e <= bf16_tolerance(kid, want.float())).all()):
+            raise AssertionError(f"{kid} bf16 at {key}: max abs err {float(e.max())}")
+    else:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{kid} fp32 at {key}: {m}")
+    return max(err, float((got.float() - want.float()).abs().max()))
 
 
 def check_kernel(kid: str, key) -> dict:
+    """The kernel against its plain version at one shape: fp32 inputs, then
+    bf16 inputs against the plain version on their fp32 copies."""
     spec = KERNELS[kid]
     out = {}
-    args = spec["inputs"](key, torch.float32, seed=1)
-    got = spec["kernel"](*args)
-    torch.cuda.synchronize()
-    want = spec["plain"](*args)
-    rtol, atol = spec["fp32_tol"]
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
-                               msg=lambda m: f"{kid} fp32 at {key}: {m}")
-    out["fp32_max_abs_err"] = float((got - want).abs().max())
-
-    args = spec["inputs"](key, torch.bfloat16, seed=2)
-    got = spec["kernel"](*args)
-    torch.cuda.synchronize()
-    up = [a.float() if torch.is_tensor(a) else a for a in args]
-    want = spec["plain"](*up)
-    err = (got.float() - want).abs()
-    if not bool((err <= bf16_tolerance(kid, want)).all()):
-        raise AssertionError(f"{kid} bf16 at {key}: max abs err {float(err.max())}")
-    out["bf16_max_abs_err"] = float(err.max())
+    for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 2)):
+        args = spec["inputs"](key, dtype, seed)
+        got = spec["kernel"](*args)
+        torch.cuda.synchronize()
+        up = [a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+              for a in args]
+        want = spec["plain"](*up)
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        out[f"{tag}_max_abs_err"] = _compare(kid, key, got, want, dtype == torch.bfloat16)
     return out
 
 
@@ -238,6 +374,11 @@ def time_ms(fn, args, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def free_card() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # -- phases --------------------------------------------------------------------
@@ -262,26 +403,82 @@ def phase_build() -> dict:
     return logs
 
 
+def full_trainer(cfg: Config, ae_state):
+    """train_ldm's models, schedule and Adam on the card, and its train
+    step (scale factor 1); returns (step function, schedule, latent shape)."""
+    unet, ae, sched, opt = T.build_trainer(cfg, ae_state, cfg, "cuda")
+    step = T.make_ldm_train_step(unet, ae, sched, opt, 1.0, DTYPES[cfg.dtype])
+    return step, sched, (cfg.aekl.latent_channels, T.latent_length(cfg, 3072))
+
+
+def train_windows(n: int, seed: int) -> torch.Tensor:
+    ds = WindowDataset.from_raw(make_synthetic_dataset(n, 35.0, seed))
+    return T.windows_to_device(ds.epoch_windows(np.random.default_rng(seed)),
+                               torch.device("cuda"))
+
+
+def phase_train_step() -> tuple:
+    """One full-width training step (batch 1024, bf16) with the counts set
+    to 0 before and read after: they must equal those derived from the
+    configuration, K2 none. Returns the shapes it gave K1 and K3."""
+    cfg = flagship_config(steps=1)
+    _, ae_sd = seeded_weights(cfg, SEED)
+    step, sched, latent_shape = full_trainer(cfg, ae_sd)
+    x = train_windows(TRAIN_BATCH, SEED)
+    gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
+    inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
+    reset_counts()
+    loss = step(x, *inputs)
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    want = expected_train_launches(cfg, steps=1, eval_batches=0)
+    if counts != want or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"training step: launches {counts}, expected {want}, "
+                             f"loss {float(loss)}")
+    say("train-step", batch=TRAIN_BATCH, loss=f"{float(loss):.5f}", k1_launches=counts["K1"],
+        k3_launches=counts["K3"], k2_launches=counts["K2"],
+        k1_shapes=len(shapes["K1"]), k3_shapes=len(shapes["K3"]))
+    del step, x
+    free_card()
+    return counts, shapes
+
+
+def aekl_shapes(cfg: Config) -> dict:
+    """K3's shapes at the AEKL's G = 1 GroupNorms (stage 1 will train
+    them): the encoder's first and last resolutions, batch 2048, bf16."""
+    a = cfg.aekl
+    return {(AEKL_BATCH, a.num_channels[0], 3072, a.norm_num_groups, True, "torch.bfloat16"): 1,
+            (AEKL_BATCH, a.num_channels[-1], 768, a.norm_num_groups, True, "torch.bfloat16"): 1}
+
+
 def phase_checks(tmp: Path) -> tuple:
-    """One DDIM step of the main path records the shapes it gives each
-    kernel (the counts of that warm-up run are discarded), then every
-    kernel is checked at every shape. The warm-up also pays the
-    process's one-time costs (cuDNN plans, the import of scipy.signal for
-    the PSD's tapers, which takes seconds), so phase 5 times steady-state
-    batches."""
+    """The sampler's warm-up DDIM step and one training step record the
+    shapes each kernel gets on each path (the counts of the warm-up are
+    discarded), then every kernel is checked at every shape, K3 also at
+    the AEKL's G = 1 shapes, and B2 and B3 at theirs. The warm-up also
+    pays the process's one-time costs (cuDNN plans, the import of
+    scipy.signal for the PSD's tapers, which takes seconds), so phase 5
+    times steady-state batches."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     reset_counts()
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
     torch.cuda.synchronize()
-    shapes = {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes)}
+    sample_shapes = read_shapes()
+    train_counts, train_shapes = phase_train_step()
+    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]},
+                "K2": sample_shapes["K2"],
+                "K3": {**train_shapes["K3"], **aekl_shapes(cfg)},
+                "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
+    results = {}
+    for kid, keys in to_check.items():
+        results[kid] = {key: check_kernel(kid, key) for key in keys}
+        free_card()
+        say("check", kernel=KERNELS[kid]["name"], shapes=len(keys),
+            fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in results[kid].values()):.3e}",
+            bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in results[kid].values()):.3e}")
     reset_counts()
-    results = {kid: {key: check_kernel(kid, key) for key in shapes[kid]} for kid in KERNELS}
-    for kid, res in results.items():
-        say("check", kernel=KERNELS[kid]["name"], shapes=len(res),
-            fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in res.values()):.3e}",
-            bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in res.values()):.3e}")
-    return shapes, results
+    return dict(sample=sample_shapes, train=train_shapes, train_counts=train_counts), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -290,15 +487,15 @@ def phase_tiny(tmp: Path) -> None:
     kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
     reset_counts()
     card = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "tiny_card", device="cuda", **kw)
-    counts = (group_norm.launches, fused_resblock.launches)
+    counts = read_counts()
     cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "tiny_cpu", device="cpu", **kw)
     want = expected_launches(cfg, unet_forwards=4, decodes=1)
-    if counts != (want["K1"], want["K2"]):
+    if counts != {**want, "K3": 0}:
         raise AssertionError(f"tiny sampler launches {counts}, expected {want}")
     np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4,
                                err_msg="tiny sampler: card (kernels) vs CPU (plain)")
     say("tiny", shape=card.shape, max_abs_err=f"{np.abs(card - cpu).max():.3e}",
-        k1_launches=counts[0], k2_launches=counts[1])
+        k1_launches=counts["K1"], k2_launches=counts["K2"])
 
 
 def phase_full(tmp: Path) -> dict:
@@ -317,11 +514,10 @@ def phase_full(tmp: Path) -> dict:
         out = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "full", *seeds, BATCH)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        launches = {"K1": group_norm.launches, "K2": fused_resblock.launches}
-        shapes = {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes)}
+        launches, shapes = read_counts(), read_shapes()
         if out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
             raise AssertionError(f"full-width output {out.shape}, finite={np.isfinite(out).all()}")
-        if launches != want or min(launches.values()) == 0:
+        if launches != {**want, "K3": 0} or min(want.values()) == 0:
             raise AssertionError(f"batch {i}: launches {launches}, expected {want}")
         if not (tmp / "full" / f"sample_{seeds[1] - 1}.npy").exists():
             raise AssertionError("artifacts missing")
@@ -361,29 +557,149 @@ def phase_cold(tmp: Path) -> dict:
     return dict(seconds=seconds, windows_per_s=BATCH / seconds)
 
 
-def phase_timings(full: dict, checks: dict) -> list:
+def write_split(tmp: Path, name: str, n_train: int, n_valid: int, seed: int):
+    """A synthetic npy tree of n_train + n_valid recordings (35 s each)
+    and its two split CSVs; returns the two datasets."""
+    rows = write_synthetic_npy_tree(tmp / name, n_subjects=(n_train + n_valid + 1) // 2,
+                                    duration_s=35.0, seed=seed)
+    write_ids_csv(tmp / f"{name}_train.csv", rows[:n_train])
+    write_ids_csv(tmp / f"{name}_valid.csv", rows[n_train:n_train + n_valid])
+    return (load_split(tmp / f"{name}_train.csv", tmp / name),
+            load_split(tmp / f"{name}_valid.csv", tmp / name))
+
+
+def phase_tiny_train(tmp: Path) -> dict:
+    """Two Adam steps at tiny widths, fp32, on the card (K1, K3) and on the
+    CPU (plain versions) from the same weights, batch, t, noise and encoder
+    eps; loss and parameters held at the model bound. Then one train_ldm
+    run on the card that reaches an eval, the DDPM sample and a checkpoint."""
+    cfg = tiny_config(steps=4)
+    unet_sd, ae_sd = seeded_weights(cfg, SEED + 20)
+    rng = np.random.default_rng(SEED)
+    b, lat = 4, (1, 64)
+    x = rng.uniform(size=(b, 1, 4 * lat[1])).astype(np.float32)
+    draws = [(rng.integers(0, 1000, b), rng.standard_normal((b, *lat)).astype(np.float32),
+              rng.standard_normal((b, *lat)).astype(np.float32)) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        with torch.device(dev):
+            unet = load_numpy_state(build_unet(cfg, 1, 1), unet_sd)
+            ae = load_numpy_state(build_aekl(cfg), ae_sd).requires_grad_(False)
+        opt = torch.optim.Adam(unet.parameters(), lr=1e-4)
+        step = T.make_ldm_train_step(unet, ae, T.make_schedule(cfg, dev), opt, 1.1)
+        losses = [float(step(torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev),
+                             torch.from_numpy(n).to(dev), torch.from_numpy(e).to(dev)))
+                  for t, n, e in draws]
+        runs[dev] = (losses, {k: v.detach().cpu().numpy() for k, v in unet.state_dict().items()},
+                     read_counts())
+    (card_loss, card_p, counts), (cpu_loss, cpu_p, _) = runs["cuda"], runs["cpu"]
+    if counts["K3"] == 0 or counts["K2"]:
+        raise AssertionError(f"tiny trainer on the card: launches {counts}")
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=2e-3, atol=2e-4,
+                               err_msg="tiny trainer loss: card vs CPU")
+    for k in cpu_p:
+        np.testing.assert_allclose(card_p[k], cpu_p[k], rtol=2e-3, atol=2e-4,
+                                   err_msg=f"tiny trainer {k}: card vs CPU")
+    param_err = max(float(np.abs(card_p[k] - cpu_p[k]).max()) for k in cpu_p)
+    say("tiny-train", losses=[f"{v:.5f}" for v in card_loss],
+        loss_err=f"{max(abs(a - c) for a, c in zip(card_loss, cpu_loss)):.3e}",
+        param_max_abs_err=f"{param_err:.3e}", k1_launches=counts["K1"],
+        k3_launches=counts["K3"])
+
+    cfg.train.n_epochs, cfg.train.batch_size, cfg.train.val_interval = 2, 4, 1
+    cfg.train.output_dir = str(tmp / "tiny_train")
+    train_ds, valid_ds = write_split(tmp, "tiny_npy", 6, 2, SEED)
+    t0 = time.perf_counter()
+    result = T.train_ldm(cfg, train_ds, valid_ds, ae_sd, device="cuda")
+    seconds = time.perf_counter() - t0
+    run = Path(result.run_dir)
+    sample = np.load(run / "sample_unconditioned_1.npy")
+    missing = [n for n in ("best_model/params.npz", "final_model/scale_factor.txt",
+                           "checkpoints/step_00000004.pt") if not (run / n).exists()]
+    if missing or sample.shape != (1, 1, 3072) or not np.isfinite(sample).all():
+        raise AssertionError(f"tiny train_ldm run: missing {missing}, sample {sample.shape}")
+    say("tiny-train", run="train_ldm", seconds=f"{seconds:.2f}",
+        best_loss=f"{result.best_loss:.5f}", sample_std=f"{sample.std():.4f}")
+    return dict(losses=card_loss, cpu_losses=cpu_loss, param_max_abs_err=param_err,
+                train_ldm_seconds=seconds)
+
+
+def phase_train_full(tmp: Path) -> dict:
+    """``train_ldm`` through the entry point at ldm.yaml's width, batch
+    1024, bf16, on a synthetic npy tree: one step per epoch, eval first
+    only. Counts set to 0 before and read after the call; each epoch's
+    seconds (one step, its windows' gather and copy included) come from
+    metrics_train.jsonl."""
+    cfg = flagship_config(steps=STEPS)
+    cfg.train.n_epochs, cfg.train.val_interval = TRAIN_EPOCHS, 10 * TRAIN_EPOCHS
+    cfg.train.output_dir = str(tmp / "train_full")
+    _, ae_sd = seeded_weights(cfg, SEED)
+    train_ds, valid_ds = write_split(tmp, "npy", TRAIN_BATCH, VALID_WINDOWS, SEED + 1)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = T.train_ldm(cfg, train_ds, valid_ds, ae_sd, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(cfg, steps=TRAIN_EPOCHS, eval_batches=1, encodes=1)
+    log = [json.loads(line) for line in
+           (Path(result.run_dir) / "metrics_train.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in log]
+    ms = [r["seconds"] * 1e3 for r in log[1:]]
+    if counts != want:
+        raise AssertionError(f"train_ldm launches {counts}, expected {want}")
+    if len(log) != TRAIN_EPOCHS or not np.isfinite(losses).all() or result.stopped_on_nan:
+        raise AssertionError(f"train_ldm losses {losses}")
+    median = statistics.median(ms)
+    out = dict(batch=TRAIN_BATCH, losses=losses, step_ms=ms, median_step_ms=median,
+               windows_per_s=TRAIN_BATCH / median * 1e3, peak_bytes=peak, wall_s=wall,
+               launches=counts, scale_factor=result.scale_factor,
+               loss_falls=losses[-1] < losses[0])
+    say("train", batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, losses=[f"{v:.4f}" for v in losses],
+        loss_falls=out["loss_falls"])
+    say("train", median_ms_per_step=f"{median:.2f}", min_ms=f"{min(ms):.2f}",
+        max_ms=f"{max(ms):.2f}", windows_per_s=f"{out['windows_per_s']:.2f}",
+        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts)
+    free_card()
+    return out
+
+
+def phase_timings(paths: dict, checks: dict) -> tuple:
+    """Each kernel at each shape of its path, bf16: ms of one launch, times
+    its launches in one run of the path, summed. ``paths`` maps a row to
+    (kernel id, path name, {shape: launches in the run}, launches)."""
     rows, per_shape = [], []
-    for kid, spec in KERNELS.items():
+    for kid, path, shapes, launches in paths.values():
+        spec = KERNELS[kid]
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
         bound_kinds = set()
-        for key, count in sorted(full["shapes"][kid].items()):
+        for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
-            reps = 20 if kid == "K2" else 50
+            reps = 20 if kid in ("K2", "B3") else 50
             t = dict(ms=time_ms(spec["kernel"], args, reps),
-                     plain_ms=time_ms(spec["plain"], args, reps),
-                     library_ms=time_ms(spec["library"], args, reps))
+                     plain_ms=time_ms(spec["plain"], args, reps))
+            if kid == "K3":
+                t["library_ms"] = time_ms(spec["library"](*args), (), reps)
+            else:
+                t["library_ms"] = time_ms(spec["library"], args, reps)
             t["bound_ms"], kind = spec["bound"](key, torch.bfloat16)
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] += t[k] * count
-            per_shape.append(dict(kernel=spec["name"], shape=list(key), launches=count,
-                                  bound_by=kind, **t))
-            say("time", kernel=spec["name"], shape=key, launches=count,
+            per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
+                                  launches=count, bound_by=kind, **t))
+            say("time", kernel=spec["name"], path=path, shape=key, launches=count,
                 **{k: f"{v:.4f}" for k, v in t.items()})
+            del args
+        free_card()
         errs = checks[kid].values()
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],
-            launches=full["launches"][kid],
+            path=path, launches=launches,
             max_abs_err=max(r["bf16_max_abs_err"] for r in errs),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="operations" if "operations" in bound_kinds else "bytes",
@@ -396,6 +712,25 @@ def _device_us(event) -> float:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
+
+
+def device_profile(fn, n: int) -> tuple:
+    """Run fn n times under torch.profiler: (wall ms per run, device ms per
+    run, top kernels by device time per run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = sorted(((_device_us(e) / 1e3 / n, e.key) for e in kernels), reverse=True)
+    top = [dict(ms_per_run=ms, kernel=name[:120]) for ms, name in by_name[:12]]
+    return wall_ms, sum(ms for ms, _ in by_name), top, len(kernels)
 
 
 def time_psd_setup() -> dict:
@@ -423,9 +758,6 @@ def phase_profile() -> dict:
     steps (UNet forward + step, batch 64, bf16) on the host clock and then
     under torch.profiler (device time per step by kernel; busy share =
     device time / wall time), and one AEKL decode."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = flagship_config(steps=STEPS)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     torch.cuda.synchronize()
@@ -450,23 +782,42 @@ def phase_profile() -> dict:
         ddim_sample_loop(unet, sched, x, n)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            ddim_sample_loop(unet, sched, x, n)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    by_name = sorted(((_device_us(e) / 1e3 / n, e.key) for e in kernels), reverse=True)
-    device_ms = sum(ms for ms, _ in by_name)
+        _, device_ms, top, n_kernels = device_profile(lambda: ddim_sample_loop(unet, sched, x, 1),
+                                                      n)
     out = dict(build_ms=build_ms, decode_ms=decode_ms, step_ms=step_ms, **psd_setup,
                device_ms_per_step=device_ms,
-               busy_share=device_ms / step_ms if step_ms else 0.0,
-               top=[dict(ms_per_step=ms, kernel=name[:120]) for ms, name in by_name[:12]])
+               busy_share=device_ms / step_ms if step_ms else 0.0, top=top)
     say("profile", build_ms=f"{build_ms:.1f}", decode_ms=f"{decode_ms:.3f}",
         scipy_import_ms=f"{psd_setup['scipy_import_ms']:.1f}",
         dpss_ms=f"{psd_setup['dpss_ms']:.1f}",
         step_ms=f"{step_ms:.3f}", device_ms_per_step=f"{device_ms:.3f}",
-        busy_share=f"{out['busy_share']:.3f}", kernels=len(kernels))
-    for row in out["top"][:8]:
-        say("profile-top", ms_per_step=f"{row['ms_per_step']:.3f}", kernel=row["kernel"][:80])
+        busy_share=f"{out['busy_share']:.3f}", kernels=n_kernels)
+    for row in top[:8]:
+        say("profile-top", ms_per_step=f"{row['ms_per_run']:.3f}", kernel=row["kernel"][:80])
+    return out
+
+
+def phase_train_profile() -> dict:
+    """One full-width training step (batch 1024, bf16) under torch.profiler
+    after two warm-up steps: device time by kernel and the busy share."""
+    cfg = flagship_config(steps=1)
+    _, ae_sd = seeded_weights(cfg, SEED)
+    step, sched, latent_shape = full_trainer(cfg, ae_sd)
+    x = train_windows(TRAIN_BATCH, SEED)
+    gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
+    inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
+    for _ in range(2):
+        step(x, *inputs)
+    wall_ms, device_ms, top, n_kernels = device_profile(lambda: step(x, *inputs), 1)
+    out = dict(step_ms=wall_ms, device_ms_per_step=device_ms, busy_share=device_ms / wall_ms,
+               top=top)
+    say("profile-train", step_ms=f"{wall_ms:.2f}", device_ms_per_step=f"{device_ms:.2f}",
+        busy_share=f"{out['busy_share']:.3f}", kernels=n_kernels)
+    for row in top[:10]:
+        say("profile-train-top", ms_per_step=f"{row['ms_per_run']:.3f}",
+            kernel=row["kernel"][:80])
+    del step, x
+    free_card()
     return out
 
 
@@ -477,16 +828,28 @@ def main() -> int:
     build_logs = phase_build()
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
-        _, checks = phase_checks(tmp)
+        shapes, checks = phase_checks(tmp)
         phase_tiny(tmp)
         full = phase_full(tmp)
         cold = phase_cold(tmp)
-    rows, per_shape = phase_timings(full, checks)
+        tiny_train = phase_tiny_train(tmp)
+        train = phase_train_full(tmp)
+    step_counts = shapes["train_counts"]
+    paths = {"K1": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
+             "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
+             "K3": ("K3", "train step", shapes["train"]["K3"], step_counts["K3"]),
+             "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
+             "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
+    rows, per_shape = phase_timings(paths, checks)
+    train_k1, train_k1_shapes = phase_timings(
+        {"K1": ("K1", "train step", shapes["train"]["K1"], step_counts["K1"])}, checks)
     prof = phase_profile()
+    train_prof = phase_train_profile()
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
                   full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
-                  cold=cold, batch=BATCH, steps=STEPS,
-                  kernels=rows, per_shape=per_shape, profile=prof, build_logs=build_logs,
+                  cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
+                  kernels=rows, train_k1=train_k1, per_shape=per_shape + train_k1_shapes,
+                  profile=prof, train_profile=train_prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"

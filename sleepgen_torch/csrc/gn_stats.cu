@@ -5,25 +5,6 @@
 
 namespace sg {
 
-// Sum over the block (blockDim.x a multiple of 32, at most 1024); every
-// thread gets the result. red needs 33 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from an earlier call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) red[32] = v;
-  }
-  __syncthreads();
-  return red[32];
-}
-
 // grid (groups, nchunks), kStatsThreads threads; partial[group * nchunks + chunk].
 template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)

@@ -14,23 +14,29 @@
 // pass 1 writes per-chunk (count, mean, M2), pass 2 merges a group's
 // chunks in its first thread and normalises the chunk. x is read twice
 // (the second read mostly from L2), so the kernel moves about 1.5x the
-// bound's bytes.
+// bound's bytes. The first block of each group also writes the group's
+// (mean, rstd), which the backward (group_norm_silu_bwd.cu) reads back
+// instead of computing them again.
 #include "gn_stats.cuh"
 
 namespace sg {
 
 // grid (B * G, nchunks), kStatsThreads threads: block normalises chunk
-// blockIdx.y of group blockIdx.x.
+// blockIdx.y of group blockIdx.x; stats[group] = (mean, rstd).
 template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
 gn_apply(const T* __restrict__ x, const float3* __restrict__ partial, int nchunks,
          const float* __restrict__ scale, const float* __restrict__ bias, int n, int L,
-         int cpg, int G, float eps, int apply_silu, T* __restrict__ y) {
-  __shared__ float stats[2];
+         int cpg, int G, float eps, int apply_silu, T* __restrict__ y,
+         float2* __restrict__ stats) {
+  __shared__ float ms[2];
   const int64_t bg = blockIdx.x;
-  if (threadIdx.x == 0) merge_group(partial + bg * nchunks, nchunks, eps, &stats[0], &stats[1]);
+  if (threadIdx.x == 0) {
+    merge_group(partial + bg * nchunks, nchunks, eps, &ms[0], &ms[1]);
+    if (blockIdx.y == 0) stats[bg] = make_float2(ms[0], ms[1]);
+  }
   __syncthreads();
-  const float mean = stats[0], rstd = stats[1];
+  const float mean = ms[0], rstd = ms[1];
   const int c0 = (int)(bg % G) * cpg;
   const int start = blockIdx.y * kStatsChunk;
   const int cnt = min(kStatsChunk, n - start);
@@ -46,8 +52,8 @@ gn_apply(const T* __restrict__ x, const float3* __restrict__ partial, int nchunk
 
 template <typename T>
 static cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
-                          void* partial, int B, int C, int L, int G, float eps, int apply_silu,
-                          cudaStream_t stream) {
+                          void* stats, void* partial, int B, int C, int L, int G, float eps,
+                          int apply_silu, cudaStream_t stream) {
   const int cpg = C / G;
   const int n = cpg * L;
   const int nchunks = stats_chunks(n);
@@ -58,7 +64,7 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, vo
   gn_apply<T><<<grid, kStatsThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float3*>(partial), nchunks,
       static_cast<const float*>(scale), static_cast<const float*>(bias), n, L, cpg, G, eps,
-      apply_silu, static_cast<T*>(y));
+      apply_silu, static_cast<T*>(y), static_cast<float2*>(stats));
   return cudaGetLastError();
 }
 
@@ -66,17 +72,19 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, vo
 
 extern "C" {
 
-// x, y: (B, C, L) contiguous, dtype 0 = fp32, 1 = bf16; scale, bias: (C,) fp32.
-// Returns the cudaError_t of the launches (0 = success).
+// x, y: (B, C, L) contiguous, dtype 0 = fp32, 1 = bf16; scale, bias: (C,) fp32;
+// stats: (B * G) x (mean, rstd) fp32, written. Returns the cudaError_t of the
+// launches (0 = success).
 int sg_group_norm_silu(const void* x, const void* scale, const void* bias, void* y,
-                       void* partial, int B, int C, int L, int G, float eps, int apply_silu,
-                       int dtype, void* stream) {
+                       void* stats, void* partial, int B, int C, int L, int G, float eps,
+                       int apply_silu, int dtype, void* stream) {
   if (G <= 0 || C % G != 0 || B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sg::kFloat32)
-    return (int)sg::launch<float>(x, scale, bias, y, partial, B, C, L, G, eps, apply_silu, s);
+    return (int)sg::launch<float>(x, scale, bias, y, stats, partial, B, C, L, G, eps,
+                                  apply_silu, s);
   if (dtype == sg::kBFloat16)
-    return (int)sg::launch<__nv_bfloat16>(x, scale, bias, y, partial, B, C, L, G, eps,
+    return (int)sg::launch<__nv_bfloat16>(x, scale, bias, y, stats, partial, B, C, L, G, eps,
                                           apply_silu, s);
   return (int)cudaErrorInvalidValue;
 }

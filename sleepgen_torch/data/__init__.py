@@ -1,1 +1,1 @@
-"""Window constants and layout converters."""
+"""Window constants, transforms, the window dataset and synthetic recordings."""

@@ -1,11 +1,11 @@
-"""Noise schedules and the DDIM transition, in PyTorch.
+"""Noise schedules and the DDIM and DDPM transitions, in PyTorch.
 
 Counterpart of ``sleepgen/diffusion/schedules.py`` (MONAI DDPMScheduler /
 DDIMScheduler semantics). Beta tables are computed in float64 with numpy,
 as the reference does, and held as float32 tensors; the step math is fp32.
 Table lookups take a Python int or a per-sample integer tensor and
-broadcast against sample batches of shape (B, ...); the DDIM step takes
-the sampler loop's scalar timesteps.
+broadcast against sample batches of shape (B, ...); the DDIM and DDPM
+steps take the sampler loops' scalar timesteps.
 """
 from __future__ import annotations
 
@@ -123,4 +123,28 @@ def ddim_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, t_prev: int
         if noise is None:
             raise ValueError("eta > 0 requires noise")
         x_prev = x_prev + std * noise
+    return x_prev, x0
+
+
+def ddpm_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, x_t: torch.Tensor,
+              noise: torch.Tensor, clip_sample: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ancestral step x_t -> x_{t-1} at a scalar timestep, with the
+    fixed-small posterior variance floored at 1e-20; ``noise`` is a
+    standard normal of x_t's shape, unused at t == 0. Returns
+    (x_prev, pred_x0)."""
+    ndim = x_t.dim()
+    acp_t = sched._gather(sched.alphas_cumprod, t, ndim)
+    acp_prev = (sched._gather(sched.alphas_cumprod, t - 1, ndim) if t > 0
+                else torch.ones_like(acp_t))
+    beta_t = sched._gather(sched.betas, t, ndim)
+    x0, _ = sched.to_x0_eps(model_out, x_t, t)
+    if clip_sample:
+        x0 = x0.clamp(-1.0, 1.0)
+    coef1 = torch.sqrt(acp_prev) * beta_t / (1.0 - acp_t)
+    coef2 = torch.sqrt(1.0 - beta_t) * (1.0 - acp_prev) / (1.0 - acp_t)
+    x_prev = coef1 * x0 + coef2 * x_t
+    if t > 0:
+        var = (beta_t * (1.0 - acp_prev) / (1.0 - acp_t)).clamp(min=1e-20)
+        x_prev = x_prev + torch.sqrt(var) * noise
     return x_prev, x0

@@ -12,7 +12,9 @@ fp32, and the output has x's dtype. The weight is in torch's
 
 ``gn_silu_conv3`` runs the plain PyTorch version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
-back. Inference only: it has no gradient, as the Pallas kernels have none.
+back. Inference only: the kernel has no backward, as the Pallas kernels
+have none, so on a CUDA tensor it raises when autograd would need one
+(grad mode on and an input requiring grad) rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -40,6 +42,11 @@ def reset_counts() -> None:
     launch_shapes.clear()
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would need a gradient through any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def gn_silu_conv3_reference(x: torch.Tensor, scale: torch.Tensor,
                             bias: torch.Tensor, w: torch.Tensor,
                             b: torch.Tensor, num_groups: int,
@@ -62,6 +69,9 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return gn_silu_conv3_reference(x, scale, bias, w, b, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if needs_grad(x, scale, bias, w, b):
+        raise RuntimeError("gn_silu_conv3 has no backward: call it under torch.no_grad() "
+                           "or inference_mode, or run GroupNorm32 and the convolution")
     check_group_inputs(x, scale, bias, num_groups)
     bsz, c_in, l = x.shape
     if num_groups > MAX_GROUPS:
@@ -91,3 +101,9 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     launches += 1
     launch_shapes[(bsz, c_in, c_out, l, num_groups, str(x.dtype))] += 1
     return y
+
+
+# The Pallas ``fused_gn_silu_conv3`` (``sleepgen/pallas_kernels/fused_resblock.py:180``,
+# one batch element per program) computes the same function as the batch-tiled
+# ``fused_gn_silu_conv3_tiled``; on the card K2's grid covers the batch either way.
+fused_gn_silu_conv3 = gn_silu_conv3

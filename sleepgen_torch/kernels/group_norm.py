@@ -1,15 +1,20 @@
-"""Kernel K1: GroupNorm (+SiLU) over (B, C, L), and its plain version.
+"""Kernels K1 (GroupNorm (+SiLU) over (B, C, L)) and K3 (its backward),
+and their plain versions.
 
-Counterpart of the Pallas TPU kernel
+K1 is the counterpart of the Pallas TPU kernel
 ``sleepgen/pallas_kernels/group_norm.py::fused_group_norm_silu``, written
-in CUDA C++ for Hopper: ``sleepgen_torch/csrc/group_norm_silu.cu`` (its
-source note gives the bound and the design). Statistics are fp32 for
-either input dtype, eps defaults to 1e-6 (not torch's 1e-5), and the
-output has the input's dtype.
+in CUDA C++ for Hopper: ``sleepgen_torch/csrc/group_norm_silu.cu``. K3 is
+the counterpart of that kernel's VJP, with the closed form of
+``sleepgen/nn/fused_norm.py``: ``sleepgen_torch/csrc/group_norm_silu_bwd.cu``.
+Each source note gives the kernel's bound and design. Statistics are fp32
+for either input dtype, eps defaults to 1e-6 (not torch's 1e-5), outputs
+and dx have the input's dtype, and the parameter gradients are fp32.
 
-``group_norm_silu`` runs the plain PyTorch version only for a tensor on
-the CPU. For a CUDA tensor it launches the kernel or raises; it never
-falls back.
+``group_norm_silu`` is a ``torch.autograd.Function``: its forward saves
+x, scale, bias and the per-(batch row, group) mean and rstd, and its
+backward runs K3. Both run their plain PyTorch versions only for tensors
+on the CPU; for CUDA tensors they launch the kernel or raise, and never
+fall back.
 """
 from __future__ import annotations
 
@@ -17,22 +22,44 @@ import collections
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from sleepgen_torch.kernels import _build
 
-# Launches of the CUDA kernel in this process, and the same launches by
-# (B, C, L, G, apply_silu, dtype). chip_smoke.py zeroes both before it
-# drives the main path and reads them after.
+# Launches of the CUDA kernels in this process, and the same launches by
+# (B, C, L, G, apply_silu, dtype): K1 (``launches``) and K3
+# (``backward_launches``). chip_smoke.py zeroes them before it drives a
+# path and reads them after.
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
+backward_launches = 0
+backward_launch_shapes: collections.Counter = collections.Counter()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_counts() -> None:
-    global launches
-    launches = 0
+    global launches, backward_launches
+    launches = backward_launches = 0
     launch_shapes.clear()
+    backward_launch_shapes.clear()
+
+
+def group_stats_reference(x: torch.Tensor, num_groups: int,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """(B, G, 2) fp32 [mean, rstd] of x (B, C, L) per (batch row, group),
+    with the biased variance."""
+    xf = x.float().reshape(x.shape[0], num_groups, -1)
+    mean = xf.mean(dim=-1)
+    var = (xf - mean[..., None]).square().mean(dim=-1)
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=-1)
+
+
+def _normalized(x: torch.Tensor, stats: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """xhat = (x - mean) * rstd in fp32, (B, C, L)."""
+    b, c, l = x.shape
+    xf = x.float().reshape(b, num_groups, -1)
+    return ((xf - stats[..., :1]) * stats[..., 1:]).reshape(b, c, l)
 
 
 def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -40,15 +67,35 @@ def group_norm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
                               eps: float = 1e-6,
                               apply_silu: bool = True) -> torch.Tensor:
     """Plain PyTorch GroupNorm (+SiLU): x (B, C, L); scale, bias (C,)."""
-    b, c, l = x.shape
-    xf = x.float().reshape(b, num_groups, -1)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, l)
+    y = _normalized(x, group_stats_reference(x, num_groups, eps), num_groups)
     y = y * scale.float()[:, None] + bias.float()[:, None]
     if apply_silu:
         y = F.silu(y)
     return y.to(x.dtype)
+
+
+def group_norm_silu_backward_reference(x: torch.Tensor, dy: torch.Tensor,
+                                       scale: torch.Tensor, bias: torch.Tensor,
+                                       stats: torch.Tensor, num_groups: int,
+                                       apply_silu: bool = True):
+    """Plain closed-form backward (``sleepgen/nn/fused_norm.py:81-114``):
+    x, dy (B, C, L); stats (B, G, 2) [mean, rstd] of the forward. Returns
+    (dx in x's dtype, dscale, dbias in fp32), all math in fp32."""
+    b, c, l = x.shape
+    xhat = _normalized(x, stats, num_groups)
+    dz = dy.float()
+    if apply_silu:
+        z = xhat * scale.float()[:, None] + bias.float()[:, None]
+        sig = torch.sigmoid(z)
+        dz = dz * sig * (1.0 + z * (1.0 - sig))
+    dscale = (dz * xhat).sum(dim=(0, 2))
+    dbias = dz.sum(dim=(0, 2))
+    dxhat = (dz * scale.float()[:, None]).reshape(b, num_groups, -1)
+    xg = xhat.reshape(b, num_groups, -1)
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xg).mean(dim=-1, keepdim=True)
+    dx = stats[..., 1:] * (dxhat - m1 - xg * m2)
+    return dx.reshape(b, c, l).to(x.dtype), dscale, dbias
 
 
 def check_group_inputs(x: torch.Tensor, scale: torch.Tensor,
@@ -75,29 +122,111 @@ def check_group_inputs(x: torch.Tensor, scale: torch.Tensor,
                              f"tensor on {x.device}")
 
 
-def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int, eps: float = 1e-6,
-                    apply_silu: bool = True) -> torch.Tensor:
-    """GroupNorm + per-channel affine (+SiLU) over x (B, C, L).
-
-    scale and bias are (C,) fp32. Returns (B, C, L) in x's dtype."""
+def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                            num_groups: int, eps: float = 1e-6, apply_silu: bool = True):
+    """(y, stats) of GroupNorm (+SiLU) without a gradient: y in x's dtype,
+    stats (B, G, 2) fp32 [mean, rstd]. K1 on a CUDA tensor, the plain
+    version on a CPU one."""
     if x.device.type == "cpu":
-        return group_norm_silu_reference(x, scale, bias, num_groups, eps,
-                                         apply_silu)
+        stats = group_stats_reference(x, num_groups, eps)
+        y = _normalized(x, stats, num_groups) * scale.float()[:, None] + bias.float()[:, None]
+        return (F.silu(y) if apply_silu else y).to(x.dtype), stats
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     check_group_inputs(x, scale, bias, num_groups)
     b, c, l = x.shape
     lib = _build.load()
     y = torch.empty_like(x)
+    stats = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(b, c, l, num_groups),
                           dtype=torch.float32, device=x.device)
     code = lib.sg_group_norm_silu(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
         scratch.data_ptr(), b, c, l, num_groups, eps, int(apply_silu),
         DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "group_norm_silu")
     global launches
     launches += 1
     launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
-    return y
+    return y, stats
+
+
+def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, stats: torch.Tensor, num_groups: int,
+                             apply_silu: bool = True):
+    """(dx, dscale, dbias) of ``group_norm_silu`` at x for the output
+    gradient dy, from the forward's stats (B, G, 2). K3 on CUDA tensors,
+    the plain closed form on CPU tensors."""
+    if x.device.type == "cpu":
+        return group_norm_silu_backward_reference(x, dy, scale, bias, stats, num_groups,
+                                                  apply_silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    check_group_inputs(x, scale, bias, num_groups)
+    b, c, l = x.shape
+    dy = dy.contiguous()  # cuDNN's convolution backward may hand back strided ones
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be a {tuple(x.shape)} {x.dtype} tensor on {x.device}, "
+                         f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if (stats.shape != (b, num_groups, 2) or stats.dtype != torch.float32
+            or stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous float32 ({b}, {num_groups}, 2) "
+                         f"tensor on {x.device}")
+    lib = _build.load()
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    dbias = torch.empty_like(bias)
+    row_sums = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    code = lib.sg_group_norm_silu_bwd(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), row_sums.data_ptr(),
+        b, c, l, num_groups, int(apply_silu), DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, code, "group_norm_silu_bwd")
+    global backward_launches
+    backward_launches += 1
+    backward_launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
+    return dx, dscale, dbias
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """K1 forward, K3 backward (plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        y, stats = group_norm_silu_forward(x, scale, bias, num_groups, eps, apply_silu)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.num_groups, ctx.apply_silu = num_groups, apply_silu
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, scale, bias, stats = ctx.saved_tensors
+        dx, dscale, dbias = group_norm_silu_backward(x, dy, scale, bias, stats,
+                                                     ctx.num_groups, ctx.apply_silu)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dscale if need[1] else None,
+                dbias if need[2] else None, None, None, None)
+
+
+def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float = 1e-6,
+                    apply_silu: bool = True) -> torch.Tensor:
+    """GroupNorm + per-channel affine (+SiLU) over x (B, C, L), with a
+    gradient. scale and bias are (C,) fp32. Returns (B, C, L) in x's dtype."""
+    return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+
+
+def group_norm_silu_tiled(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
+                          tile: int = 512) -> torch.Tensor:
+    """Counterpart of the Pallas ``group_norm_silu_tiled``
+    (``sleepgen/pallas_kernels/group_norm.py:159``), the long-window form:
+    forward only, any L. ``tile`` sets the Pallas kernel's VMEM block
+    (shrunk there to a divisor of L); K1 already streams every group in
+    2048-element chunks whatever L is, so the launch is K1's and the tile
+    is only checked: a tile of 0 fails in JAX too."""
+    if tile <= 0:
+        raise ValueError(f"tile must be positive, got {tile}")
+    return group_norm_silu_forward(x, scale, bias, num_groups, eps, apply_silu)[0]

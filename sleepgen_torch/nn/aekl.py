@@ -158,6 +158,12 @@ class AutoencoderKL(nn.Module):
                           device=z_sigma.device, dtype=z_sigma.dtype)
         return z_mu + eps * z_sigma
 
+    def encode_stage_2_inputs(self, x: torch.Tensor,
+                              generator: torch.Generator) -> torch.Tensor:
+        """A posterior sample z = z_mu + eps * z_sigma of x, the diffusion
+        model's input; eps drawn from ``generator``."""
+        return self.sampling(*self.encode(x), generator)
+
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z.to(self.dtype)))
 

@@ -8,9 +8,12 @@ reference UNetModel's names (``time_embed.0``, ``input_blocks.1.0.in_layers.2``,
 ...), so state dicts of ``sleepgen.utils.torch_export.export_unet1d`` load
 with ``strict=True``.
 
-Every resblock GroupNorm -> SiLU -> Conv1d(k=3) chain runs as kernel K2:
-chain 1 when the block does not resample, chain 2 always. The up/down
-chain 1, the attention norms and the output norm run kernel K1.
+When no gradient is needed (the sampler, evals), every resblock
+GroupNorm -> SiLU -> Conv1d(k=3) chain runs as kernel K2: chain 1 when the
+block does not resample, chain 2 always. The up/down chain 1, the
+attention norms and the output norm run kernel K1. In training the chains
+run ``GroupNorm32`` (K1 forward, K3 backward) and then the convolution,
+as K2 has no backward.
 """
 from __future__ import annotations
 
@@ -20,16 +23,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sleepgen_torch.kernels.fused_resblock import gn_silu_conv3
+from sleepgen_torch.kernels.fused_resblock import gn_silu_conv3, needs_grad
 from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, conv1d,
                                       timestep_embedding)
 
 
 def _chain(norm: GroupNorm32, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """conv(SiLU(norm(x))) as one K2 call (cuDNN may hand back strided
-    convolution outputs; the kernel takes contiguous ones)."""
-    return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight, conv.bias,
-                         norm.num_groups, norm.eps)
+    """conv(SiLU(norm(x))): one K2 call when autograd needs no gradient,
+    else GroupNorm32 then the convolution. K2 takes contiguous inputs
+    (cuDNN may hand back strided convolution outputs) and the weights in
+    x's dtype (under autocast they are fp32 masters)."""
+    if needs_grad(x, norm.weight, norm.bias, conv.weight, conv.bias):
+        return conv(norm(x))
+    return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight.to(x.dtype),
+                         conv.bias.to(x.dtype), norm.num_groups, norm.eps)
 
 
 class TimestepResBlock(nn.Module):

@@ -1,0 +1,333 @@
+"""Stage-2 latent diffusion training.
+
+Counterpart of ``sleepgen/train/train_ldm.py`` (the reference's
+``train_ldm.py`` and ``training.py``): a frozen AEKL encodes each batch
+and draws a posterior sample; ``scale_factor = 1 / std(z)`` of the first
+training batch; t ~ U[0, T), z_t = add_noise(z * scale_factor, eps, t),
+and the UNet is fitted to eps (or to v) by MSE with Adam. Eval comes
+first, then every ``val_interval`` epochs, with an in-training DDPM
+sample every ``2 * val_interval``; the best model is chosen before the
+periodic checkpoint is written; a run dir with checkpoints resumes; a
+non-finite epoch loss stops training and the final model comes from the
+last finite checkpoint. Unconditional only.
+
+Precision: the UNet keeps fp32 master weights and fp32 Adam state, as
+the JAX state does, and computes in ``cfg.dtype`` under
+``torch.autocast`` (bf16 convolutions and matmuls; GroupNorm statistics,
+softmax and the loss in fp32). The frozen AEKL is cast to ``cfg.dtype``
+and runs without autograd.
+
+Random draws: JAX splits one threefry key per step, which torch cannot
+reproduce. The port's map is its own: every draw comes from a
+``torch.Generator`` on the training device, seeded from
+``(cfg.train.seed, stream, ...)`` through numpy's ``SeedSequence``
+(``make_generator``): stream 0 is a training step (by step number; draws
+the encoder's eps, then t, then the noise), 1 an eval batch (by epoch and
+batch), 2 the in-training sample (by epoch; z_T, then one noise per
+step), 3 the scale factor's encoder eps. Crop offsets come from
+``numpy.random.default_rng(cfg.train.seed)`` in the JAX package's order,
+so both packages train on the same windows.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from sleepgen_torch.config import Config
+from sleepgen_torch.data.dataset import WindowDataset
+from sleepgen_torch.diffusion.schedules import NoiseSchedule
+from sleepgen_torch.nn.aekl import AutoencoderKL
+from sleepgen_torch.nn.layers import cast_compute_dtype
+from sleepgen_torch.nn.unet1d import UNet1d
+from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl, build_unet
+from sleepgen_torch.sample.samplers import ddpm_sample_loop
+from sleepgen_torch.train.evals import masked_epoch_mean
+from sleepgen_torch.utils.checkpoint import CheckpointManager
+from sleepgen_torch.utils.device import resolve_device
+from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
+from sleepgen_torch.utils.weights import load_numpy_state
+
+TRAIN_STREAM, EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM = 0, 1, 2, 3
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# divided by the truncated normal's own standard deviation.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+# Layers the reference zero-initialises: each resblock's last conv, each
+# attention output projection and the UNet's output conv.
+ZERO_INIT_SUFFIXES = (".out_layers.3.weight", ".proj_out.weight", "out.2.weight")
+
+
+def make_generator(seed: int, device: torch.device | str, *stream: int) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, *stream)."""
+    state = np.random.SeedSequence([seed, *stream]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def make_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSchedule:
+    """The training schedule (linear betas, epsilon target by default),
+    apart from the sampler's (``sample_ldm.sampling_schedule``)."""
+    d = cfg.diffusion
+    return NoiseSchedule.create(d.beta_schedule, d.timesteps, d.linear_start, d.linear_end,
+                                prediction_type=d.prediction_type, device=device)
+
+
+def latent_length(aekl_cfg: Config, length: int) -> int:
+    """Latent length of a window of ``length`` samples: each of the AEKL's
+    downsamplings gives ceil(L / 2)."""
+    for _ in range(len(aekl_cfg.aekl.num_channels) - 1):
+        length = (length + 1) // 2
+    return length
+
+
+def init_unet_state(unet: UNet1d, seed: int) -> Dict[str, np.ndarray]:
+    """Initial UNet weights drawn with numpy from ``seed`` in state_dict
+    order, as the JAX package initialises them: kernels lecun-normal
+    (fan_in = every axis but the output one), the reference's zero-init
+    convs zero, biases zero, GroupNorm weights one."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, p in unet.state_dict().items():
+        shape = tuple(p.shape)
+        if len(shape) < 2:
+            v = np.full(shape, 1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith(ZERO_INIT_SUFFIXES):
+            v = np.zeros(shape)
+        else:
+            v = rng.standard_normal(shape)
+            while (out := np.abs(v) > 2.0).any():
+                v[out] = rng.standard_normal(int(out.sum()))
+            v *= math.sqrt(1.0 / np.prod(shape[1:])) / TRUNCATED_NORMAL_STD
+        sd[name] = v.astype(np.float32)
+    return sd
+
+
+def posterior_sample(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor) -> torch.Tensor:
+    """z = z_mu + eps * z_sigma of x (B, C, L) under the frozen AEKL, in fp32."""
+    with torch.no_grad():
+        z_mu, z_sigma = ae.encode(x)
+        return (z_mu + enc_eps.to(z_sigma.dtype) * z_sigma).float()
+
+
+def compute_scale_factor(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor) -> float:
+    """1 / std(z) of a posterior sample of the first training batch
+    (population std, as ``jnp.std``)."""
+    return float(1.0 / posterior_sample(ae, x, enc_eps).std(correction=0))
+
+
+def ldm_losses(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule, scale_factor: float,
+               x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, enc_eps: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Per-sample diffusion losses (B,) of windows x (B, C, L) at timesteps
+    t (B,), with the latent noise and the encoder's eps given (the tests
+    inject them; ``draw_step_inputs`` draws them in training)."""
+    z = posterior_sample(ae, x, enc_eps) * scale_factor
+    noisy = sched.add_noise(z, noise, t)
+    target = sched.velocity(z, noise, t) if sched.prediction_type == "v_prediction" else noise
+    with torch.autocast(x.device.type, dtype=compute_dtype,
+                        enabled=compute_dtype != torch.float32):
+        pred = unet(noisy, t)
+    return (pred.float() - target).square().mean(dim=(1, 2))
+
+
+def draw_step_inputs(gen: torch.Generator, batch: int, latent_shape, num_timesteps: int):
+    """(t, noise, enc_eps) of one step, in that order of use but drawn as
+    enc_eps, t, noise; ``latent_shape`` is (channels, length)."""
+    dev = gen.device
+    enc_eps = torch.randn((batch, *latent_shape), generator=gen, device=dev)
+    t = torch.randint(0, num_timesteps, (batch,), generator=gen, device=dev)
+    noise = torch.randn((batch, *latent_shape), generator=gen, device=dev)
+    return t, noise, enc_eps
+
+
+def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
+                        opt: torch.optim.Optimizer, scale_factor: float,
+                        compute_dtype: torch.dtype = torch.float32,
+                        ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0):
+    """``step(x, t, noise, enc_eps) -> loss``: one Adam step on the mean
+    loss, then the EMA update ``e = decay * e + (1 - decay) * p`` when
+    ``ema`` (fp32 copies of the parameters, by name) is given."""
+    named = dict(unet.named_parameters())
+
+    def train_step(x, t, noise, enc_eps) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
+                          compute_dtype).mean()
+        loss.backward()
+        opt.step()
+        if ema is not None:
+            with torch.no_grad():
+                for name, e in ema.items():
+                    e.mul_(ema_decay).add_(named[name], alpha=1.0 - ema_decay)
+        return loss.detach()
+
+    return train_step
+
+
+def make_ldm_eval_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
+                       compute_dtype: torch.dtype = torch.float32):
+    """``eval_step(x, scale_factor, t, noise, enc_eps) -> (B,)`` per-sample
+    losses, without autograd (the UNet's chains then run K2)."""
+
+    def eval_step(x, scale_factor, t, noise, enc_eps) -> torch.Tensor:
+        with torch.no_grad():
+            return ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
+                              compute_dtype)
+
+    return eval_step
+
+
+def build_trainer(cfg: Config, ae_state: Mapping[str, np.ndarray], aekl_cfg: Config,
+                  dev: torch.device | str):
+    """(unet, ae, sched, opt) on ``dev``: the UNet with fp32 master weights
+    initialised from ``cfg.train.seed``, the frozen AEKL cast to
+    ``cfg.dtype`` without autograd, the training schedule, and Adam."""
+    lc = aekl_cfg.aekl.latent_channels
+    with torch.device(dev):
+        ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
+        unet = build_unet(cfg, lc, lc)
+    cast_compute_dtype(ae.eval(), DTYPES[cfg.dtype]).requires_grad_(False)
+    load_numpy_state(unet, init_unet_state(unet, cfg.train.seed))
+    opt = torch.optim.Adam(unet.parameters(), lr=cfg.train.base_lr)
+    return unet, ae, make_schedule(cfg, dev), opt
+
+
+@dataclass
+class DiffusionTrainResult:
+    run_dir: str
+    best_loss: float
+    last_epoch: int
+    scale_factor: float
+    stopped_on_nan: bool = False
+
+
+def windows_to_device(batch: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """(B, L, 1) numpy windows -> (B, 1, L) fp32 on ``dev``."""
+    return torch.from_numpy(batch).to(dev).transpose(1, 2).contiguous()
+
+
+def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
+              ae_state: Mapping[str, np.ndarray], aekl_cfg: Optional[Config] = None,
+              run_name: Optional[str] = None,
+              device: torch.device | str = "cuda") -> DiffusionTrainResult:
+    """Train the LDM's UNet on ``train_ds`` against the frozen AEKL whose
+    port state dict is ``ae_state``; writes the run dir under
+    ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl, checkpoints/,
+    best_model/, final_model/, in-training samples)."""
+    if cfg.unet.num_classes:
+        raise NotImplementedError("conditional training (unet.num_classes > 0) is not "
+                                  "ported yet")
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+    aekl_cfg = aekl_cfg or cfg
+    lc = aekl_cfg.aekl.latent_channels
+    seed = cfg.train.seed
+
+    spe = "spectral" if cfg.spectral else "no-spectral"
+    run_name = run_name or f"ldm_eeg_{spe}_{cfg.dataset}"
+    run_dir, resume = setup_run_dir(cfg.train.output_dir, run_name)
+    cfg.to_yaml(run_dir / "config.yaml")
+    logger_t, logger_v = MetricsLogger(run_dir, "train"), MetricsLogger(run_dir, "val")
+    ckpt = CheckpointManager(run_dir)
+
+    unet, ae, sched, opt = build_trainer(cfg, ae_state, aekl_cfg, dev)
+
+    np_rng = np.random.default_rng(seed)
+    first = windows_to_device(next(train_ds.epoch_batches(cfg.train.batch_size, np_rng)), dev)
+    latent_shape = (lc, latent_length(aekl_cfg, first.shape[-1]))
+    scale_eps = torch.randn((first.shape[0], *latent_shape),
+                            generator=make_generator(seed, dev, SCALE_STREAM), device=dev)
+    scale_factor = compute_scale_factor(ae, first, scale_eps)
+
+    ema_decay = cfg.diffusion.ema_decay
+    ema = ({k: v.detach().clone() for k, v in unet.named_parameters()}
+           if ema_decay > 0.0 else None)
+    step, best_loss = 0, math.inf
+    if resume and (restored := ckpt.restore_latest()) is not None:
+        unet.load_state_dict(restored["params"])
+        opt.load_state_dict(restored["opt"])
+        if ema is not None and restored["ema"] is not None:
+            for k, v in restored["ema"].items():
+                ema[k].copy_(v)
+        step, best_loss = restored["step"], restored["best_loss"]
+        scale_factor = restored["scale_factor"]
+
+    train_step = make_ldm_train_step(unet, ae, sched, opt, scale_factor, dtype, ema, ema_decay)
+    eval_step = make_ldm_eval_step(unet, ae, sched, dtype)
+
+    def state() -> dict:
+        return dict(step=step, params=unet.state_dict(), opt=opt.state_dict(), ema=ema,
+                    best_loss=best_loss, scale_factor=scale_factor)
+
+    def model_params(st: dict):
+        return st["ema"] if ema_decay > 0.0 else st["params"]
+
+    def run_eval(epoch: int, sample: bool = False) -> float:
+        def losses(bi, batch):
+            x = windows_to_device(batch, dev)
+            gen = make_generator(seed, dev, EVAL_STREAM, epoch, bi)
+            return eval_step(x, scale_factor, *draw_step_inputs(
+                gen, x.shape[0], latent_shape, sched.num_timesteps))
+
+        val = masked_epoch_mean(len(valid_ds), valid_ds.epoch_batches(
+            cfg.train.batch_size, np_rng, shuffle=True), losses)
+        logger_v.log(epoch, {"loss": val})
+        if sample:
+            log_sample(epoch)
+        return val
+
+    def log_sample(epoch: int) -> None:
+        """One unconditional DDPM sample, decoded with and without the
+        scale factor, saved in the (B, C, L) layout."""
+        gen = make_generator(seed, dev, SAMPLE_STREAM, epoch)
+        with torch.inference_mode(), torch.autocast(dev.type, dtype=dtype,
+                                                    enabled=dtype != torch.float32):
+            z_T = torch.randn((1, *latent_shape), generator=gen, device=dev)
+            z = ddpm_sample_loop(unet, sched, z_T, gen, clip_sample=False)
+            for name, zz in (("sample_unconditioned", z / scale_factor),
+                             ("sample_noscale_unconditioned", z)):
+                np.save(run_dir / f"{name}_{epoch}.npy", ae.decode(zz).float().cpu().numpy())
+
+    steps_per_epoch = max(1, math.ceil(len(train_ds) / cfg.train.batch_size))
+    start_epoch = step // steps_per_epoch
+    last_epoch, stopped_on_nan = start_epoch, False
+    run_eval(start_epoch)  # eval first
+    for epoch in range(start_epoch, cfg.train.n_epochs):
+        last_epoch = epoch
+        t0 = time.perf_counter()
+        losses: List[torch.Tensor] = []
+        for batch in train_ds.epoch_batches(cfg.train.batch_size, np_rng):
+            x = windows_to_device(batch, dev)
+            gen = make_generator(seed, dev, TRAIN_STREAM, step)
+            losses.append(train_step(x, *draw_step_inputs(gen, x.shape[0], latent_shape,
+                                                          sched.num_timesteps)))
+            step += 1
+        mean_loss = float(torch.stack(losses).mean())
+        logger_t.log(epoch, {"loss": mean_loss, "seconds": time.perf_counter() - t0})
+        if not math.isfinite(mean_loss):
+            stopped_on_nan = True
+            break
+        if (epoch + 1) % cfg.train.val_interval == 0:
+            val_loss = run_eval(epoch, sample=(epoch + 1) % (2 * cfg.train.val_interval) == 0)
+            improved = val_loss <= best_loss  # best before save
+            if improved:
+                best_loss = val_loss
+            st = state()
+            ckpt.save(step, st)
+            if improved:
+                ckpt.save_best(model_params(st), scale_factor, cfg)
+
+    if stopped_on_nan:  # the final model is the last finite checkpoint, if any
+        final = ckpt.restore_latest()
+    else:
+        final = state()
+        ckpt.save(step, final)
+    if final is not None:
+        ckpt.save_best(model_params(final), final["scale_factor"], cfg, name="final_model")
+    logger_t.close()
+    logger_v.close()
+    return DiffusionTrainResult(str(run_dir), best_loss, last_epoch, scale_factor,
+                                stopped_on_nan)

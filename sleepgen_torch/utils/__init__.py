@@ -1,1 +1,1 @@
-"""Weights and device helpers."""
+"""Weights, device rule, run dirs, metrics and checkpoints."""

@@ -3,7 +3,8 @@
 ``unet_state_from_jax`` and ``aekl_state_from_jax`` map a flax parameter
 tree of numpy arrays (as the JAX package's ``UNet1d`` and
 ``AutoencoderKL`` hold them) to the port's ``state_dict`` names, which are
-the reference UNetModel's and MONAI's. Conventions: conv kernel
+the reference UNetModel's and MONAI's; ``unet_state_to_jax`` maps a UNet
+back. Conventions: conv kernel
 (k, in, out) -> weight (out, in, k); Dense kernel (in, out) -> weight
 (out, in); GroupNorm scale/bias -> weight/bias; Embed embedding -> weight.
 The tree's structure (levels, resblocks per level, attention) is read
@@ -15,8 +16,9 @@ recipe is in the README.
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -52,60 +54,120 @@ def _count(p: Tree, fmt: str) -> int:
     return n
 
 
-def _unet_res(sd, prefix, node) -> None:
-    _gn(sd, f"{prefix}.in_layers.0", node["GroupNorm32_0"])
-    _conv(sd, f"{prefix}.in_layers.2", node["in_conv"])
-    _dense(sd, f"{prefix}.emb_layers.1", node["emb_proj"])
-    _gn(sd, f"{prefix}.out_layers.0", node["GroupNorm32_1"])
-    _conv(sd, f"{prefix}.out_layers.3", node["out_conv"])
-    if "skip_conv" in node:
-        _conv(sd, f"{prefix}.skip_connection", node["skip_conv"])
+def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]
+                 ) -> Iterator[Tuple[str, str, Tuple[str, ...]]]:
+    """(kind, port prefix, flax path) of every layer of a UNet1d with
+    ``levels`` levels and ``nrb`` resblocks per level, in order; kind is
+    conv, dense, gn or embed. ``has(flax name, port prefix)`` says whether
+    an optional layer (attention, a skip conv, the label embedding) is
+    there. Both directions of the bridge walk this one layout."""
+
+    def res(port, name):
+        yield "gn", f"{port}.in_layers.0", (name, "GroupNorm32_0")
+        yield "conv", f"{port}.in_layers.2", (name, "in_conv")
+        yield "dense", f"{port}.emb_layers.1", (name, "emb_proj")
+        yield "gn", f"{port}.out_layers.0", (name, "GroupNorm32_1")
+        yield "conv", f"{port}.out_layers.3", (name, "out_conv")
+        if has(f"{name}/skip_conv", f"{port}.skip_connection"):
+            yield "conv", f"{port}.skip_connection", (name, "skip_conv")
+
+    def attn(port, name):
+        yield "gn", f"{port}.norm", (name, "GroupNorm32_0")
+        yield "conv", f"{port}.qkv", (name, "SelfAttention1d_0", "qkv")
+        yield "conv", f"{port}.proj_out", (name, "SelfAttention1d_0", "proj_out")
+
+    yield "dense", "time_embed.0", ("time_dense_1",)
+    yield "dense", "time_embed.2", ("time_dense_2",)
+    if has("label_emb", "label_emb"):
+        yield "embed", "label_emb", ("label_emb",)
+    yield "conv", "input_blocks.0.0", ("conv_in",)
+    blk = 1
+    for level in range(levels):
+        for i in range(nrb):
+            yield from res(f"input_blocks.{blk}.0", f"down_{level}_res_{i}")
+            if has(f"down_{level}_attn_{i}", f"input_blocks.{blk}.1"):
+                yield from attn(f"input_blocks.{blk}.1", f"down_{level}_attn_{i}")
+            blk += 1
+        if level != levels - 1:
+            yield from res(f"input_blocks.{blk}.0", f"down_{level}_downres")
+            blk += 1
+    yield from res("middle_block.0", "mid_res_1")
+    yield from attn("middle_block.1", "mid_attn")
+    yield from res("middle_block.2", "mid_res_2")
+    blk = 0
+    for level in reversed(range(levels)):
+        for i in range(nrb + 1):
+            yield from res(f"output_blocks.{blk}.0", f"up_{level}_res_{i}")
+            nxt = 1
+            if has(f"up_{level}_attn_{i}", f"output_blocks.{blk}.1"):
+                yield from attn(f"output_blocks.{blk}.1", f"up_{level}_attn_{i}")
+                nxt = 2
+            if level > 0 and i == nrb:
+                yield from res(f"output_blocks.{blk}.{nxt}", f"up_{level}_upres")
+            blk += 1
+    yield "gn", "out.0", ("GroupNorm32_0",)
+    yield "conv", "out.2", ("conv_out",)
 
 
-def _unet_attn(sd, prefix, node) -> None:
-    _gn(sd, f"{prefix}.norm", node["GroupNorm32_0"])
-    _conv(sd, f"{prefix}.qkv", node["SelfAttention1d_0"]["qkv"])
-    _conv(sd, f"{prefix}.proj_out", node["SelfAttention1d_0"]["proj_out"])
+def _node(tree: Tree, path) -> Any:
+    for part in path:
+        tree = tree[part]
+    return tree
 
 
 def unet_state_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
     """JAX ``UNet1d`` params -> the port's ``UNet1d`` state_dict (numpy)."""
     p = _params(tree)
-    levels = _count(p, "down_{}_res_0")
-    nrb = _count(p, "down_0_res_{}")
+
+    def has(name, _port):
+        try:
+            _node(p, name.split("/"))
+            return True
+        except KeyError:
+            return False
+
     sd: Dict[str, np.ndarray] = {}
-    _dense(sd, "time_embed.0", p["time_dense_1"])
-    _dense(sd, "time_embed.2", p["time_dense_2"])
-    if "label_emb" in p:
-        sd["label_emb.weight"] = np.asarray(p["label_emb"]["embedding"], np.float32)
-    _conv(sd, "input_blocks.0.0", p["conv_in"])
-    blk = 1
-    for level in range(levels):
-        for i in range(nrb):
-            _unet_res(sd, f"input_blocks.{blk}.0", p[f"down_{level}_res_{i}"])
-            if f"down_{level}_attn_{i}" in p:
-                _unet_attn(sd, f"input_blocks.{blk}.1", p[f"down_{level}_attn_{i}"])
-            blk += 1
-        if level != levels - 1:
-            _unet_res(sd, f"input_blocks.{blk}.0", p[f"down_{level}_downres"])
-            blk += 1
-    _unet_res(sd, "middle_block.0", p["mid_res_1"])
-    _unet_attn(sd, "middle_block.1", p["mid_attn"])
-    _unet_res(sd, "middle_block.2", p["mid_res_2"])
-    blk = 0
-    for level in reversed(range(levels)):
-        for i in range(nrb + 1):
-            _unet_res(sd, f"output_blocks.{blk}.0", p[f"up_{level}_res_{i}"])
-            nxt = 1
-            if f"up_{level}_attn_{i}" in p:
-                _unet_attn(sd, f"output_blocks.{blk}.1", p[f"up_{level}_attn_{i}"])
-                nxt = 2
-            if level > 0 and i == nrb:
-                _unet_res(sd, f"output_blocks.{blk}.{nxt}", p[f"up_{level}_upres"])
-            blk += 1
-    _gn(sd, "out.0", p["GroupNorm32_0"])
-    _conv(sd, "out.2", p["conv_out"])
+    convert = {"conv": _conv, "dense": _dense, "gn": _gn}
+    for kind, port, path in _unet_layers(_count(p, "down_{}_res_0"),
+                                         _count(p, "down_0_res_{}"), has):
+        if kind == "embed":
+            sd[f"{port}.weight"] = np.asarray(p["label_emb"]["embedding"], np.float32)
+        else:
+            convert[kind](sd, port, _node(p, path))
     return sd
+
+
+def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``UNet1d`` state_dict (numpy arrays or tensors) -> the JAX
+    ``UNet1d`` params tree (nested dicts of fp32 numpy arrays), the inverse
+    of ``unet_state_from_jax``: a run dir the port trains samples with
+    either package."""
+    sd = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+          for k, v in state.items()}
+    ups = {k.split(".")[1] for k in sd
+           if re.fullmatch(r"output_blocks\.\d+\.[12]\.in_layers\.0\.weight", k)}
+    levels = len(ups) + 1
+    nrb = len({k.split(".")[1] for k in sd if k.startswith("output_blocks.")}) // levels - 1
+
+    def has(_name, port):
+        return f"{port}.weight" in sd or f"{port}.qkv.weight" in sd
+
+    tree: Dict[str, Any] = {}
+    for kind, port, path in _unet_layers(levels, nrb, has):
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        w = sd[f"{port}.weight"].astype(np.float32)
+        if kind == "embed":
+            node["embedding"] = w
+            continue
+        b = sd[f"{port}.bias"].astype(np.float32)
+        if kind == "gn":
+            node["GroupNorm_0"] = {"scale": w, "bias": b}
+        else:
+            node["kernel"] = np.ascontiguousarray(w.transpose(2, 1, 0) if kind == "conv" else w.T)
+            node["bias"] = b
+    return tree
 
 
 def _aekl_res(sd, prefix, node) -> None:

@@ -1,21 +1,26 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA card and the CUDA toolkit; the ``cuda_card``
-fixture skips them elsewhere. On the H100 they run with
+Every test here needs a CUDA card and the CUDA toolkit: they carry the
+``cuda`` marker, and the ``cuda_card`` fixture skips them elsewhere. On
+the H100 they run with
 ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (``--noconftest``: the suite's conftest imports JAX, which that machine
 lacks). Tolerances: fp32 at the bounds of tests/test_pallas_kernels.py
-(K1 rtol 1e-5 / atol 2e-6, K2 2e-4), with TF32 off for the plain version;
-bf16 against the plain version in fp32 on the same bf16 inputs, to bf16
-output rounding (K2 also rounds h to bf16 before its convolution).
+(K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5, with the
+atol of K3's dscale and dbias scaled by sqrt(B L), as rounding of a
+B L-term fp32 sum grows with its square root), with TF32 off for the
+plain version; bf16 against the plain version in fp32 on the same bf16
+inputs, to bf16 output rounding (K2 also rounds h to bf16 before its
+convolution).
 """
 import numpy as np
 import pytest
 import torch
 
 from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.nn.layers import GroupNorm32
 
-pytestmark = pytest.mark.usefixtures("cuda_card")
+pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_card")]
 
 BF16_RTOL = 2.0**-8
 
@@ -114,6 +119,89 @@ def test_launch_counters_count_kernel_launches():
     fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 4)
     fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 4)
     group_norm.group_norm_silu(x.cpu(), scale.cpu(), bias.cpu(), 4)  # plain: not counted
-    assert group_norm.launches == 1
+    xg = x.clone().requires_grad_()
+    group_norm.group_norm_silu(xg, scale, bias, 4).sum().backward()
+    assert group_norm.launches == 2
+    assert group_norm.backward_launches == 1
+    assert group_norm.backward_launch_shapes[(2, 16, 32, 4, True, "torch.float32")] == 1
     assert fused_resblock.launches == 2
     assert fused_resblock.launch_shapes[(2, 16, 16, 32, 4, "torch.float32")] == 2
+
+
+def _backward_case(seed, b, c, l, g, apply_silu, dtype):
+    x, scale, bias = _inputs(seed, b, c, l)
+    x = x.to(dtype)
+    dy = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(b, c, l)).astype(
+        np.float32)).cuda().to(dtype)
+    stats = group_norm.group_norm_silu_forward(x, scale, bias, g, 1e-6, apply_silu)[1]
+    got = group_norm.group_norm_silu_backward(x, dy, scale, bias, stats, g, apply_silu)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_backward_reference(x.float(), dy.float(), scale, bias,
+                                                         stats, g, apply_silu)
+    torch.testing.assert_close(stats, group_norm.group_stats_reference(x, g), rtol=1e-5,
+                               atol=2e-6)
+    for name, gv, wv in zip(("dscale", "dbias"), got[1:], want[1:]):
+        torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-5 * (b * l) ** 0.5, msg=name)
+    return got[0], want[0]
+
+
+@pytest.mark.parametrize("b,c,l,g", [(2, 16, 64, 4), (3, 64, 768, 1), (4, 128, 768, 32),
+                                     (2, 24, 37, 8), (2, 32, 3072, 1), (5, 1024, 192, 32)])
+@pytest.mark.parametrize("apply_silu", [True, False])
+def test_group_norm_backward_kernel_fp32(b, c, l, g, apply_silu):
+    dx, want = _backward_case(6, b, c, l, g, apply_silu, torch.float32)
+    torch.testing.assert_close(dx, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,c,l,g", [(4, 128, 768, 32), (2, 32, 3072, 1), (3, 768, 192, 32)])
+def test_group_norm_backward_kernel_bf16(b, c, l, g):
+    dx, want = _backward_case(7, b, c, l, g, True, torch.bfloat16)
+    assert dx.dtype == torch.bfloat16
+    err = (dx.float() - want).abs()
+    assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()
+
+
+def test_group_norm_backward_is_deterministic():
+    x, scale, bias = _inputs(8, 8, 256, 384)
+    dy = torch.randn_like(x)
+    stats = group_norm.group_norm_silu_forward(x, scale, bias, 32)[1]
+    a = group_norm.group_norm_silu_backward(x, dy, scale, bias, stats, 32)
+    b = group_norm.group_norm_silu_backward(x, dy, scale, bias, stats, 32)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_group_norm32_gradients_on_cuda_equal_plain():
+    """GroupNorm32 (K1 forward, K3 backward) on the card against the same
+    module on the CPU (plain versions), with a strided output gradient."""
+    x, scale, bias = _inputs(9, 3, 64, 96)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        m = GroupNorm32(64, 8, fuse_silu=True).to(dev)
+        with torch.no_grad():
+            m.weight.copy_(scale)
+            m.bias.copy_(bias)
+        xd = x.detach().to(dev).requires_grad_()
+        dy = torch.linspace(-1, 1, 3 * 96 * 64, device=dev).reshape(3, 96, 64).transpose(1, 2)
+        m(xd).backward(dy)  # dy is not contiguous
+        grads[dev] = [t.grad.cpu() for t in (xd, m.weight, m.bias)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * (3 * 96) ** 0.5)
+
+
+def test_gn_silu_conv3_raises_under_grad():
+    x, scale, bias, w, bb = _inputs(10, 2, 16, 32, 16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_resblock.gn_silu_conv3(x, scale, bias, w.requires_grad_(), bb, 4)
+    with torch.no_grad():
+        fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 4)
+    assert fused_resblock.fused_gn_silu_conv3 is fused_resblock.gn_silu_conv3
+
+
+def test_group_norm_tiled_long_window():
+    """B2's long window (16, 32, 49152, G 1), through K1."""
+    x, scale, bias = _inputs(11, 16, 32, 49152)
+    got = group_norm.group_norm_silu_tiled(x, scale, bias, 1)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x, scale, bias, 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
