@@ -46,7 +46,8 @@ sampling and stage-2 LDM training. Phases, one line each:
      counts equal those derived from the configuration; finite losses;
   8. timings: each kernel at each shape of its path in bf16: kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``) and the
-     bound;
+     bound; for K2 also the time of its weight re-layout
+     (``fused_resblock.conv_taps``), which the wrapper caches per weight;
   9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
@@ -60,6 +61,14 @@ time times its launches in that run, summed); the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke_report.json. Any failure raises and the script
 exits non-zero without the last line.
+
+``python3 chip_smoke.py --only K2`` is the quick loop for K2 alone:
+phases 1 and 2, the DDIM step at batch 64 that records K2's shapes (its
+launch count checked against the configuration), K2's fp32 and bf16
+checks at those shapes and at B3's, and the phase-8 timings of K2 (per
+sampler batch: the step's shapes times 200 steps) and B3. It prints the
+kernels' JSON line and writes chiprun_out/chip_smoke_k2_report.json, but
+never the {"ok": ...} line, and exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -451,25 +460,35 @@ def aekl_shapes(cfg: Config) -> dict:
             (AEKL_BATCH, a.num_channels[-1], 768, a.norm_num_groups, True, "torch.bfloat16"): 1}
 
 
-def phase_checks(tmp: Path) -> tuple:
+def phase_checks(tmp: Path, k2_only: bool = False) -> tuple:
     """The sampler's warm-up DDIM step and one training step record the
     shapes each kernel gets on each path (the counts of the warm-up are
     discarded), then every kernel is checked at every shape, K3 also at
     the AEKL's G = 1 shapes, and B2 and B3 at theirs. The warm-up also
     pays the process's one-time costs (cuDNN plans, the import of
     scipy.signal for the PSD's tapers, which takes seconds), so phase 5
-    times steady-state batches."""
+    times steady-state batches. ``k2_only``: no training step, and only
+    K2 and B3 are checked; the step's K2 launches must equal the count
+    derived from the configuration."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     reset_counts()
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
     torch.cuda.synchronize()
-    sample_shapes = read_shapes()
-    train_counts, train_shapes = phase_train_step()
+    sample_counts, sample_shapes = read_counts(), read_shapes()
+    if k2_only:
+        want = expected_launches(cfg, unet_forwards=1, decodes=1)["K2"]
+        if sample_counts["K2"] != want:
+            raise AssertionError(f"DDIM step: K2 launches {sample_counts['K2']}, expected {want}")
+        train_counts, train_shapes = {}, {"K1": {}, "K3": {}}
+    else:
+        train_counts, train_shapes = phase_train_step()
     to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]},
                 "K2": sample_shapes["K2"],
                 "K3": {**train_shapes["K3"], **aekl_shapes(cfg)},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
+    if k2_only:
+        to_check = {kid: to_check[kid] for kid in ("K2", "B3")}
     results = {}
     for kid, keys in to_check.items():
         results[kid] = {key: check_kernel(kid, key) for key in keys}
@@ -676,6 +695,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     for kid, path, shapes, launches in paths.values():
         spec = KERNELS[kid]
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        relayout_ms = 0.0
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
@@ -690,12 +710,18 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] += t[k] * count
+            if kid in ("K2", "B3"):  # the weight re-layout, apart (cached per weight)
+                t["relayout_ms"] = time_ms(fused_resblock.conv_taps, (args[3],), reps)
+                relayout_ms += t["relayout_ms"] * count
             per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
                                   launches=count, bound_by=kind, **t))
             say("time", kernel=spec["name"], path=path, shape=key, launches=count,
                 **{k: f"{v:.4f}" for k, v in t.items()})
             del args
         free_card()
+        if kid in ("K2", "B3"):
+            say("time", kernel=spec["name"], path=path, relayout_ms_per_run=f"{relayout_ms:.4f}",
+                kernel_ms_per_run=f"{tot['ms']:.4f}")
         errs = checks[kid].values()
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],
@@ -821,11 +847,34 @@ def phase_train_profile() -> dict:
     return out
 
 
-def main() -> int:
+def k2_only(smi: str, build_logs: dict) -> int:
+    """``--only K2``: the DDIM step that records K2's shapes, K2's and B3's
+    checks, then their timings; no {"ok": ...} line."""
+    with tempfile.TemporaryDirectory() as td:
+        shapes, checks = phase_checks(Path(td), k2_only=True)
+    step = shapes["sample"]["K2"]
+    batch = {key: n * STEPS for key, n in step.items()}
+    launches = expected_launches(flagship_config(steps=STEPS), STEPS, 1)["K2"]
+    rows, per_shape = phase_timings(
+        {"K2": ("K2", "sample batch", batch, launches),
+         "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
+    report = dict(card=smi, kernels=rows, per_shape=per_shape, build_logs=build_logs,
+                  checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
+                          for kid, res in checks.items()})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_k2_report.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
+def main(only: str | None = None) -> int:
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_logs = phase_build()
+    if only == "K2":
+        return k2_only(smi, build_logs)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
@@ -866,4 +915,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold-batch"]:
         cold_batch(sys.argv[2])
         sys.exit(0)
-    sys.exit(main())
+    if sys.argv[1:] and sys.argv[1:] != ["--only", "K2"]:
+        sys.exit(f"usage: {sys.argv[0]} [--only K2]")
+    sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -6,31 +6,42 @@
 // _kernel computes the same function): fp32 group statistics, normalise,
 // affine, SiLU, round h to the working dtype, then the k = 3 convolution
 // with fp32 accumulation plus the bias, output in the working dtype.
-// Weights come in torch's (C_out, C_in, 3) layout.
 //
 // Bound on the card: operations. A chain does 3 * C_in * C_out * L
 // multiply-adds per batch row; at the UNet's widths that is far above the
 // 295 operations per byte where the bf16 tensor cores stop waiting for
-// memory. The TPU kernel keeps one batch row's (L, C) slice in VMEM and
-// runs three shifted matmuls; here the GroupNorm statistics come from the
-// shared split reduction (gn_stats.cuh) and a tiled convolution kernel
-// applies normalise, affine and SiLU while it stages its input tile in
-// shared memory, so h never goes to device memory.
+// memory. The GroupNorm statistics come from the shared split reduction
+// (gn_stats.cuh); the convolution kernels apply normalise, affine and SiLU
+// while they stage their input, so h never goes to device memory.
 //
-// Convolution kernels: one block owns a (TCO output channels x TL
-// positions) tile of one batch row. For each chunk of TCI input channels
-// it stages h[ci][l0 - 1 .. l0 + TL] (zeros outside [0, L): SAME padding
-// of h) and the weights w[co][ci][0..2], then sums the chunk's channels
-// and the three taps into one fp32 accumulator.
-//  * bf16 (the sampler's dtype): tensor cores through WMMA (mma.sync),
-//    16 x 16 x 16 bf16 products with fp32 accumulation. The three taps are
-//    three shifted copies of the h tile, so every fragment load stays
-//    32-byte aligned; each warp owns a 32 x 32 output tile.
-//  * fp32: the fp32 FMA units, a 4 x 4 register tile per thread.
-// Both stage synchronously (no copy/compute overlap) and use mma.sync
-// rather than Hopper's wgmma and TMA: simple first, fast later.
-#include <mma.h>
-
+//  * bf16 (the sampler's dtype): the TPU kernel's own formulation, y =
+//    sum_k h[l + k - 1] @ W_k, with the positions as the M dimension of
+//    the products and the three taps as row offsets 0, 1, 2 of one h tile
+//    h[l0 - 1 .. l0 + TM] (zero outside [0, L)). A block owns TM positions
+//    x TN output channels of one batch row (64 x 256 or 128 x 128: two
+//    warpgroups of 64 x 128) and walks C_in in chunks of 64 channels:
+//      - weights come as (3, C_out, C_in8) bf16 (the wrapper's re-layout,
+//        C_in8 = C_in rounded up to 8, zero padded) and are copied with
+//        16-byte cp.async into a two-stage ring, each tap's tile
+//        [co][ci] K-major with the 128-byte swizzle (16-byte chunk c of
+//        row n at c ^ (n % 8)); the next chunk's copies fly while this
+//        chunk computes;
+//      - raw x[ci][l0 - 8 .. l0 + TM + 8) arrives by 16-byte cp.async
+//        (element loads where rows are not 16-byte aligned, L % 8 != 0);
+//      - once per chunk every thread turns raw x into the position-major h
+//        tile [TM + 2][64 + 8] with one FMA and one tanh per element:
+//        silu(v) = u + u tanh(u) for u = v / 2, with u = a'_c x + d'_c
+//        from a per-channel affine that folds mean, rstd, scale and bias
+//        (computed one chunk ahead); each element of h is computed once
+//        per block, for all taps and all output channels;
+//      - products: mma.sync m16n8k16 bf16 -> fp32, A (h rows p + k) and B
+//        (the swizzled weight tile) through ldmatrix.x4; each warp owns 16
+//        positions x 128 output channels, the accumulator layout of a
+//        wgmma m64n128 warpgroup;
+//      - epilogue: bias, round to bf16, transpose through shared memory,
+//        16-byte stores of y[b][co][l] along l.
+//  * fp32: the fp32 FMA units, a 4 x 4 register tile per thread, staged
+//    synchronously.
 #include <type_traits>
 
 #include "gn_stats.cuh"
@@ -39,19 +50,17 @@ namespace sg {
 
 constexpr int kConvThreads = 256;
 
-// One element of h = SiLU(GN(x)) rounded to T, or 0 outside the row.
-template <typename T>
-__device__ __forceinline__ float h_value(const T* __restrict__ xb, int ci, int l, int Cin, int L,
-                                         int cpg, const float* mean_s, const float* rstd_s,
+// -- fp32: FMA units ------------------------------------------------------------
+
+// One element of h = SiLU(GN(x)), or 0 outside the row.
+__device__ __forceinline__ float h_value(const float* __restrict__ xb, int ci, int l, int Cin,
+                                         int L, int cpg, const float* mean_s, const float* rstd_s,
                                          const float* __restrict__ scale,
                                          const float* __restrict__ bias) {
   if (ci >= Cin || l < 0 || l >= L) return 0.f;
   const int g = ci / cpg;
-  const float v = (to_f(xb[(int64_t)ci * L + l]) - mean_s[g]) * rstd_s[g] * scale[ci] + bias[ci];
-  return to_f(from_f<T>(silu(v)));
+  return silu((xb[(int64_t)ci * L + l] - mean_s[g]) * rstd_s[g] * scale[ci] + bias[ci]);
 }
-
-// -- fp32: FMA units ------------------------------------------------------------
 
 constexpr int kTCO = 64;   // output channels per block
 constexpr int kTL = 64;    // positions per block
@@ -130,106 +139,276 @@ gn_silu_conv3_fma(const float* __restrict__ x, const float3* __restrict__ partia
   }
 }
 
-// -- bf16: tensor cores (WMMA) -----------------------------------------------------
+// -- bf16: tensor cores ---------------------------------------------------------
 
 namespace tc {
-constexpr int TCO = 128;        // output channels per block (8 warps: 4 x 2 of 32 x 32)
-constexpr int TL = 64;          // positions per block
-constexpr int TCI = 32;         // input channels per stage (two k-steps of 16)
-constexpr int LDA = TCI + 8;    // bf16 row pitch of the weight tiles
-constexpr int LDB = TL + 8;     // bf16 row pitch of the h tiles
-constexpr int LDC = TL + 4;     // fp32 row pitch of the output tile
-constexpr int A_BYTES = 3 * TCO * LDA * 2;
-constexpr int B_BYTES = 3 * TCI * LDB * 2;
-constexpr int C_BYTES = TCO * LDC * 4;
-constexpr int SMEM_BYTES = A_BYTES + B_BYTES > C_BYTES ? A_BYTES + B_BYTES : C_BYTES;
+
+constexpr int KC = 64;       // input channels per chunk: one 128-byte swizzled row
+constexpr int HP = KC + 8;   // bf16 pitch of an h row (144 bytes: ldmatrix without conflicts)
+constexpr int kVecX = 1;     // x rows are 16-byte aligned: 16-byte cp.async
+constexpr int kVecY = 2;     // y rows are 16-byte aligned: 16-byte stores
+
+// Two warpgroups arranged MW x NW (MW * NW = 2) over a TM x TN block tile.
+template <int MW, int NW>
+struct Tile {
+  static_assert(MW * NW == 2, "two warpgroups per block");
+  static constexpr int TM = 64 * MW;               // positions per block
+  static constexpr int TN = 128 * NW;              // output channels per block
+  static constexpr int XP = TM + 16;               // raw x row: positions l0 - 8 .. l0 + TM + 8
+  static constexpr int XSEG = XP / 8;              // 16-byte segments per raw x row
+  static constexpr int YP = TM + 8;                // bf16 pitch of an output row (epilogue)
+  static constexpr int W_TAP = TN * KC * 2;        // bytes of one tap's weight tile
+  static constexpr int W_STAGE = 3 * W_TAP;
+  static constexpr int OFF_X = 2 * W_STAGE;
+  static constexpr int OFF_H = OFF_X + KC * XP * 2;
+  static constexpr int OFF_AD = OFF_H + (TM + 2) * HP * 2;
+  static constexpr int OFF_STATS = OFF_AD + 2 * KC * 8;
+  static constexpr int SMEM = OFF_STATS + 2 * kMaxGroups * 4 + 1024;  // + base alignment
+  static_assert(TN * YP * 2 <= 2 * W_STAGE, "the output tile fits the weight stages");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ float tanh_approx(float v) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 }  // namespace tc
 
-__global__ void __launch_bounds__(kConvThreads)
-gn_silu_conv3_wmma(const __nv_bfloat16* __restrict__ x, const float3* __restrict__ partial,
-                   int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
-                   const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ b,
-                   __nv_bfloat16* __restrict__ y, int Cin, int Cout, int L, int G, float eps) {
-  using namespace nvcuda;
+// x (B, Cin, L), w3 (3, Cout, ldw) with ldw = Cin rounded up to 8, b (Cout,),
+// y (B, Cout, L), all bf16. Grid (ceil(L / TM), ceil(Cout / TN), B).
+template <int MW, int NW>
+__global__ void __launch_bounds__(kConvThreads, 1)
+gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__ partial,
+                 int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
+                 const __nv_bfloat16* __restrict__ w3, const __nv_bfloat16* __restrict__ b,
+                 __nv_bfloat16* __restrict__ y, int Cin, int Cout, int L, int G, float eps,
+                 int flags) {
   using namespace tc;
-  // ws[k][co][ci] = w[co0 + co][ci0 + ci][k]; hs[k][ci][l] = h[ci0 + ci][l0 + l + k - 1];
-  // after the last stage the same bytes hold the fp32 output tile cs[co][l].
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ float mean_s[kMaxGroups], rstd_s[kMaxGroups];
-  auto ws = reinterpret_cast<__nv_bfloat16 (*)[TCO][LDA]>(smem);
-  auto hs = reinterpret_cast<__nv_bfloat16 (*)[TCI][LDB]>(smem + A_BYTES);
-  auto cs = reinterpret_cast<float (*)[LDC]>(smem);
-  const int l0 = blockIdx.x * TL;
-  const int co0 = blockIdx.y * TCO;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wco = (warp >> 1) * 32;  // warp's output channels
-  const int wl = (warp & 1) * 32;    // warp's positions
+  using T = Tile<MW, NW>;
+  constexpr int TM = T::TM, TN = T::TN, XP = T::XP;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: align the weight tiles to it
+  const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_X);   // [KC][XP]
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_H);   // [TM + 2][HP]
+  float2* ad = reinterpret_cast<float2*>(smem + T::OFF_AD);                // [2][KC]
+  float* mean_s = reinterpret_cast<float*>(smem + T::OFF_STATS);
+  float* rstd_s = mean_s + kMaxGroups;
+
+  const int l0 = blockIdx.x * TM, co0 = blockIdx.y * TN, bi = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int m0 = (MW == 2 ? 64 * wg : 0) + 16 * (warp & 3);  // warp's positions in the tile
+  const int n0 = NW == 2 ? 128 * wg : 0;                      // warpgroup's output channels
+  const int cpg = Cin / G;
+  const int ldw = (Cin + 7) & ~7;
+  const int nk = (Cin + KC - 1) / KC;
+  const __nv_bfloat16* xb = x + (int64_t)bi * Cin * L;
 
   for (int g = tid; g < G; g += kConvThreads)
     merge_group(partial + ((int64_t)bi * G + g) * nchunks, nchunks, eps, &mean_s[g], &rstd_s[g]);
   __syncthreads();
 
-  const int cpg = Cin / G;
-  const __nv_bfloat16* xb = x + (int64_t)bi * Cin * L;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  // Half the per-channel affine of chunk kc, (a / 2, d / 2) with a = rstd scale,
+  // d = bias - mean a, so that u = v / 2 = a' x + d'; zero past Cin.
+  auto affine = [&](int kc) {
+    if (tid < KC) {
+      const int c = kc * KC + tid;
+      float2 v = make_float2(0.f, 0.f);
+      if (c < Cin) {
+        const int g = c / cpg;
+        const float a = rstd_s[g] * scale[c];
+        v = make_float2(0.5f * a, 0.5f * (bias[c] - mean_s[g] * a));
+      }
+      ad[(kc & 1) * KC + tid] = v;
+    }
+  };
+  // Weights of chunk kc into stage kc & 1: tap k's tile [TN rows co][8 chunks
+  // of 8 ci], chunk c of row n at c ^ (n % 8); zeros past Cout and ldw.
+  auto load_w = [&](int kc) {
+    const uint32_t dst = sbase + (kc & 1) * T::W_STAGE;
+    const int ci0 = kc * KC;
+    for (int i = tid; i < 3 * TN * 8; i += kConvThreads) {
+      const int s = i & 7, row = i >> 3;
+      const int k = row / TN, n = row % TN;
+      const int co = co0 + n, ci = ci0 + 8 * s;
+      const bool ok = co < Cout && ci < ldw;
+      const __nv_bfloat16* src = ok ? w3 + ((int64_t)k * Cout + co) * ldw + ci : w3;
+      cp_async16(dst + k * T::W_TAP + n * 128 + ((s ^ (n & 7)) << 4), src, ok);
+    }
+  };
+  // Raw x of chunk kc: xs[ci][e] = x[ci0 + ci][l0 - 8 + e], zeros outside.
+  auto load_x = [&](int kc) {
+    const int ci0 = kc * KC;
+    if (flags & kVecX) {
+      const uint32_t dst = sbase + T::OFF_X;
+      for (int i = tid; i < KC * T::XSEG; i += kConvThreads) {
+        const int row = i / T::XSEG, s = i % T::XSEG;
+        const int ci = ci0 + row, l = l0 - 8 + 8 * s;
+        const bool ok = ci < Cin && l >= 0 && l < L;  // L % 8 == 0: all or none
+        cp_async16(dst + (row * XP + 8 * s) * 2, ok ? xb + (int64_t)ci * L + l : xb, ok);
+      }
+    } else {
+      for (int i = tid; i < KC * (TM + 2); i += kConvThreads) {
+        const int row = i / (TM + 2), j = i % (TM + 2);
+        const int ci = ci0 + row, l = l0 - 1 + j;
+        xs[row * XP + j + 7] =
+            (ci < Cin && l >= 0 && l < L) ? xb[(int64_t)ci * L + l] : __float2bfloat16(0.f);
+      }
+    }
+  };
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += TCI) {
-    for (int i = tid; i < TCI * (TL + 2); i += kConvThreads) {
-      const int cl = i / (TL + 2), p = i % (TL + 2);
-      const __nv_bfloat16 v = __float2bfloat16(
-          h_value(xb, ci0 + cl, l0 - 1 + p, Cin, L, cpg, mean_s, rstd_s, scale, bias));
-      if (p < TL) hs[0][cl][p] = v;
-      if (p >= 1 && p <= TL) hs[1][cl][p - 1] = v;
-      if (p >= 2) hs[2][cl][p - 2] = v;
-    }
-    for (int i = tid; i < TCO * TCI * 3; i += kConvThreads) {
-      const int col = i / (TCI * 3), r = i % (TCI * 3);
-      const int cl = r / 3, k = r % 3;
-      const int co = co0 + col, ci = ci0 + cl;
-      ws[k][col][cl] = (co < Cout && ci < Cin) ? w[((int64_t)co * Cin + ci) * 3 + k]
-                                               : __float2bfloat16(0.f);
-    }
+  affine(0);
+  load_w(0);
+  load_x(0);
+  cp_async_commit();
+
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+
+  const uint32_t h_addr = sbase + T::OFF_H;
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait_all();
+    // chunk kc's weights, raw x and affine are in; every warp is done with
+    // chunk kc - 1's products, so its stage and the h tile are free
     __syncthreads();
+    if (kc + 1 < nk) {
+      load_w(kc + 1);
+      cp_async_commit();
+      affine(kc + 1);
+    }
+    {  // transform: warp w makes channels 8w .. 8w + 7 of h for every position
+      float2 av[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) av[c] = ad[(kc & 1) * KC + 8 * warp + c];
+      const __nv_bfloat16* xr = xs + 8 * warp * XP + 7;
+      for (int j = lane; j < TM + 2; j += 32) {
+        const int l = l0 - 1 + j;
+        uint4 out = make_uint4(0u, 0u, 0u, 0u);
+        if (l >= 0 && l < L) {
+          float h[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const float u = fmaf(av[c].x, __bfloat162float(xr[c * XP + j]), av[c].y);
+            h[c] = fmaf(u, tanh_approx(u), u);
+          }
+          out = make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]), pack_bf16(h[4], h[5]),
+                           pack_bf16(h[6], h[7]));
+        }
+        *reinterpret_cast<uint4*>(hs + j * HP + 8 * warp) = out;
+      }
+    }
+    __syncthreads();  // h is ready; raw x is free
+    if (kc + 1 < nk) {
+      load_x(kc + 1);
+      cp_async_commit();
+    }
+    // products: y[m][n] += h[m + k][ci] W_k[n][ci] over the chunk's 64 ci
+    const uint32_t w_addr = sbase + (kc & 1) * T::W_STAGE;
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
 #pragma unroll
-      for (int kk = 0; kk < TCI; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+      for (int s = 0; s < 4; ++s) {
+        uint32_t a[4];
+        ldmatrix_x4(a, h_addr + ((m0 + k + (lane & 15)) * HP + 16 * s + 8 * (lane >> 4)) * 2);
+        const int kchunk = 2 * s + ((lane >> 3) & 1);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &ws[k][wco + 16 * i][kk], LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &hs[k][kk][wl + 16 * j], LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int nt = 0; nt < 8; ++nt) {
+          const int n = n0 + 16 * nt + (lane & 7) + ((lane >> 4) << 3);
+          uint32_t bq[4];
+          ldmatrix_x4(bq, w_addr + k * T::W_TAP + n * 128 + ((kchunk ^ (lane & 7)) << 4));
+          mma_bf16(acc[2 * nt], a, bq[0], bq[1]);
+          mma_bf16(acc[2 * nt + 1], a, bq[2], bq[3]);
+        }
       }
     }
-    __syncthreads();
   }
 
+  // epilogue: bias, bf16, transposed through shared memory into ys[co][m]
+  __syncthreads();  // every warp is done with the weight stages
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+  {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&cs[wco + 16 * i][wl + 16 * j], acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TCO * TL; i += kConvThreads) {
-    const int row = i / TL, col = i % TL;
-    const int co = co0 + row, l = l0 + col;
-    if (co < Cout && l < L)
-      y[((int64_t)bi * Cout + co) * L + l] = __float2bfloat16(cs[row][col] + __bfloat162float(b[co]));
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      const float b0 = co0 + n < Cout ? __bfloat162float(b[co0 + n]) : 0.f;
+      const float b1 = co0 + n + 1 < Cout ? __bfloat162float(b[co0 + n + 1]) : 0.f;
+      ys[n * T::YP + m0 + g] = __float2bfloat16(acc[j][0] + b0);
+      ys[(n + 1) * T::YP + m0 + g] = __float2bfloat16(acc[j][1] + b1);
+      ys[n * T::YP + m0 + g + 8] = __float2bfloat16(acc[j][2] + b0);
+      ys[(n + 1) * T::YP + m0 + g + 8] = __float2bfloat16(acc[j][3] + b1);
+    }
   }
+  __syncthreads();
+  __nv_bfloat16* yb = y + ((int64_t)bi * Cout + co0) * L + l0;
+  if (flags & kVecY) {
+    for (int i = tid; i < TN * (TM / 8); i += kConvThreads) {
+      const int n = i / (TM / 8), s = i % (TM / 8);
+      if (co0 + n < Cout && l0 + 8 * s < L)
+        *reinterpret_cast<uint4*>(yb + (int64_t)n * L + 8 * s) =
+            *reinterpret_cast<const uint4*>(ys + n * T::YP + 8 * s);
+    }
+  } else {
+    for (int i = tid; i < TN * TM; i += kConvThreads) {
+      const int n = i / TM, m = i % TM;
+      if (co0 + n < Cout && l0 + m < L) yb[(int64_t)n * L + m] = ys[n * T::YP + m];
+    }
+  }
+}
+
+template <int MW, int NW>
+static cudaError_t launch_tc(const __nv_bfloat16* x, const float3* part, int nchunks,
+                             const float* sc, const float* bs, const __nv_bfloat16* w3,
+                             const __nv_bfloat16* b, __nv_bfloat16* y, int B, int Cin,
+                             int Cout, int L, int G, float eps, cudaStream_t stream) {
+  using T = tc::Tile<MW, NW>;
+  auto kernel = gn_silu_conv3_tc<MW, NW>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::SMEM);
+  if (err != cudaSuccess) return err;
+  const bool rows16 = L % 8 == 0;
+  const int flags = (rows16 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? tc::kVecX : 0) |
+                    (rows16 && reinterpret_cast<uintptr_t>(y) % 16 == 0 ? tc::kVecY : 0);
+  const dim3 grid((L + T::TM - 1) / T::TM, (Cout + T::TN - 1) / T::TN, B);
+  kernel<<<grid, kConvThreads, T::SMEM, stream>>>(x, part, nchunks, sc, bs, w3, b, y, Cin, Cout,
+                                                  L, G, eps, flags);
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -238,8 +417,8 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
                           int G, float eps, cudaStream_t stream) {
   const int n = (Cin / G) * L;
   const int nchunks = stats_chunks(n);
-  const cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
-                                               static_cast<float3*>(partial), stream);
+  cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
+                                         static_cast<float3*>(partial), stream);
   if (err != cudaSuccess) return err;
   const float3* part = static_cast<const float3*>(partial);
   const float* sc = static_cast<const float*>(scale);
@@ -250,11 +429,18 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
         static_cast<const float*>(x), part, nchunks, sc, bs, static_cast<const float*>(w),
         static_cast<const float*>(b), static_cast<float*>(y), Cin, Cout, L, G, eps);
   } else {
-    const dim3 grid((L + tc::TL - 1) / tc::TL, (Cout + tc::TCO - 1) / tc::TCO, B);
-    gn_silu_conv3_wmma<<<grid, kConvThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), part, nchunks, sc, bs,
-        static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(y), Cin, Cout, L, G, eps);
+    if (reinterpret_cast<uintptr_t>(w) % 16 != 0) return cudaErrorMisalignedAddress;
+    const auto* xp = static_cast<const __nv_bfloat16*>(x);
+    const auto* wp = static_cast<const __nv_bfloat16*>(w);
+    const auto* bp = static_cast<const __nv_bfloat16*>(b);
+    auto* yp = static_cast<__nv_bfloat16*>(y);
+    // 64 x 256 tiles where C_out > 128, else 128 x 128: at the sampler's
+    // shapes every block's tile is full
+    err = Cout > 128 ? launch_tc<1, 2>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G,
+                                       eps, stream)
+                     : launch_tc<2, 1>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G,
+                                       eps, stream);
+    if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
 }
@@ -263,9 +449,11 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
 
 extern "C" {
 
-// x: (B, Cin, L), w: (Cout, Cin, 3), b: (Cout,), y: (B, Cout, L), all
-// contiguous in one dtype (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32.
-// Returns the cudaError_t of the launches (0 = success).
+// x: (B, Cin, L), b: (Cout,), y: (B, Cout, L), all contiguous in one dtype
+// (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32. w: fp32 in torch's
+// (Cout, Cin, 3) layout; bf16 as (3, Cout, Cin8), Cin8 = Cin rounded up to
+// 8 with zeros, 16-byte aligned. Returns the cudaError_t of the launches
+// (0 = success).
 int sg_gn_silu_conv3(const void* x, const void* scale, const void* bias, const void* w,
                      const void* b, void* y, void* partial, int B, int Cin, int Cout, int L,
                      int G, float eps, int dtype, void* stream) {

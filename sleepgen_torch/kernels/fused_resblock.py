@@ -8,7 +8,9 @@ Hopper: ``sleepgen_torch/csrc/gn_silu_conv3.cu`` (its source note gives
 the bound and the design). GroupNorm statistics are fp32, h is rounded to
 the working dtype before the convolution, the convolution accumulates in
 fp32, and the output has x's dtype. The weight is in torch's
-(C_out, C_in, 3) layout.
+(C_out, C_in, 3) layout; the bf16 kernel reads it as ``conv_taps(w)``,
+(3, C_out, C_in8), which the wrapper makes once per weight (see
+``_cached_taps``).
 
 ``gn_silu_conv3`` runs the plain PyTorch version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
@@ -19,6 +21,7 @@ have none, so on a CUDA tensor it raises when autograd would need one
 from __future__ import annotations
 
 import collections
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +61,37 @@ def gn_silu_conv3_reference(x: torch.Tensor, scale: torch.Tensor,
     return (y + b.float()[:, None]).to(x.dtype)
 
 
+def conv_taps(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weight layout: (C_out, C_in, 3) -> (3, C_out, C_in8),
+    tap-major and contiguous, so W_k[co] is one row of input channels;
+    C_in is zero-padded to C_in8, a multiple of 8, so every row starts on
+    16 bytes."""
+    taps = w.permute(2, 0, 1)
+    pad = -w.shape[1] % 8
+    return F.pad(taps, (0, pad)) if pad else taps.contiguous()
+
+
+# conv_taps of each weight the kernel has seen: id(w) -> (weak reference to w,
+# w._version, taps). Keyed by the tensor object, not its data_ptr, since a
+# freed weight's memory may come back as another tensor at version 0; an
+# entry goes when its weight is freed, and an in-place update of the weight
+# bumps its _version, which misses the entry.
+_taps_cache: dict = {}
+
+
+def _cached_taps(w: torch.Tensor) -> torch.Tensor:
+    if w.is_inference():  # no version counter: re-laid out on every call
+        return conv_taps(w)
+    key = id(w)
+    hit = _taps_cache.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2]
+    taps = conv_taps(w)
+    _taps_cache[key] = (weakref.ref(w, lambda _, k=key: _taps_cache.pop(k, None)),
+                        w._version, taps)
+    return taps
+
+
 def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   w: torch.Tensor, b: torch.Tensor, num_groups: int,
                   eps: float = 1e-6) -> torch.Tensor:
@@ -88,6 +122,8 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"b must be a contiguous ({c_out},) {x.dtype} tensor "
                          f"on {x.device}")
     lib = _build.load()
+    if x.dtype == torch.bfloat16:
+        w = _cached_taps(w)
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
                           dtype=torch.float32, device=x.device)

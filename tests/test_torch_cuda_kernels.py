@@ -99,6 +99,67 @@ def test_gn_silu_conv3_kernel_bf16(b, cin, cout, l, g):
     assert bool((err <= tol).all()), err.max()
 
 
+# Every distinct (C_in, C_out, L) that the sampler gives K2
+# (sleepgen_torch/nn/unet1d.py:118-147 at mc 128, channel_mult [1, 2, 4],
+# latent length 768; G 32): C_in 128-1024, C_out 128/256/512, L 768/384/192.
+SAMPLER_K2_SHAPES = [
+    (128, 128, 768), (128, 128, 384), (128, 256, 384), (256, 256, 384), (256, 256, 192),
+    (256, 512, 192), (512, 512, 192), (1024, 512, 192), (768, 512, 192), (512, 512, 384),
+    (768, 256, 384), (512, 256, 384), (384, 256, 384), (256, 256, 768), (384, 128, 768),
+    (256, 128, 768)]
+# C_in not a multiple of the 64-channel chunk; L shorter than one tile; L
+# not a multiple of either tile's positions
+EDGE_K2_SHAPES = [(96, 128, 384), (96, 256, 192), (128, 256, 8), (128, 128, 8),
+                  (256, 128, 1000), (256, 512, 1000)]
+
+
+def _check_k2(seed, b, cin, cout, l, g, dtype):
+    x, scale, bias, w, bb = _inputs(seed, b, cin, l, cout)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, g)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(), bb.float(),
+                                                  g)
+    assert got.dtype == dtype and got.shape == (b, cout, l)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        err = (got.float() - want).abs()
+        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+        assert bool((err <= tol).all()), err.max()
+
+
+@pytest.mark.parametrize("cin,cout,l", SAMPLER_K2_SHAPES + EDGE_K2_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gn_silu_conv3_sampler_and_edge_shapes(cin, cout, l, dtype):
+    _check_k2(12, 2, cin, cout, l, 32, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gn_silu_conv3_is_deterministic(dtype):
+    x, scale, bias, w, bb = _inputs(13, 4, 512, 192, 512)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    a = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    b = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_gn_silu_conv3_sees_weight_updates():
+    """The bf16 path caches each weight's re-layout; an in-place update of
+    the weight, or a new weight, must not reuse it."""
+    x, scale, bias, w, _ = _inputs(14, 2, 64, 96, 128)
+    x, w = x.bfloat16(), w.bfloat16()
+    bb = torch.zeros(128, dtype=torch.bfloat16, device="cuda")
+    before = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
+    with torch.no_grad():
+        w.neg_()  # with a zero bias, y changes sign exactly
+    after = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
+    fresh = fused_resblock.gn_silu_conv3(x, scale, bias, w.clone(), bb, 8)
+    assert torch.equal(after, -before)
+    assert torch.equal(after, fresh)
+
+
 def test_wrappers_reject_bad_inputs():
     x, scale, bias, w, bb = _inputs(4, 2, 16, 32, 16)
     with pytest.raises(ValueError):
