@@ -34,10 +34,12 @@
 //        from a per-channel affine that folds mean, rstd, scale and bias
 //        (computed one chunk ahead); each element of h is computed once
 //        per block, for all taps and all output channels;
-//      - products: mma.sync m16n8k16 bf16 -> fp32, A (h rows p + k) and B
-//        (the swizzled weight tile) through ldmatrix.x4; each warp owns 16
-//        positions x 128 output channels, the accumulator layout of a
-//        wgmma m64n128 warpgroup;
+//      - products: per warpgroup and chunk, twelve wgmma.mma_async
+//        m64n128k16 bf16 -> fp32 (3 taps x 4 slices of 16 channels): A
+//        from registers (each warp's 16 rows of h, rows p + k, through
+//        ldmatrix.x4), B from the swizzled weight tile through a shared
+//        memory descriptor advanced 32 bytes per slice; then commit and
+//        wait before the registers and the stage are reused;
 //      - epilogue: bias, round to bf16, transpose through shared memory,
 //        16-byte stores of y[b][co][l] along l.
 //  * fp32: the fp32 FMA units, a 4 x 4 register tile per thread, staged
@@ -184,14 +186,65 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Shared-memory descriptor of a K-major bf16 tile with the 128-byte swizzle:
+// rows of 64 channels (128 bytes), 8-row atoms 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator accesses across the async products.
+__device__ __forceinline__ void fence_acc(float (&d)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(d[j][r])::"memory");
+}
+// d[64 x 128] += A[64 x 16] (registers, per warp the mma.m16n8k16 A fragment
+// of its 16 rows) x B[16 x 128] (K-major descriptor), fp32 accumulation.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ float tanh_approx(float v) {
   float r;
   asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
@@ -304,6 +357,7 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
   const uint32_t h_addr = sbase + T::OFF_H;
   for (int kc = 0; kc < nk; ++kc) {
     cp_async_wait_all();
+    fence_async_shared();  // the copies' bytes become visible to wgmma's reads
     // chunk kc's weights, raw x and affine are in; every warp is done with
     // chunk kc - 1's products, so its stage and the h tile are free
     __syncthreads();
@@ -338,25 +392,26 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
       load_x(kc + 1);
       cp_async_commit();
     }
-    // products: y[m][n] += h[m + k][ci] W_k[n][ci] over the chunk's 64 ci
-    const uint32_t w_addr = sbase + (kc & 1) * T::W_STAGE;
+    // products: y[m][n] += h[m + k][ci] W_k[n][ci] over the chunk's 64 ci, as
+    // twelve wgmma m64n128k16 per warpgroup, A from registers
+    const uint32_t w_addr = sbase + (kc & 1) * T::W_STAGE + n0 * 128;
+    uint32_t a[3][4][4];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < 3; ++k)
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        uint32_t a[4];
-        ldmatrix_x4(a, h_addr + ((m0 + k + (lane & 15)) * HP + 16 * s + 8 * (lane >> 4)) * 2);
-        const int kchunk = 2 * s + ((lane >> 3) & 1);
+      for (int s = 0; s < 4; ++s)
+        ldmatrix_x4(a[k][s],
+                    h_addr + ((m0 + k + (lane & 15)) * HP + 16 * s + 8 * (lane >> 4)) * 2);
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int n = n0 + 16 * nt + (lane & 7) + ((lane >> 4) << 3);
-          uint32_t bq[4];
-          ldmatrix_x4(bq, w_addr + k * T::W_TAP + n * 128 + ((kchunk ^ (lane & 7)) << 4));
-          mma_bf16(acc[2 * nt], a, bq[0], bq[1]);
-          mma_bf16(acc[2 * nt + 1], a, bq[2], bq[3]);
-        }
-      }
-    }
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        wgmma_m64n128k16_rs(acc, a[k][s], sw128_desc(w_addr + k * T::W_TAP + 32 * s));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
   }
 
   // epilogue: bias, bf16, transposed through shared memory into ys[co][m]
