@@ -45,9 +45,10 @@ sampling and stage-2 LDM training. Phases, one line each:
      per step after the first (min-max), windows/s, peak memory; launch
      counts equal those derived from the configuration; finite losses;
   8. timings: each kernel at each shape of its path in bf16: kernel,
-     plain version, one-PyTorch-call yardstick (``library_ms``) and the
-     bound; for K2 also the time of its weight re-layout
-     (``fused_resblock.conv_taps``), which the wrapper caches per weight;
+     plain version, one-PyTorch-call yardstick (``library_ms``), each as
+     device time (``time_ms``: the calls captured in a CUDA graph), and
+     the bound; for K2 also the time of its weight re-layout
+     (``fused_resblock.conv_tiles``), which the wrapper caches per weight;
   9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
@@ -372,17 +373,45 @@ def check_kernel(kid: str, key) -> dict:
     return out
 
 
-def time_ms(fn, args, reps: int) -> float:
-    for _ in range(3):
-        fn(*args)
+def time_ms(fn, args, reps: int, graph: bool = True) -> tuple:
+    """Device ms of one call: ``reps`` calls captured in one CUDA graph,
+    replayed between CUDA events (median of three replays), so the host's
+    launch overhead, which the end-to-end metrics carry, is left out.
+    Where a call cannot be captured, or ``graph`` is False (an autograd
+    backward, which runs on the engine's own threads), the calls run
+    eagerly between the events. Returns (ms, "graph" or "eager")."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn(*args)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    if graph:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(reps):
+                    fn(*args)
+        except RuntimeError:
+            graph = None
+            torch.cuda.synchronize()
+    else:
+        graph = None
+    times = []
+    for _ in range(3 if graph is not None else 1):
+        start.record()
+        if graph is not None:
+            graph.replay()
+        else:
+            for _ in range(reps):
+                fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del graph
+    return statistics.median(times), "eager" if len(times) == 1 else "graph"
 
 
 def free_card() -> None:
@@ -700,23 +729,25 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
             reps = 20 if kid in ("K2", "B3") else 50
-            t = dict(ms=time_ms(spec["kernel"], args, reps),
-                     plain_ms=time_ms(spec["plain"], args, reps))
-            if kid == "K3":
-                t["library_ms"] = time_ms(spec["library"](*args), (), reps)
-            else:
-                t["library_ms"] = time_ms(spec["library"], args, reps)
+            calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
+                         library_ms=(spec["library"](*args), ()) if kid == "K3"
+                         else (spec["library"], args))
+            t, how = {}, {}
+            for name, (fn, fn_args) in calls.items():
+                t[name], how[name] = time_ms(fn, fn_args, reps,
+                                             graph=not (kid == "K3" and name == "library_ms"))
             t["bound_ms"], kind = spec["bound"](key, torch.bfloat16)
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] += t[k] * count
             if kid in ("K2", "B3"):  # the weight re-layout, apart (cached per weight)
-                t["relayout_ms"] = time_ms(fused_resblock.conv_taps, (args[3],), reps)
+                t["relayout_ms"] = time_ms(fused_resblock.conv_tiles, (args[3],), reps)[0]
                 relayout_ms += t["relayout_ms"] * count
             per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
-                                  launches=count, bound_by=kind, **t))
+                                  launches=count, bound_by=kind, timing=how, **t))
             say("time", kernel=spec["name"], path=path, shape=key, launches=count,
-                **{k: f"{v:.4f}" for k, v in t.items()})
+                **{k: f"{v:.4f}" for k, v in t.items()},
+                eager=",".join(k for k, v in how.items() if v == "eager") or "none")
             del args
         free_card()
         if kid in ("K2", "B3"):

@@ -17,31 +17,36 @@
 //  * bf16 (the sampler's dtype): the TPU kernel's own formulation, y =
 //    sum_k h[l + k - 1] @ W_k, with the positions as the M dimension of
 //    the products and the three taps as row offsets 0, 1, 2 of one h tile
-//    h[l0 - 1 .. l0 + TM] (zero outside [0, L)). A block owns TM positions
-//    x TN output channels of one batch row (64 x 256 or 128 x 128: two
-//    warpgroups of 64 x 128) and walks C_in in chunks of 64 channels:
-//      - weights come as (3, C_out, C_in8) bf16 (the wrapper's re-layout,
-//        C_in8 = C_in rounded up to 8, zero padded) and are copied with
-//        16-byte cp.async into a two-stage ring, each tap's tile
-//        [co][ci] K-major with the 128-byte swizzle (16-byte chunk c of
-//        row n at c ^ (n % 8)); the next chunk's copies fly while this
-//        chunk computes;
-//      - raw x[ci][l0 - 8 .. l0 + TM + 8) arrives by 16-byte cp.async
-//        (element loads where rows are not 16-byte aligned, L % 8 != 0);
-//      - once per chunk every thread turns raw x into the position-major h
-//        tile [TM + 2][64 + 8] with one FMA and one tanh per element:
-//        silu(v) = u + u tanh(u) for u = v / 2, with u = a'_c x + d'_c
-//        from a per-channel affine that folds mean, rstd, scale and bias
-//        (computed one chunk ahead); each element of h is computed once
-//        per block, for all taps and all output channels;
+//    h[l0 - 1 .. l0 + TM] (zero outside [0, L)). A block owns TM = 192
+//    positions x TN = 128 output channels of one batch row, three
+//    warpgroups of 64 x 128 (192 divides every sampler length, 128 every
+//    C_out), and walks C_in in chunks of 64 channels:
+//      - weights: the wrapper lays them out once per weight as tiles
+//        (conv_tiles in kernels/fused_resblock.py), each chunk's three
+//        taps one contiguous 48 KB block, K-major, already in the 128-byte
+//        swizzle that the products read; one thread copies a chunk with
+//        one cp.async.bulk that completes on an mbarrier, into a two-stage
+//        ring, two chunks ahead of the products;
+//      - raw x[ci][l0 - 8 .. l0 + TM + 8): 16-byte cp.async into two
+//        buffers, three chunks ahead (element loads where rows are not
+//        16-byte aligned, L % 8 != 0);
+//      - h: every thread turns raw x into the position-major h tile
+//        [TM + 2][64 + 8] with one FMA and one tanh per element, silu(v) =
+//        u + u tanh(u) for u = v / 2 = a'_c x + d'_c, from a per-channel
+//        affine that folds mean, rstd, scale and bias; each element of h
+//        is made once per block, for all taps and output channels;
 //      - products: per warpgroup and chunk, twelve wgmma.mma_async
-//        m64n128k16 bf16 -> fp32 (3 taps x 4 slices of 16 channels): A
-//        from registers (each warp's 16 rows of h, rows p + k, through
-//        ldmatrix.x4), B from the swizzled weight tile through a shared
-//        memory descriptor advanced 32 bytes per slice; then commit and
-//        wait before the registers and the stage are reused;
+//        m64n128k16 bf16 -> fp32 (3 taps x 4 slices of 16 channels), A
+//        from registers (each warp's 16 rows of h at row offset k, through
+//        ldmatrix.x4), B through a shared-memory descriptor advanced 32
+//        bytes per slice; while they run, the threads make the next
+//        chunk's h into the other h buffer;
 //      - epilogue: bias, round to bf16, transpose through shared memory,
 //        16-byte stores of y[b][co][l] along l.
+//    What bounds it now (PERF.md): per chunk the block spends about as
+//    long in its two barriers and the copies' issue as in the products,
+//    and a block's prologue and epilogue overlap nothing (one block per
+//    SM); next come a producer warp and a persistent grid.
 //  * fp32: the fp32 FMA units, a 4 x 4 register tile per thread, staged
 //    synchronously.
 #include <type_traits>
@@ -146,26 +151,29 @@ gn_silu_conv3_fma(const float* __restrict__ x, const float3* __restrict__ partia
 namespace tc {
 
 constexpr int KC = 64;       // input channels per chunk: one 128-byte swizzled row
+constexpr int TN = 128;      // output channels per block: one wgmma n128 per warpgroup
 constexpr int HP = KC + 8;   // bf16 pitch of an h row (144 bytes: ldmatrix without conflicts)
 constexpr int kVecX = 1;     // x rows are 16-byte aligned: 16-byte cp.async
 constexpr int kVecY = 2;     // y rows are 16-byte aligned: 16-byte stores
 
-// Two warpgroups arranged MW x NW (MW * NW = 2) over a TM x TN block tile.
-template <int MW, int NW>
+// MW warpgroups, each 64 positions x TN output channels, over a TM x TN tile.
+template <int MW>
 struct Tile {
-  static_assert(MW * NW == 2, "two warpgroups per block");
   static constexpr int TM = 64 * MW;               // positions per block
-  static constexpr int TN = 128 * NW;              // output channels per block
+  static constexpr int THREADS = 128 * MW;
   static constexpr int XP = TM + 16;               // raw x row: positions l0 - 8 .. l0 + TM + 8
   static constexpr int XSEG = XP / 8;              // 16-byte segments per raw x row
+  static constexpr int HROWS = TM + 2;             // h rows: positions l0 - 1 .. l0 + TM
   static constexpr int YP = TM + 8;                // bf16 pitch of an output row (epilogue)
-  static constexpr int W_TAP = TN * KC * 2;        // bytes of one tap's weight tile
-  static constexpr int W_STAGE = 3 * W_TAP;
+  static constexpr int W_STAGE = 3 * TN * KC * 2;  // one chunk's weights, three taps
+  static constexpr int X_STAGE = KC * XP * 2;
+  static constexpr int H_STAGE = HROWS * HP * 2;
   static constexpr int OFF_X = 2 * W_STAGE;
-  static constexpr int OFF_H = OFF_X + KC * XP * 2;
-  static constexpr int OFF_AD = OFF_H + (TM + 2) * HP * 2;
+  static constexpr int OFF_H = OFF_X + 2 * X_STAGE;
+  static constexpr int OFF_AD = OFF_H + 2 * H_STAGE;
   static constexpr int OFF_STATS = OFF_AD + 2 * KC * 8;
-  static constexpr int SMEM = OFF_STATS + 2 * kMaxGroups * 4 + 1024;  // + base alignment
+  static constexpr int OFF_BAR = OFF_STATS + 2 * kMaxGroups * 4;
+  static constexpr int SMEM = OFF_BAR + 2 * 8 + 1024;  // + base alignment
   static_assert(TN * YP * 2 <= 2 * W_STAGE, "the output tile fits the weight stages");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
@@ -178,8 +186,33 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// Wait until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+// One thread: a bulk copy of `bytes` contiguous bytes that completes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -200,9 +233,6 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Keeps the compiler from moving accumulator accesses across the async products.
 __device__ __forceinline__ void fence_acc(float (&d)[16][4]) {
@@ -257,95 +287,148 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 }  // namespace tc
 
-// x (B, Cin, L), w3 (3, Cout, ldw) with ldw = Cin rounded up to 8, b (Cout,),
-// y (B, Cout, L), all bf16. Grid (ceil(L / TM), ceil(Cout / TN), B).
-template <int MW, int NW>
-__global__ void __launch_bounds__(kConvThreads, 1)
+// x (B, Cin, L), b (Cout,), y (B, Cout, L), all bf16; wt: the weights as
+// tiles (ceil(Cout / TN), ceil(Cin / KC), 3, TN, KC) bf16, zero padded, each
+// row's 16-byte chunk c at c ^ (row % 8) (the wrapper's conv_tiles), so one
+// chunk's three taps are one contiguous, already swizzled 48 KB copy.
+// Grid (ceil(L / TM), ceil(Cout / TN), B), Tile<MW>::THREADS threads.
+//
+// Per chunk kc of 64 input channels, in each iteration: the warpgroups load
+// their A fragments from h[kc], wait for chunk kc's weights and issue its
+// twelve products; while those run, every thread turns chunk kc + 1's raw
+// x into h[kc + 1]; then the products are waited for, and the copies of
+// chunk kc + 2's weights (one bulk copy, one thread) and chunk kc + 3's
+// raw x (cp.async) go into the buffers that were freed.
+template <int MW>
+__global__ void __launch_bounds__(128 * MW, 1)
 gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__ partial,
                  int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
-                 const __nv_bfloat16* __restrict__ w3, const __nv_bfloat16* __restrict__ b,
+                 const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16* __restrict__ b,
                  __nv_bfloat16* __restrict__ y, int Cin, int Cout, int L, int G, float eps,
                  int flags) {
   using namespace tc;
-  using T = Tile<MW, NW>;
-  constexpr int TM = T::TM, TN = T::TN, XP = T::XP;
+  using T = Tile<MW>;
+  constexpr int TM = T::TM, XP = T::XP, NT = T::THREADS, NWARP = NT / 32;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the weight tiles to it
   const uint32_t raw_addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_X);   // [KC][XP]
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_H);   // [TM + 2][HP]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_X);   // [2][KC][XP]
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + T::OFF_H);   // [2][HROWS][HP]
   float2* ad = reinterpret_cast<float2*>(smem + T::OFF_AD);                // [2][KC]
   float* mean_s = reinterpret_cast<float*>(smem + T::OFF_STATS);
   float* rstd_s = mean_s + kMaxGroups;
+  const uint32_t bar0 = sbase + T::OFF_BAR;  // chunk kc's weights: bar0 + 8 (kc % 2)
 
   const int l0 = blockIdx.x * TM, co0 = blockIdx.y * TN, bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = warp >> 2;
-  const int m0 = (MW == 2 ? 64 * wg : 0) + 16 * (warp & 3);  // warp's positions in the tile
-  const int n0 = NW == 2 ? 128 * wg : 0;                      // warpgroup's output channels
+  const int m0 = 16 * warp;  // warp's positions in the tile (warpgroup w: 64 w .. 64 w + 63)
   const int cpg = Cin / G;
-  const int ldw = (Cin + 7) & ~7;
   const int nk = (Cin + KC - 1) / KC;
   const __nv_bfloat16* xb = x + (int64_t)bi * Cin * L;
+  const __nv_bfloat16* wtile = wt + (int64_t)blockIdx.y * nk * (3 * TN * KC);
 
-  for (int g = tid; g < G; g += kConvThreads)
-    merge_group(partial + ((int64_t)bi * G + g) * nchunks, nchunks, eps, &mean_s[g], &rstd_s[g]);
-  __syncthreads();
-
-  // Half the per-channel affine of chunk kc, (a / 2, d / 2) with a = rstd scale,
-  // d = bias - mean a, so that u = v / 2 = a' x + d'; zero past Cin.
-  auto affine = [&](int kc) {
-    if (tid < KC) {
-      const int c = kc * KC + tid;
-      float2 v = make_float2(0.f, 0.f);
-      if (c < Cin) {
-        const int g = c / cpg;
-        const float a = rstd_s[g] * scale[c];
-        v = make_float2(0.5f * a, 0.5f * (bias[c] - mean_s[g] * a));
-      }
-      ad[(kc & 1) * KC + tid] = v;
-    }
+  auto load_w = [&](int kc) {  // one thread
+    bulk_load(sbase + (kc & 1) * T::W_STAGE, wtile + (int64_t)kc * (3 * TN * KC), T::W_STAGE,
+              bar0 + 8 * (kc & 1));
   };
-  // Weights of chunk kc into stage kc & 1: tap k's tile [TN rows co][8 chunks
-  // of 8 ci], chunk c of row n at c ^ (n % 8); zeros past Cout and ldw.
-  auto load_w = [&](int kc) {
-    const uint32_t dst = sbase + (kc & 1) * T::W_STAGE;
-    const int ci0 = kc * KC;
-    for (int i = tid; i < 3 * TN * 8; i += kConvThreads) {
-      const int s = i & 7, row = i >> 3;
-      const int k = row / TN, n = row % TN;
-      const int co = co0 + n, ci = ci0 + 8 * s;
-      const bool ok = co < Cout && ci < ldw;
-      const __nv_bfloat16* src = ok ? w3 + ((int64_t)k * Cout + co) * ldw + ci : w3;
-      cp_async16(dst + k * T::W_TAP + n * 128 + ((s ^ (n & 7)) << 4), src, ok);
-    }
-  };
-  // Raw x of chunk kc: xs[ci][e] = x[ci0 + ci][l0 - 8 + e], zeros outside.
+  // Raw x of chunk kc: xs[kc % 2][ci][e] = x[kc KC + ci][l0 - 8 + e], zeros outside.
   auto load_x = [&](int kc) {
     const int ci0 = kc * KC;
     if (flags & kVecX) {
-      const uint32_t dst = sbase + T::OFF_X;
-      for (int i = tid; i < KC * T::XSEG; i += kConvThreads) {
+      const uint32_t dst = sbase + T::OFF_X + (kc & 1) * T::X_STAGE;
+      for (int i = tid; i < KC * T::XSEG; i += NT) {
         const int row = i / T::XSEG, s = i % T::XSEG;
         const int ci = ci0 + row, l = l0 - 8 + 8 * s;
         const bool ok = ci < Cin && l >= 0 && l < L;  // L % 8 == 0: all or none
         cp_async16(dst + (row * XP + 8 * s) * 2, ok ? xb + (int64_t)ci * L + l : xb, ok);
       }
     } else {
-      for (int i = tid; i < KC * (TM + 2); i += kConvThreads) {
-        const int row = i / (TM + 2), j = i % (TM + 2);
+      __nv_bfloat16* dst = xs + (kc & 1) * (KC * XP);
+      for (int i = tid; i < KC * T::HROWS; i += NT) {
+        const int row = i / T::HROWS, j = i % T::HROWS;
         const int ci = ci0 + row, l = l0 - 1 + j;
-        xs[row * XP + j + 7] =
+        dst[row * XP + j + 7] =
             (ci < Cin && l >= 0 && l < L) ? xb[(int64_t)ci * L + l] : __float2bfloat16(0.f);
       }
     }
   };
+  // Threads tid < KC, channel c = kc KC + tid: its scale and bias (fetched an
+  // iteration ahead), then half its affine, (a / 2, d / 2) with a = rstd
+  // scale, d = bias - mean a, so that u = v / 2 = a' x + d'; zero past Cin.
+  auto fetch = [&](int kc, float& sc, float& bs) {
+    const int c = kc * KC + tid;
+    sc = c < Cin ? scale[c] : 0.f;
+    bs = c < Cin ? bias[c] : 0.f;
+  };
+  auto affine = [&](int kc, float sc, float bs) {
+    const int c = kc * KC + tid;
+    float2 v = make_float2(0.f, 0.f);
+    if (c < Cin) {
+      const int g = c / cpg;
+      const float a = rstd_s[g] * sc;
+      v = make_float2(0.5f * a, 0.5f * (bs - mean_s[g] * a));
+    }
+    ad[(kc & 1) * KC + tid] = v;
+  };
+  // h[kc % 2][j][c] = bf16(silu(a_c x + d_c)) at position l0 - 1 + j, 0 outside
+  // [0, L): one task is 8 channels x 32 positions, a lane per position.
+  auto transform = [&](int kc) {
+    const __nv_bfloat16* xsb = xs + (kc & 1) * (KC * XP) + 7;
+    __nv_bfloat16* hb = hs + (kc & 1) * (T::HROWS * HP);
+    const float2* adb = ad + (kc & 1) * KC;
+    constexpr int NPB = (T::HROWS + 31) / 32;
+    for (int task = warp; task < 8 * NPB; task += NWARP) {
+      const int cg = task & 7, j = 32 * (task >> 3) + lane;
+      if (j >= T::HROWS) continue;
+      const int l = l0 - 1 + j;
+      uint4 out = make_uint4(0u, 0u, 0u, 0u);
+      if (l >= 0 && l < L) {
+        float h[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 av = adb[8 * cg + c];
+          const float u = fmaf(av.x, __bfloat162float(xsb[(8 * cg + c) * XP + j]), av.y);
+          h[c] = fmaf(u, tanh_approx(u), u);
+        }
+        out = make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]), pack_bf16(h[4], h[5]),
+                         pack_bf16(h[6], h[7]));
+      }
+      *reinterpret_cast<uint4*>(hb + j * HP + 8 * cg) = out;
+    }
+  };
 
-  affine(0);
-  load_w(0);
+  // prologue: the first copies fly while the group statistics merge
+  if (tid == 0) {
+    mbar_init(bar0);
+    mbar_init(bar0 + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_w(0);
+    if (nk > 1) load_w(1);
+  }
   load_x(0);
+  cp_async_commit();
+  if (nk > 1) load_x(1);
+  cp_async_commit();
+  for (int g = tid; g < G; g += NT)
+    merge_group(partial + ((int64_t)bi * G + g) * nchunks, nchunks, eps, &mean_s[g], &rstd_s[g]);
+  __syncthreads();
+  float sc_n, bs_n;
+  if (tid < KC)
+    for (int kc = 0; kc < 2 && kc < nk; ++kc) {
+      fetch(kc, sc_n, bs_n);
+      affine(kc, sc_n, bs_n);
+    }
+  cp_async_wait_1();  // chunk 0's raw x
+  __syncthreads();
+  transform(0);
+  __syncthreads();
+  if (nk > 2) load_x(2);
   cp_async_commit();
 
   float acc[16][4];
@@ -354,47 +437,11 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
 
-  const uint32_t h_addr = sbase + T::OFF_H;
   for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait_all();
-    fence_async_shared();  // the copies' bytes become visible to wgmma's reads
-    // chunk kc's weights, raw x and affine are in; every warp is done with
-    // chunk kc - 1's products, so its stage and the h tile are free
-    __syncthreads();
-    if (kc + 1 < nk) {
-      load_w(kc + 1);
-      cp_async_commit();
-      affine(kc + 1);
-    }
-    {  // transform: warp w makes channels 8w .. 8w + 7 of h for every position
-      float2 av[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) av[c] = ad[(kc & 1) * KC + 8 * warp + c];
-      const __nv_bfloat16* xr = xs + 8 * warp * XP + 7;
-      for (int j = lane; j < TM + 2; j += 32) {
-        const int l = l0 - 1 + j;
-        uint4 out = make_uint4(0u, 0u, 0u, 0u);
-        if (l >= 0 && l < L) {
-          float h[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const float u = fmaf(av[c].x, __bfloat162float(xr[c * XP + j]), av[c].y);
-            h[c] = fmaf(u, tanh_approx(u), u);
-          }
-          out = make_uint4(pack_bf16(h[0], h[1]), pack_bf16(h[2], h[3]), pack_bf16(h[4], h[5]),
-                           pack_bf16(h[6], h[7]));
-        }
-        *reinterpret_cast<uint4*>(hs + j * HP + 8 * warp) = out;
-      }
-    }
-    __syncthreads();  // h is ready; raw x is free
-    if (kc + 1 < nk) {
-      load_x(kc + 1);
-      cp_async_commit();
-    }
     // products: y[m][n] += h[m + k][ci] W_k[n][ci] over the chunk's 64 ci, as
     // twelve wgmma m64n128k16 per warpgroup, A from registers
-    const uint32_t w_addr = sbase + (kc & 1) * T::W_STAGE + n0 * 128;
+    if (tid < KC && kc + 2 < nk) fetch(kc + 2, sc_n, bs_n);
+    const uint32_t h_addr = sbase + T::OFF_H + (kc & 1) * T::H_STAGE;
     uint32_t a[3][4][4];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
@@ -402,26 +449,41 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
       for (int s = 0; s < 4; ++s)
         ldmatrix_x4(a[k][s],
                     h_addr + ((m0 + k + (lane & 15)) * HP + 16 * s + 8 * (lane >> 4)) * 2);
+    mbar_wait(bar0 + 8 * (kc & 1), (kc >> 1) & 1);
+    const uint32_t w_addr = sbase + (kc & 1) * T::W_STAGE;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < 3; ++k)
 #pragma unroll
       for (int s = 0; s < 4; ++s)
-        wgmma_m64n128k16_rs(acc, a[k][s], sw128_desc(w_addr + k * T::W_TAP + 32 * s));
+        wgmma_m64n128k16_rs(acc, a[k][s], sw128_desc(w_addr + k * (TN * KC * 2) + 32 * s));
     wgmma_commit();
+    if (kc + 1 < nk) {  // while the products run: h of the next chunk
+      cp_async_wait_1();
+      __syncthreads();  // its raw x and affine are visible to every thread
+      transform(kc + 1);
+    }
     wgmma_wait_all();
     fence_acc(acc);
+    // chunk kc's weights and h, and chunk kc + 1's raw x, are free
+    __syncthreads();
+    if (kc + 2 < nk) {
+      if (tid == 0) load_w(kc + 2);
+      if (tid < KC) affine(kc + 2, sc_n, bs_n);
+    }
+    if (kc + 3 < nk) load_x(kc + 3);
+    cp_async_commit();
   }
 
   // epilogue: bias, bf16, transposed through shared memory into ys[co][m]
-  __syncthreads();  // every warp is done with the weight stages
+  // (over the weight stages, which no copy writes any more)
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
   {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
+      const int n = 8 * j + 2 * t;
       const float b0 = co0 + n < Cout ? __bfloat162float(b[co0 + n]) : 0.f;
       const float b1 = co0 + n + 1 < Cout ? __bfloat162float(b[co0 + n + 1]) : 0.f;
       ys[n * T::YP + m0 + g] = __float2bfloat16(acc[j][0] + b0);
@@ -433,36 +495,39 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
   __syncthreads();
   __nv_bfloat16* yb = y + ((int64_t)bi * Cout + co0) * L + l0;
   if (flags & kVecY) {
-    for (int i = tid; i < TN * (TM / 8); i += kConvThreads) {
+    for (int i = tid; i < TN * (TM / 8); i += NT) {
       const int n = i / (TM / 8), s = i % (TM / 8);
       if (co0 + n < Cout && l0 + 8 * s < L)
         *reinterpret_cast<uint4*>(yb + (int64_t)n * L + 8 * s) =
             *reinterpret_cast<const uint4*>(ys + n * T::YP + 8 * s);
     }
   } else {
-    for (int i = tid; i < TN * TM; i += kConvThreads) {
+    for (int i = tid; i < TN * TM; i += NT) {
       const int n = i / TM, m = i % TM;
       if (co0 + n < Cout && l0 + m < L) yb[(int64_t)n * L + m] = ys[n * T::YP + m];
     }
   }
 }
 
-template <int MW, int NW>
+// Three warpgroups, 192 positions: every sampler length (192, 384, 768) is
+// a whole number of tiles, as every C_out (128, 256, 512) is of TN.
+constexpr int kMW = 3;
+
 static cudaError_t launch_tc(const __nv_bfloat16* x, const float3* part, int nchunks,
-                             const float* sc, const float* bs, const __nv_bfloat16* w3,
-                             const __nv_bfloat16* b, __nv_bfloat16* y, int B, int Cin,
-                             int Cout, int L, int G, float eps, cudaStream_t stream) {
-  using T = tc::Tile<MW, NW>;
-  auto kernel = gn_silu_conv3_tc<MW, NW>;
+                             const float* sc, const float* bs, const __nv_bfloat16* wt,
+                             const __nv_bfloat16* b, __nv_bfloat16* y, int B, int Cin, int Cout,
+                             int L, int G, float eps, cudaStream_t stream) {
+  using T = tc::Tile<kMW>;
+  auto kernel = gn_silu_conv3_tc<kMW>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::SMEM);
   if (err != cudaSuccess) return err;
   const bool rows16 = L % 8 == 0;
   const int flags = (rows16 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? tc::kVecX : 0) |
                     (rows16 && reinterpret_cast<uintptr_t>(y) % 16 == 0 ? tc::kVecY : 0);
-  const dim3 grid((L + T::TM - 1) / T::TM, (Cout + T::TN - 1) / T::TN, B);
-  kernel<<<grid, kConvThreads, T::SMEM, stream>>>(x, part, nchunks, sc, bs, w3, b, y, Cin, Cout,
-                                                  L, G, eps, flags);
+  const dim3 grid((L + T::TM - 1) / T::TM, (Cout + tc::TN - 1) / tc::TN, B);
+  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(x, part, nchunks, sc, bs, wt, b, y, Cin, Cout, L,
+                                                G, eps, flags);
   return cudaSuccess;
 }
 
@@ -489,12 +554,7 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
     const auto* wp = static_cast<const __nv_bfloat16*>(w);
     const auto* bp = static_cast<const __nv_bfloat16*>(b);
     auto* yp = static_cast<__nv_bfloat16*>(y);
-    // 64 x 256 tiles where C_out > 128, else 128 x 128: at the sampler's
-    // shapes every block's tile is full
-    err = Cout > 128 ? launch_tc<1, 2>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G,
-                                       eps, stream)
-                     : launch_tc<2, 1>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G,
-                                       eps, stream);
+    err = launch_tc(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G, eps, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
@@ -506,9 +566,9 @@ extern "C" {
 
 // x: (B, Cin, L), b: (Cout,), y: (B, Cout, L), all contiguous in one dtype
 // (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32. w: fp32 in torch's
-// (Cout, Cin, 3) layout; bf16 as (3, Cout, Cin8), Cin8 = Cin rounded up to
-// 8 with zeros, 16-byte aligned. Returns the cudaError_t of the launches
-// (0 = success).
+// (Cout, Cin, 3) layout; bf16 as the kernel's swizzled tiles (see
+// gn_silu_conv3_tc), 16-byte aligned. Returns the cudaError_t of the
+// launches (0 = success).
 int sg_gn_silu_conv3(const void* x, const void* scale, const void* bias, const void* w,
                      const void* b, void* y, void* partial, int B, int Cin, int Cout, int L,
                      int G, float eps, int dtype, void* stream) {

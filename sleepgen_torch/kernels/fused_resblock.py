@@ -8,9 +8,8 @@ Hopper: ``sleepgen_torch/csrc/gn_silu_conv3.cu`` (its source note gives
 the bound and the design). GroupNorm statistics are fp32, h is rounded to
 the working dtype before the convolution, the convolution accumulates in
 fp32, and the output has x's dtype. The weight is in torch's
-(C_out, C_in, 3) layout; the bf16 kernel reads it as ``conv_taps(w)``,
-(3, C_out, C_in8), which the wrapper makes once per weight (see
-``_cached_taps``).
+(C_out, C_in, 3) layout; the bf16 kernel reads it as ``conv_tiles(w)``,
+which the wrapper makes once per weight (see ``_cached_tiles``).
 
 ``gn_silu_conv3`` runs the plain PyTorch version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
@@ -37,6 +36,7 @@ launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
+TILE_N, CHUNK = 128, 64  # tc::TN and tc::KC in csrc/gn_silu_conv3.cu
 
 
 def reset_counts() -> None:
@@ -61,35 +61,41 @@ def gn_silu_conv3_reference(x: torch.Tensor, scale: torch.Tensor,
     return (y + b.float()[:, None]).to(x.dtype)
 
 
-def conv_taps(w: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernel's weight layout: (C_out, C_in, 3) -> (3, C_out, C_in8),
-    tap-major and contiguous, so W_k[co] is one row of input channels;
-    C_in is zero-padded to C_in8, a multiple of 8, so every row starts on
-    16 bytes."""
-    taps = w.permute(2, 0, 1)
-    pad = -w.shape[1] % 8
-    return F.pad(taps, (0, pad)) if pad else taps.contiguous()
+def conv_tiles(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weight layout: (C_out, C_in, 3) -> (ceil(C_out / 128),
+    ceil(C_in / 64), 3, 128, 64), zero padded. Entry [t, c, k, n] is the row
+    W_k[128 t + n, 64 c : 64 c + 64], with its 16-byte chunk j (8 channels)
+    stored at chunk j ^ (n % 8): the 128-byte swizzle that the kernel's
+    products read. A block's 64 input channels of all three taps are then
+    one contiguous copy."""
+    c_out, c_in, _ = w.shape
+    nt, nk = -(-c_out // TILE_N), -(-c_in // CHUNK)
+    taps = F.pad(w.permute(2, 0, 1), (0, nk * CHUNK - c_in, 0, nt * TILE_N - c_out))
+    t = taps.reshape(3, nt, TILE_N, nk, 8, 8).permute(1, 3, 0, 2, 4, 5)
+    row = torch.arange(TILE_N, device=w.device)[:, None]
+    t = t[:, :, :, row, torch.arange(8, device=w.device) ^ (row % 8)].contiguous()
+    return t.view(nt, nk, 3, TILE_N, CHUNK)
 
 
-# conv_taps of each weight the kernel has seen: id(w) -> (weak reference to w,
-# w._version, taps). Keyed by the tensor object, not its data_ptr, since a
+# conv_tiles of each weight the kernel has seen: id(w) -> (weak reference to w,
+# w._version, tiles). Keyed by the tensor object, not its data_ptr, since a
 # freed weight's memory may come back as another tensor at version 0; an
 # entry goes when its weight is freed, and an in-place update of the weight
 # bumps its _version, which misses the entry.
-_taps_cache: dict = {}
+_tiles_cache: dict = {}
 
 
-def _cached_taps(w: torch.Tensor) -> torch.Tensor:
+def _cached_tiles(w: torch.Tensor) -> torch.Tensor:
     if w.is_inference():  # no version counter: re-laid out on every call
-        return conv_taps(w)
+        return conv_tiles(w)
     key = id(w)
-    hit = _taps_cache.get(key)
+    hit = _tiles_cache.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    taps = conv_taps(w)
-    _taps_cache[key] = (weakref.ref(w, lambda _, k=key: _taps_cache.pop(k, None)),
-                        w._version, taps)
-    return taps
+    tiles = conv_tiles(w)
+    _tiles_cache[key] = (weakref.ref(w, lambda _, k=key: _tiles_cache.pop(k, None)),
+                         w._version, tiles)
+    return tiles
 
 
 def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -123,7 +129,7 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          f"on {x.device}")
     lib = _build.load()
     if x.dtype == torch.bfloat16:
-        w = _cached_taps(w)
+        w = _cached_tiles(w)
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
                           dtype=torch.float32, device=x.device)

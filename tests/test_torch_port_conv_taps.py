@@ -1,9 +1,11 @@
 """K2's bf16 formulation, checked on the CPU before the card runs it.
 
-The bf16 kernel reads the weight as ``conv_taps(w)``, (3, C_out, C_in8),
-and computes y[l] = sum_k h[l + k - 1] @ W_k^T over positions, with h
-zero outside [0, L), in (B, L, C). That sum, written here in plain torch
-on the wrapper's own re-layout, must equal the port's plain version
+The bf16 kernel reads the weight as ``conv_tiles(w)`` (tap-major tiles of
+128 output x 64 input channels, zero padded, each row's 16-byte chunks
+swizzled) and computes y[l] = sum_k h[l + k - 1] @ W_k^T over positions,
+with h zero outside [0, L), in (B, L, C). That sum, written here in plain
+torch on the taps read back from the wrapper's own re-layout, must equal
+the port's plain version
 ``gn_silu_conv3_reference`` and the JAX package's Pallas
 ``fused_gn_silu_conv3`` (interpret mode, as tests/test_pallas_kernels.py
 runs it) in fp32 at rtol 1e-5 / atol 1e-5: a tap taken with the wrong
@@ -23,14 +25,24 @@ from sleepgen_torch.kernels import fused_resblock
 from sleepgen_torch.kernels.group_norm import group_norm_silu_reference
 
 
+def _taps(tiles):
+    """(3, NT 128, NK 64) padded taps read back from conv_tiles: chunk j of
+    row n is stored at chunk j ^ (n % 8), and the XOR is its own inverse."""
+    nt, nk = tiles.shape[:2]
+    t = tiles.reshape(nt, nk, 3, 128, 8, 8)
+    row = torch.arange(128)[:, None]
+    t = t[:, :, :, row, torch.arange(8) ^ (row % 8)]
+    return t.permute(2, 0, 3, 1, 4, 5).reshape(3, nt * 128, nk * 64)
+
+
 def _taps_conv(x_bcl, scale, bias, w, b, num_groups):
     """GroupNorm -> SiLU, then sum_k shift(h, k - 1) @ W_k^T over (B, L, C)."""
     h = group_norm_silu_reference(x_bcl, scale, bias, num_groups).transpose(1, 2)
-    taps = fused_resblock.conv_taps(w)  # (3, C_out, C_in8)
+    taps = _taps(fused_resblock.conv_tiles(w))
     l = h.shape[1]
-    hp = F.pad(h, (0, taps.shape[-1] - h.shape[-1], 1, 1))  # C_in to C_in8; one zero row each side
+    hp = F.pad(h, (0, taps.shape[-1] - h.shape[-1], 1, 1))  # C_in padded; one zero row each side
     y = sum(hp[:, k:k + l] @ taps[k].T for k in range(3))
-    return (y + b).transpose(1, 2)
+    return (y[..., :w.shape[0]] + b).transpose(1, 2)
 
 
 # (B, L, C_in, C_out, G): tests/test_pallas_kernels.py's shapes and a ragged
@@ -56,15 +68,18 @@ def test_conv_taps_sum_matches_plain_and_pallas(b, l, cin, cout, g):
     np.testing.assert_allclose(got, pallas.transpose(0, 2, 1), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("cin", [8, 12, 64, 96])
-def test_conv_taps_layout(cin):
-    w = torch.randn(24, cin, 3)
-    taps = fused_resblock.conv_taps(w)
-    cin8 = -(-cin // 8) * 8
-    assert taps.shape == (3, 24, cin8) and taps.is_contiguous()
+@pytest.mark.parametrize("cout,cin", [(24, 8), (24, 12), (128, 64), (136, 96), (512, 1024)])
+def test_conv_tiles_layout(cout, cin):
+    w = torch.randn(cout, cin, 3)
+    tiles = fused_resblock.conv_tiles(w)
+    nt, nk = -(-cout // 128), -(-cin // 64)
+    assert tiles.shape == (nt, nk, 3, 128, 64) and tiles.is_contiguous()
+    taps = _taps(tiles)
     for k in range(3):
-        assert torch.equal(taps[k, :, :cin], w[:, :, k])
-    assert not taps[..., cin:].any()
+        assert torch.equal(taps[k, :cout, :cin], w[:, :, k])
+    assert not taps[:, cout:].any() and not taps[:, :, cin:].any()
+    # the swizzle itself: row 5's chunk 0 (channels 0-7) is stored at chunk 5
+    assert torch.equal(tiles[0, 0, 1, 5, 40:48], w[5, 0:8, 1])
 
 
 def test_kernel_silu_form_equals_silu():
@@ -74,18 +89,18 @@ def test_kernel_silu_form_equals_silu():
     torch.testing.assert_close(u + u * torch.tanh(u), F.silu(v), rtol=1e-12, atol=1e-12)
 
 
-def test_taps_cache_follows_the_weight():
+def test_tiles_cache_follows_the_weight():
     w = torch.randn(16, 24, 3)
-    first = fused_resblock._cached_taps(w)
-    assert fused_resblock._cached_taps(w) is first
+    first = fused_resblock._cached_tiles(w)
+    assert fused_resblock._cached_tiles(w) is first
     w.mul_(2.0)  # in place: the version moves, the entry is stale
-    again = fused_resblock._cached_taps(w)
-    assert again is not first and torch.equal(again, fused_resblock.conv_taps(w))
+    again = fused_resblock._cached_tiles(w)
+    assert again is not first and torch.equal(again, fused_resblock.conv_tiles(w))
     key = id(w)
     del w
     gc.collect()
-    assert key not in fused_resblock._taps_cache
+    assert key not in fused_resblock._tiles_cache
     with torch.inference_mode():
         wi = torch.randn(16, 24, 3)
-        assert torch.equal(fused_resblock._cached_taps(wi), fused_resblock.conv_taps(wi))
-    assert id(wi) not in fused_resblock._taps_cache
+        assert torch.equal(fused_resblock._cached_tiles(wi), fused_resblock.conv_tiles(wi))
+    assert id(wi) not in fused_resblock._tiles_cache
