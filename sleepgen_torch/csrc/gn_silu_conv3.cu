@@ -156,9 +156,11 @@ constexpr int HP = KC + 8;   // bf16 pitch of an h row (144 bytes: ldmatrix with
 constexpr int kVecX = 1;     // x rows are 16-byte aligned: 16-byte cp.async
 constexpr int kVecY = 2;     // y rows are 16-byte aligned: 16-byte stores
 
-// MW warpgroups, each 64 positions x TN output channels, over a TM x TN tile.
-template <int MW>
+// Three warpgroups, each 64 positions x TN output channels, over a TM x TN
+// tile: every sampler length (192, 384, 768) is a whole number of tiles, as
+// every C_out (128, 256, 512) is of TN.
 struct Tile {
+  static constexpr int MW = 3;                     // warpgroups
   static constexpr int TM = 64 * MW;               // positions per block
   static constexpr int THREADS = 128 * MW;
   static constexpr int XP = TM + 16;               // raw x row: positions l0 - 8 .. l0 + TM + 8
@@ -291,7 +293,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // tiles (ceil(Cout / TN), ceil(Cin / KC), 3, TN, KC) bf16, zero padded, each
 // row's 16-byte chunk c at c ^ (row % 8) (the wrapper's conv_tiles), so one
 // chunk's three taps are one contiguous, already swizzled 48 KB copy.
-// Grid (ceil(L / TM), ceil(Cout / TN), B), Tile<MW>::THREADS threads.
+// Grid (ceil(L / TM), ceil(Cout / TN), B), Tile::THREADS threads.
 //
 // Per chunk kc of 64 input channels, in each iteration: the warpgroups load
 // their A fragments from h[kc], wait for chunk kc's weights and issue its
@@ -299,15 +301,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // x into h[kc + 1]; then the products are waited for, and the copies of
 // chunk kc + 2's weights (one bulk copy, one thread) and chunk kc + 3's
 // raw x (cp.async) go into the buffers that were freed.
-template <int MW>
-__global__ void __launch_bounds__(128 * MW, 1)
+__global__ void __launch_bounds__(tc::Tile::THREADS, 1)
 gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__ partial,
                  int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
                  const __nv_bfloat16* __restrict__ wt, const __nv_bfloat16* __restrict__ b,
                  __nv_bfloat16* __restrict__ y, int Cin, int Cout, int L, int G, float eps,
                  int flags) {
   using namespace tc;
-  using T = Tile<MW>;
+  using T = Tile;
   constexpr int TM = T::TM, XP = T::XP, NT = T::THREADS, NWARP = NT / 32;
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the weight tiles to it
@@ -509,16 +510,12 @@ gn_silu_conv3_tc(const __nv_bfloat16* __restrict__ x, const float3* __restrict__
   }
 }
 
-// Three warpgroups, 192 positions: every sampler length (192, 384, 768) is
-// a whole number of tiles, as every C_out (128, 256, 512) is of TN.
-constexpr int kMW = 3;
-
 static cudaError_t launch_tc(const __nv_bfloat16* x, const float3* part, int nchunks,
                              const float* sc, const float* bs, const __nv_bfloat16* wt,
                              const __nv_bfloat16* b, __nv_bfloat16* y, int B, int Cin, int Cout,
                              int L, int G, float eps, cudaStream_t stream) {
-  using T = tc::Tile<kMW>;
-  auto kernel = gn_silu_conv3_tc<kMW>;
+  using T = tc::Tile;
+  auto kernel = gn_silu_conv3_tc;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::SMEM);
   if (err != cudaSuccess) return err;

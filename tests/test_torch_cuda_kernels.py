@@ -73,32 +73,6 @@ def test_group_norm_silu_kernel_bf16(b, c, l, g):
     assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()
 
 
-@pytest.mark.parametrize("b,cin,cout,l,g", [(2, 16, 16, 64, 8), (2, 32, 64, 96, 32),
-                                            (3, 128, 256, 384, 32), (2, 24, 40, 37, 4),
-                                            (2, 1024, 512, 192, 32)])
-def test_gn_silu_conv3_kernel_fp32(b, cin, cout, l, g):
-    x, scale, bias, w, bb = _inputs(2, b, cin, l, cout)
-    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, g)
-    torch.cuda.synchronize()
-    want = fused_resblock.gn_silu_conv3_reference(x, scale, bias, w, bb, g)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.parametrize("b,cin,cout,l,g", [(2, 128, 128, 768, 32), (2, 1024, 512, 192, 32),
-                                            (2, 24, 40, 37, 4), (3, 48, 136, 130, 8),
-                                            (2, 16, 16, 64, 8)])
-def test_gn_silu_conv3_kernel_bf16(b, cin, cout, l, g):
-    x, scale, bias, w, bb = _inputs(3, b, cin, l, cout)
-    xb, wb, bbb = x.bfloat16(), w.bfloat16(), bb.bfloat16()
-    got = fused_resblock.gn_silu_conv3(xb, scale, bias, wb, bbb, g)
-    torch.cuda.synchronize()
-    want = fused_resblock.gn_silu_conv3_reference(xb.float(), scale, bias, wb.float(),
-                                                  bbb.float(), g)
-    err = (got.float() - want).abs()
-    tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
-    assert bool((err <= tol).all()), err.max()
-
-
 # Every distinct (C_in, C_out, L) that the sampler gives K2
 # (sleepgen_torch/nn/unet1d.py:118-147 at mc 128, channel_mult [1, 2, 4],
 # latent length 768; G 32): C_in 128-1024, C_out 128/256/512, L 768/384/192.
@@ -113,26 +87,33 @@ EDGE_K2_SHAPES = [(96, 128, 384), (96, 256, 192), (128, 256, 8), (128, 128, 8),
                   (256, 128, 1000), (256, 512, 1000)]
 
 
-def _check_k2(seed, b, cin, cout, l, g, dtype):
-    x, scale, bias, w, bb = _inputs(seed, b, cin, l, cout)
-    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+# ... at batch 2, G 32, beside the older cases below
+K2_CASES = [(2, cin, cout, l, 32) for cin, cout, l in SAMPLER_K2_SHAPES + EDGE_K2_SHAPES]
+
+
+@pytest.mark.parametrize("b,cin,cout,l,g", [(2, 16, 16, 64, 8), (2, 32, 64, 96, 32),
+                                            (3, 128, 256, 384, 32), (2, 24, 40, 37, 4)]
+                         + K2_CASES)
+def test_gn_silu_conv3_kernel_fp32(b, cin, cout, l, g):
+    x, scale, bias, w, bb = _inputs(2, b, cin, l, cout)
     got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, g)
     torch.cuda.synchronize()
-    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(), bb.float(),
-                                                  g)
-    assert got.dtype == dtype and got.shape == (b, cout, l)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    else:
-        err = (got.float() - want).abs()
-        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
-        assert bool((err <= tol).all()), err.max()
+    want = fused_resblock.gn_silu_conv3_reference(x, scale, bias, w, bb, g)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("cin,cout,l", SAMPLER_K2_SHAPES + EDGE_K2_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_gn_silu_conv3_sampler_and_edge_shapes(cin, cout, l, dtype):
-    _check_k2(12, 2, cin, cout, l, 32, dtype)
+@pytest.mark.parametrize("b,cin,cout,l,g", [(2, 24, 40, 37, 4), (3, 48, 136, 130, 8),
+                                            (2, 16, 16, 64, 8)] + K2_CASES)
+def test_gn_silu_conv3_kernel_bf16(b, cin, cout, l, g):
+    x, scale, bias, w, bb = _inputs(3, b, cin, l, cout)
+    xb, wb, bbb = x.bfloat16(), w.bfloat16(), bb.bfloat16()
+    got = fused_resblock.gn_silu_conv3(xb, scale, bias, wb, bbb, g)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(xb.float(), scale, bias, wb.float(),
+                                                  bbb.float(), g)
+    err = (got.float() - want).abs()
+    tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+    assert bool((err <= tol).all()), err.max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
