@@ -11,7 +11,10 @@ sampling and stage-2 LDM training. Phases, one line each:
   3. kernel checks: one-step runs of both paths record the shapes they
      give each kernel (a DDIM step of the sampler at batch 64; one
      full-width training step at batch 1024, whose launch counts must
-     equal those derived from the configuration, K2 none); at every one of
+     equal those derived from the configuration, K2 none; then a warm-up
+     eval batch, one more step and two eval batches on the fp32 masters:
+     the first after the step re-lays out each K2 weight once, the second
+     none); at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
      off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
      the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
@@ -45,10 +48,13 @@ sampling and stage-2 LDM training. Phases, one line each:
      per step after the first (min-max), windows/s, peak memory; launch
      counts equal those derived from the configuration; finite losses;
   8. timings: each kernel at each shape of its path in bf16: kernel,
-     plain version, one-PyTorch-call yardstick (``library_ms``), each as
-     device time (``time_ms``: the calls captured in a CUDA graph), and
-     the bound; for K2 also the time of its weight re-layout
-     (``fused_resblock.conv_tiles``), which the wrapper caches per weight;
+     plain version, one-PyTorch-call yardstick (``library_ms``), each
+     eager (per call in a loop, host cost included where it exceeds the
+     device's) and as device time (the same calls
+     captured in a CUDA graph; ``graph_ms``, ``plain_graph_ms``,
+     ``library_graph_ms``), and the bound; for K2 also the time of its
+     weight re-layout (``fused_resblock.conv_tiles``), which the wrapper
+     caches per weight;
   9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
@@ -64,12 +70,13 @@ chiprun_out/chip_smoke_report.json. Any failure raises and the script
 exits non-zero without the last line.
 
 ``python3 chip_smoke.py --only K2`` is the quick loop for K2 alone:
-phases 1 and 2, the DDIM step at batch 64 that records K2's shapes (its
-launch count checked against the configuration), K2's fp32 and bf16
-checks at those shapes and at B3's, and the phase-8 timings of K2 (per
-sampler batch: the step's shapes times 200 steps) and B3. It prints the
-kernels' JSON line and writes chiprun_out/chip_smoke_k2_report.json, but
-never the {"ok": ...} line, and exits non-zero on any failure.
+phases 1 and 2, the DDIM step at batch 64 that records K2's shapes and
+launches (the count checked against the configuration), K2's fp32 and
+bf16 checks at those shapes and at B3's, and the phase-8 timings of K2
+(path "DDIM step": each shape's time times the step's measured launches
+at it) and B3. It prints the kernels' JSON line and writes
+chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
+and exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -374,12 +381,13 @@ def check_kernel(kid: str, key) -> dict:
 
 
 def time_ms(fn, args, reps: int, graph: bool = True) -> tuple:
-    """Device ms of one call: ``reps`` calls captured in one CUDA graph,
-    replayed between CUDA events (median of three replays), so the host's
-    launch overhead, which the end-to-end metrics carry, is left out.
-    Where a call cannot be captured, or ``graph`` is False (an autograd
-    backward, which runs on the engine's own threads), the calls run
-    eagerly between the events. Returns (ms, "graph" or "eager")."""
+    """ms of one call, two ways: (eager, graph). Eager: ``reps`` calls in a
+    loop between CUDA events, as a caller pays per call, its host cost
+    included where the host is slower than the card (median of three
+    loops). Graph: the same calls captured in one CUDA graph and
+    replayed between the events (median of three replays), device time
+    only. ``graph`` False (an autograd backward, which runs on the engine's
+    own threads) gives no graph time (None); a capture that fails raises."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -388,30 +396,30 @@ def time_ms(fn, args, reps: int, graph: bool = True) -> tuple:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if graph:
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                for _ in range(reps):
-                    fn(*args)
-        except RuntimeError:
-            graph = None
+
+    def median_of_three(run) -> float:
+        times = []
+        for _ in range(3):
+            start.record()
+            run()
+            stop.record()
             torch.cuda.synchronize()
-    else:
-        graph = None
-    times = []
-    for _ in range(3 if graph is not None else 1):
-        start.record()
-        if graph is not None:
-            graph.replay()
-        else:
-            for _ in range(reps):
-                fn(*args)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    del graph
-    return statistics.median(times), "eager" if len(times) == 1 else "graph"
+            times.append(start.elapsed_time(stop) / reps)
+        return statistics.median(times)
+
+    def loop() -> None:
+        for _ in range(reps):
+            fn(*args)
+
+    eager = median_of_three(loop)
+    if not graph:
+        return eager, None
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        loop()
+    replayed = median_of_three(cuda_graph.replay)
+    del cuda_graph
+    return eager, replayed
 
 
 def free_card() -> None:
@@ -442,11 +450,13 @@ def phase_build() -> dict:
 
 
 def full_trainer(cfg: Config, ae_state):
-    """train_ldm's models, schedule and Adam on the card, and its train
-    step (scale factor 1); returns (step function, schedule, latent shape)."""
+    """train_ldm's models, schedule and Adam on the card, and its train and
+    eval steps (scale factor 1); returns (step function, eval function,
+    schedule, latent shape)."""
     unet, ae, sched, opt = T.build_trainer(cfg, ae_state, cfg, "cuda")
     step = T.make_ldm_train_step(unet, ae, sched, opt, 1.0, DTYPES[cfg.dtype])
-    return step, sched, (cfg.aekl.latent_channels, T.latent_length(cfg, 3072))
+    evaluate = T.make_ldm_eval_step(unet, ae, sched, DTYPES[cfg.dtype])
+    return step, evaluate, sched, (cfg.aekl.latent_channels, T.latent_length(cfg, 3072))
 
 
 def train_windows(n: int, seed: int) -> torch.Tensor:
@@ -455,13 +465,49 @@ def train_windows(n: int, seed: int) -> torch.Tensor:
                                torch.device("cuda"))
 
 
+def eval_relayouts(step, step_inputs, evaluate, sched, latent_shape, cfg: Config) -> dict:
+    """The trainer's eval batches (VALID_WINDOWS windows, K2 on the fp32
+    masters under autocast): one that warms up (first-call costs and the
+    re-layouts), one more training step that changes the weights, then
+    two eval batches. The first after the step re-lays out each K2 weight
+    once, the second none; the difference of their seconds (host clock)
+    is what an eval, or an in-training sample, pays per weight update."""
+    x = train_windows(VALID_WINDOWS, SEED + 2)
+    gen = T.make_generator(cfg.train.seed, "cuda", T.EVAL_STREAM, 0)
+    inputs = T.draw_step_inputs(gen, VALID_WINDOWS, latent_shape, sched.num_timesteps)
+    per_forward = expected_launches(cfg, 1, 0)["K2"]
+    seconds, relayouts = [], []
+    for i in range(3):
+        if i == 1:
+            step(*step_inputs)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(x, 1.0, *inputs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        relayouts.append(fused_resblock.relayouts)
+        if fused_resblock.launches != per_forward:
+            raise AssertionError(f"eval batch: K2 launches {fused_resblock.launches}, "
+                                 f"expected {per_forward}")
+    if relayouts != [per_forward, per_forward, 0]:
+        raise AssertionError(f"eval batches re-laid out {relayouts} K2 weights, "
+                             f"expected [{per_forward}, {per_forward}, 0]")
+    say("eval", windows=VALID_WINDOWS, relayouts=relayouts,
+        **{f"ms_{i}": f"{v * 1e3:.3f}" for i, v in enumerate(seconds)},
+        relayout_ms_per_update=f"{(seconds[1] - seconds[2]) * 1e3:.3f}")
+    return dict(windows=VALID_WINDOWS, relayouts=relayouts, seconds=seconds,
+                relayout_ms_per_update=(seconds[1] - seconds[2]) * 1e3)
+
+
 def phase_train_step() -> tuple:
     """One full-width training step (batch 1024, bf16) with the counts set
     to 0 before and read after: they must equal those derived from the
-    configuration, K2 none. Returns the shapes it gave K1 and K3."""
+    configuration, K2 none; then two eval batches (``eval_relayouts``).
+    Returns the shapes the step gave K1 and K3, and the eval's record."""
     cfg = flagship_config(steps=1)
     _, ae_sd = seeded_weights(cfg, SEED)
-    step, sched, latent_shape = full_trainer(cfg, ae_sd)
+    step, evaluate, sched, latent_shape = full_trainer(cfg, ae_sd)
     x = train_windows(TRAIN_BATCH, SEED)
     gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
@@ -476,9 +522,10 @@ def phase_train_step() -> tuple:
     say("train-step", batch=TRAIN_BATCH, loss=f"{float(loss):.5f}", k1_launches=counts["K1"],
         k3_launches=counts["K3"], k2_launches=counts["K2"],
         k1_shapes=len(shapes["K1"]), k3_shapes=len(shapes["K3"]))
-    del step, x
+    evals = eval_relayouts(step, (x, *inputs), evaluate, sched, latent_shape, cfg)
+    del step, evaluate, x
     free_card()
-    return counts, shapes
+    return counts, shapes, evals
 
 
 def aekl_shapes(cfg: Config) -> dict:
@@ -509,9 +556,9 @@ def phase_checks(tmp: Path, k2_only: bool = False) -> tuple:
         want = expected_launches(cfg, unet_forwards=1, decodes=1)["K2"]
         if sample_counts["K2"] != want:
             raise AssertionError(f"DDIM step: K2 launches {sample_counts['K2']}, expected {want}")
-        train_counts, train_shapes = {}, {"K1": {}, "K3": {}}
+        train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
     else:
-        train_counts, train_shapes = phase_train_step()
+        train_counts, train_shapes, evals = phase_train_step()
     to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]},
                 "K2": sample_shapes["K2"],
                 "K3": {**train_shapes["K3"], **aekl_shapes(cfg)},
@@ -526,7 +573,8 @@ def phase_checks(tmp: Path, k2_only: bool = False) -> tuple:
             fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in results[kid].values()):.3e}",
             bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in results[kid].values()):.3e}")
     reset_counts()
-    return dict(sample=sample_shapes, train=train_shapes, train_counts=train_counts), results
+    return dict(sample=sample_shapes, sample_counts=sample_counts, train=train_shapes,
+                train_counts=train_counts, evals=evals), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -718,13 +766,19 @@ def phase_train_full(tmp: Path) -> dict:
 
 def phase_timings(paths: dict, checks: dict) -> tuple:
     """Each kernel at each shape of its path, bf16: ms of one launch, times
-    its launches in one run of the path, summed. ``paths`` maps a row to
-    (kernel id, path name, {shape: launches in the run}, launches)."""
+    its launches in one run of the path, summed. ``ms``, ``plain_ms`` and
+    ``library_ms`` are eager (per call as a caller pays it);
+    ``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms`` the
+    same calls' device time from a CUDA graph (K3's library backward has
+    none: null). ``paths`` maps a row to (kernel id, path name, {shape:
+    launches in the run}, launches)."""
     rows, per_shape = [], []
     for kid, path, shapes, launches in paths.values():
         spec = KERNELS[kid]
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-        relayout_ms = 0.0
+        names = ("ms", "plain_ms", "library_ms", "graph_ms", "plain_graph_ms",
+                 "library_graph_ms", "bound_ms")
+        tot = dict.fromkeys(names, 0.0)
+        relayout = dict(relayout_ms=0.0, relayout_graph_ms=0.0)
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
@@ -732,35 +786,36 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                          library_ms=(spec["library"](*args), ()) if kid == "K3"
                          else (spec["library"], args))
-            t, how = {}, {}
+            t = {}
             for name, (fn, fn_args) in calls.items():
-                t[name], how[name] = time_ms(fn, fn_args, reps,
-                                             graph=not (kid == "K3" and name == "library_ms"))
+                t[name], t[name.replace("ms", "graph_ms")] = time_ms(
+                    fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
             t["bound_ms"], kind = spec["bound"](key, torch.bfloat16)
             bound_kinds.add(kind)
             for k in tot:
-                tot[k] += t[k] * count
+                tot[k] = None if tot[k] is None or t[k] is None else tot[k] + t[k] * count
             if kid in ("K2", "B3"):  # the weight re-layout, apart (cached per weight)
-                t["relayout_ms"] = time_ms(fused_resblock.conv_tiles, (args[3],), reps)[0]
-                relayout_ms += t["relayout_ms"] * count
+                t["relayout_ms"], t["relayout_graph_ms"] = time_ms(
+                    fused_resblock.conv_tiles, (args[3],), reps)
+                for k in relayout:
+                    relayout[k] += t[k] * count
             per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
-                                  launches=count, bound_by=kind, timing=how, **t))
+                                  launches=count, bound_by=kind, **t))
             say("time", kernel=spec["name"], path=path, shape=key, launches=count,
-                **{k: f"{v:.4f}" for k, v in t.items()},
-                eager=",".join(k for k, v in how.items() if v == "eager") or "none")
+                **{k: "null" if v is None else f"{v:.4f}" for k, v in t.items()})
             del args
         free_card()
         if kid in ("K2", "B3"):
-            say("time", kernel=spec["name"], path=path, relayout_ms_per_run=f"{relayout_ms:.4f}",
-                kernel_ms_per_run=f"{tot['ms']:.4f}")
+            say("time", kernel=spec["name"], path=path,
+                **{f"{k}_per_run": f"{v:.4f}" for k, v in relayout.items()},
+                kernel_ms_per_run=f"{tot['ms']:.4f}",
+                kernel_graph_ms_per_run=f"{tot['graph_ms']:.4f}")
         errs = checks[kid].values()
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],
             path=path, launches=launches,
             max_abs_err=max(r["bf16_max_abs_err"] for r in errs),
-            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by="operations" if "operations" in bound_kinds else "bytes",
-            library_ms=tot["library_ms"]))
+            bound_by="operations" if "operations" in bound_kinds else "bytes", **tot))
     return rows, per_shape
 
 
@@ -859,7 +914,7 @@ def phase_train_profile() -> dict:
     after two warm-up steps: device time by kernel and the busy share."""
     cfg = flagship_config(steps=1)
     _, ae_sd = seeded_weights(cfg, SEED)
-    step, sched, latent_shape = full_trainer(cfg, ae_sd)
+    step, _, sched, latent_shape = full_trainer(cfg, ae_sd)
     x = train_windows(TRAIN_BATCH, SEED)
     gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
@@ -879,15 +934,13 @@ def phase_train_profile() -> dict:
 
 
 def k2_only(smi: str, build_logs: dict) -> int:
-    """``--only K2``: the DDIM step that records K2's shapes, K2's and B3's
-    checks, then their timings; no {"ok": ...} line."""
+    """``--only K2``: the DDIM step that records K2's shapes and launches,
+    K2's and B3's checks, then their timings per DDIM step (the step's
+    measured launches at each shape); no {"ok": ...} line."""
     with tempfile.TemporaryDirectory() as td:
         shapes, checks = phase_checks(Path(td), k2_only=True)
-    step = shapes["sample"]["K2"]
-    batch = {key: n * STEPS for key, n in step.items()}
-    launches = expected_launches(flagship_config(steps=STEPS), STEPS, 1)["K2"]
     rows, per_shape = phase_timings(
-        {"K2": ("K2", "sample batch", batch, launches),
+        {"K2": ("K2", "DDIM step", shapes["sample"]["K2"], shapes["sample_counts"]["K2"]),
          "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
     report = dict(card=smi, kernels=rows, per_shape=per_shape, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
@@ -928,6 +981,7 @@ def main(only: str | None = None) -> int:
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
                   full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
+                  eval_relayouts=shapes["evals"],
                   kernels=rows, train_k1=train_k1, per_shape=per_shape + train_k1_shapes,
                   profile=prof, train_profile=train_prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]

@@ -516,9 +516,18 @@ static cudaError_t launch_tc(const __nv_bfloat16* x, const float3* part, int nch
                              int L, int G, float eps, cudaStream_t stream) {
   using T = tc::Tile;
   auto kernel = gn_silu_conv3_tc;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         T::SMEM);
+  // The shared-memory opt-in holds per device for the process: set it once
+  // per device, not at every launch.
+  constexpr int kMaxDevices = 64;
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) smem_set[dev] = true;
+  }
   const bool rows16 = L % 8 == 0;
   const int flags = (rows16 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? tc::kVecX : 0) |
                     (rows16 && reinterpret_cast<uintptr_t>(y) % 16 == 0 ? tc::kVecY : 0);

@@ -8,8 +8,10 @@ Hopper: ``sleepgen_torch/csrc/gn_silu_conv3.cu`` (its source note gives
 the bound and the design). GroupNorm statistics are fp32, h is rounded to
 the working dtype before the convolution, the convolution accumulates in
 fp32, and the output has x's dtype. The weight is in torch's
-(C_out, C_in, 3) layout; the bf16 kernel reads it as ``conv_tiles(w)``,
-which the wrapper makes once per weight (see ``_cached_tiles``).
+(C_out, C_in, 3) layout, in fp32 or bf16 (an fp32 master under autocast),
+and is rounded to x's dtype; the bf16 kernel reads it as
+``conv_tiles(w, torch.bfloat16)``, which the wrapper makes once per weight
+and version (see ``_cached_tiles``).
 
 ``gn_silu_conv3`` runs the plain PyTorch version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
@@ -31,17 +33,20 @@ from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs,
 
 # Launches of the CUDA kernel in this process, and the same launches by
 # (B, C_in, C_out, L, G, dtype). chip_smoke.py zeroes both before it
-# drives the main path and reads them after.
+# drives the main path and reads them after. ``relayouts`` counts the
+# weight re-layouts the bf16 path made (misses of ``_cached_tiles``).
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
+relayouts = 0
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
 TILE_N, CHUNK = 128, 64  # tc::TN and tc::KC in csrc/gn_silu_conv3.cu
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
-    global launches
-    launches = 0
+    global launches, relayouts
+    launches = relayouts = 0
     launch_shapes.clear()
 
 
@@ -61,14 +66,15 @@ def gn_silu_conv3_reference(x: torch.Tensor, scale: torch.Tensor,
     return (y + b.float()[:, None]).to(x.dtype)
 
 
-def conv_tiles(w: torch.Tensor) -> torch.Tensor:
+def conv_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
     """The bf16 kernel's weight layout: (C_out, C_in, 3) -> (ceil(C_out / 128),
-    ceil(C_in / 64), 3, 128, 64), zero padded. Entry [t, c, k, n] is the row
+    ceil(C_in / 64), 3, 128, 64) in ``dtype`` (default w's), zero padded. Entry [t, c, k, n] is the row
     W_k[128 t + n, 64 c : 64 c + 64], with its 16-byte chunk j (8 channels)
     stored at chunk j ^ (n % 8): the 128-byte swizzle that the kernel's
     products read. A block's 64 input channels of all three taps are then
     one contiguous copy."""
     c_out, c_in, _ = w.shape
+    w = w.to(dtype or w.dtype)
     nt, nk = -(-c_out // TILE_N), -(-c_in // CHUNK)
     taps = F.pad(w.permute(2, 0, 1), (0, nk * CHUNK - c_in, 0, nt * TILE_N - c_out))
     t = taps.reshape(3, nt, TILE_N, nk, 8, 8).permute(1, 3, 0, 2, 4, 5)
@@ -77,22 +83,29 @@ def conv_tiles(w: torch.Tensor) -> torch.Tensor:
     return t.view(nt, nk, 3, TILE_N, CHUNK)
 
 
-# conv_tiles of each weight the kernel has seen: id(w) -> (weak reference to w,
-# w._version, tiles). Keyed by the tensor object, not its data_ptr, since a
-# freed weight's memory may come back as another tensor at version 0; an
-# entry goes when its weight is freed, and an in-place update of the weight
-# bumps its _version, which misses the entry.
+# conv_tiles of each weight the kernel has seen: (id(w), dtype) -> (weak
+# reference to w, w._version, tiles). Keyed by the tensor object, not its
+# data_ptr, since a freed weight's memory may come back as another tensor at
+# version 0; an entry goes when its weight is freed, and an in-place update
+# of the weight (an optimiser step on an fp32 master) bumps its _version,
+# which misses the entry. The key is the parameter itself, not a cast of it,
+# so a trainer's eval or in-training sample re-lays out each weight once
+# after each update, not at every launch.
 _tiles_cache: dict = {}
 
 
-def _cached_tiles(w: torch.Tensor) -> torch.Tensor:
+def _cached_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    global relayouts
+    dtype = dtype or w.dtype
     if w.is_inference():  # no version counter: re-laid out on every call
-        return conv_tiles(w)
-    key = id(w)
+        relayouts += 1
+        return conv_tiles(w, dtype)
+    key = (id(w), dtype)
     hit = _tiles_cache.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    tiles = conv_tiles(w)
+    relayouts += 1
+    tiles = conv_tiles(w, dtype)
     _tiles_cache[key] = (weakref.ref(w, lambda _, k=key: _tiles_cache.pop(k, None)),
                          w._version, tiles)
     return tiles
@@ -103,8 +116,9 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """SiLU(GroupNorm(x)) convolved with w (k=3, SAME) plus b.
 
-    x (B, C_in, L); scale, bias (C_in,) fp32; w (C_out, C_in, 3) and
-    b (C_out,) in x's dtype. Returns (B, C_out, L) in x's dtype."""
+    x (B, C_in, L); scale, bias (C_in,) fp32; w (C_out, C_in, 3) in fp32
+    or bf16, rounded to x's dtype; b (C_out,) in x's dtype. Returns
+    (B, C_out, L) in x's dtype."""
     if x.device.type == "cpu":
         return gn_silu_conv3_reference(x, scale, bias, w, b, num_groups, eps)
     if x.device.type != "cuda":
@@ -118,10 +132,10 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"at most {MAX_GROUPS} groups, got {num_groups}")
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the kernel's grid (65535)")
-    if (w.dim() != 3 or w.shape[1:] != (c_in, 3) or w.dtype != x.dtype
-            or w.device != x.device or not w.is_contiguous()):
-        raise ValueError(f"w must be a contiguous (C_out, {c_in}, 3) {x.dtype} "
-                         f"tensor on {x.device}, got {tuple(w.shape)} {w.dtype}")
+    if (w.dim() != 3 or w.shape[1:] != (c_in, 3) or w.dtype not in WEIGHT_DTYPES
+            or w.device != x.device):
+        raise ValueError(f"w must be a (C_out, {c_in}, 3) fp32 or bf16 tensor on "
+                         f"{x.device}, got {tuple(w.shape)} {w.dtype}")
     c_out = w.shape[0]
     if (tuple(b.shape) != (c_out,) or b.dtype != x.dtype
             or b.device != x.device or not b.is_contiguous()):
@@ -129,7 +143,9 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                          f"on {x.device}")
     lib = _build.load()
     if x.dtype == torch.bfloat16:
-        w = _cached_tiles(w)
+        w = _cached_tiles(w, x.dtype)
+    else:
+        w = w.to(x.dtype).contiguous()
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
                           dtype=torch.float32, device=x.device)

@@ -31,11 +31,12 @@ from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, conv1d,
 def _chain(norm: GroupNorm32, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """conv(SiLU(norm(x))): one K2 call when autograd needs no gradient,
     else GroupNorm32 then the convolution. K2 takes contiguous inputs
-    (cuDNN may hand back strided convolution outputs) and the weights in
-    x's dtype (under autocast they are fp32 masters)."""
+    (cuDNN may hand back strided convolution outputs). Under autocast the
+    weight is an fp32 master: it goes to K2 as the parameter itself, which
+    keys K2's cache of its re-layout, and the bias is cast to x's dtype."""
     if needs_grad(x, norm.weight, norm.bias, conv.weight, conv.bias):
         return conv(norm(x))
-    return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight.to(x.dtype),
+    return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight,
                          conv.bias.to(x.dtype), norm.num_groups, norm.eps)
 
 

@@ -141,6 +141,24 @@ def test_gn_silu_conv3_sees_weight_updates():
     assert torch.equal(after, fresh)
 
 
+def test_gn_silu_conv3_takes_fp32_master_weights():
+    """Under autocast the UNet passes its fp32 master weight to the bf16
+    path: the result is that of the weight rounded to bf16, and the
+    re-layout is made once per weight and version, inference mode or not."""
+    x, scale, bias, w, bb = _inputs(15, 2, 64, 96, 128)
+    x, bb = x.bfloat16(), bb.bfloat16()
+    want = fused_resblock.gn_silu_conv3(x, scale, bias, w.bfloat16(), bb, 8)
+    fused_resblock.reset_counts()
+    with torch.inference_mode():
+        got = [fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8) for _ in range(3)]
+    assert all(torch.equal(g, want) for g in got)
+    assert fused_resblock.relayouts == 1
+    with torch.no_grad():
+        w.mul_(0.5)
+    fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
+    assert fused_resblock.relayouts == 2
+
+
 def test_wrappers_reject_bad_inputs():
     x, scale, bias, w, bb = _inputs(4, 2, 16, 32, 16)
     with pytest.raises(ValueError):
@@ -148,7 +166,7 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         group_norm.group_norm_silu(x, scale.double(), bias, 4)
     with pytest.raises(ValueError):
-        fused_resblock.gn_silu_conv3(x, scale, bias, w.bfloat16(), bb, 4)
+        fused_resblock.gn_silu_conv3(x, scale, bias, w.double(), bb, 4)
     with pytest.raises(ValueError):
         fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 3)
 

@@ -104,3 +104,21 @@ def test_tiles_cache_follows_the_weight():
         wi = torch.randn(16, 24, 3)
         assert torch.equal(fused_resblock._cached_tiles(wi), fused_resblock.conv_tiles(wi))
     assert id(wi) not in fused_resblock._tiles_cache
+
+
+def test_tiles_cache_keys_the_master_weight():
+    """An fp32 master read for the bf16 kernel, as the trainer's eval and
+    in-training sample do under inference mode: one re-layout per weight
+    and version, equal to the tiles of the weight rounded to bf16."""
+    w = torch.randn(16, 24, 3)
+    fused_resblock.reset_counts()
+    with torch.inference_mode():
+        tiles = [fused_resblock._cached_tiles(w, torch.bfloat16) for _ in range(3)]
+    assert fused_resblock.relayouts == 1 and all(t is tiles[0] for t in tiles)
+    assert tiles[0].dtype == torch.bfloat16
+    assert torch.equal(tiles[0], fused_resblock.conv_tiles(w.bfloat16()))
+    assert fused_resblock._cached_tiles(w) is not tiles[0]  # fp32 tiles: their own entry
+    w.add_(1.0)
+    with torch.inference_mode():
+        fused_resblock._cached_tiles(w, torch.bfloat16)
+    assert fused_resblock.relayouts == 3
