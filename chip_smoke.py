@@ -23,8 +23,8 @@ sampling and stage-2 LDM training. Phases, one line each:
      on the same bf16 inputs, to bf16 rounding: K1 and K3's dx |err| <=
      2^-8 |ref| + 1e-5, K2 |err| <= 2^-8 |ref| + 2^-6 rms(ref), as K2
      also rounds h to bf16 before its convolution; K3's dscale and dbias
-     are fp32 sums, held to the fp32 bound). K3 is also checked at the
-     AEKL's G = 1 shapes at stage 1's batch 2048, B2 at its long window
+     are fp32 sums, held to the fp32 bound). K1 and K3 are also checked at
+     the AEKL's G = 1 shapes at stage 1's batch 2048, B2 at its long window
      (16, 32, 49152, G 1) and B3 at the Pallas test shapes and one
      sampler shape;
   4. tiny sampler: 4 DDIM steps plus decode at tiny widths, on the card
@@ -52,9 +52,11 @@ sampling and stage-2 LDM training. Phases, one line each:
      eager (per call in a loop, host cost included where it exceeds the
      device's) and as device time (the same calls
      captured in a CUDA graph; ``graph_ms``, ``plain_graph_ms``,
-     ``library_graph_ms``), and the bound; for K2 also the time of its
-     weight re-layout (``fused_resblock.conv_tiles``), which the wrapper
-     caches per weight;
+     ``library_graph_ms``; for K3's library, an autograd backward, the
+     graph holds the aten ops it runs), and the bound; for K2 also the
+     time of its weight re-layout (``fused_resblock.conv_tiles``), which
+     the wrapper caches per weight; the copies K3's wrapper makes of a
+     strided dy in one training step, and their time;
   9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
@@ -77,6 +79,15 @@ bf16 checks at those shapes and at B3's, and the phase-8 timings of K2
 at it) and B3. It prints the kernels' JSON line and writes
 chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
 and exits non-zero on any failure.
+
+``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2:
+phases 1 and 2, the sampler's warm-up call (one DDIM step and the
+decode) and one full-width training step, whose K1 and K3 launches are
+checked against the configuration; K1's, K3's and B2's fp32 and bf16
+checks at those shapes, at the AEKL's G = 1 shapes and at B2's; the
+phase-8 timings of K1 (paths "DDIM step" and "train step"), K3 ("train
+step") and B2, and of K3's strided-dy copies. Report in
+chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
 """
 from __future__ import annotations
 
@@ -221,8 +232,11 @@ def read_counts() -> dict:
 
 
 def read_shapes() -> dict:
+    """Launches by shape of each kernel, and (``K3_strided_dy``) K3's calls
+    whose dy came strided, by shape and dy's strides."""
     return {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes),
-            "K3": dict(group_norm.backward_launch_shapes)}
+            "K3": dict(group_norm.backward_launch_shapes),
+            "K3_strided_dy": dict(group_norm.strided_dy_shapes)}
 
 
 # -- kernel inputs, references, yardsticks ------------------------------------
@@ -275,6 +289,23 @@ def k3_library(x, dy, scale, bias, stats, g, silu):
     y = F.group_norm(xr, g, w, b, 1e-6)
     y = F.silu(y) if silu else y
     return lambda: torch.autograd.grad(y, (xr, w, b), dy, retain_graph=True)
+
+
+def k3_library_ops(x, dy, scale, bias, stats, g, silu):
+    """The aten ops that autograd's backward of F.silu(F.group_norm(...))
+    runs, called directly so that a CUDA graph can capture them:
+    silu_backward, then native_group_norm_backward from the forward's
+    saved mean and rstd. Returns the call to time, the forward done
+    outside it."""
+    b, c, l = x.shape
+    w, bb = scale.to(x.dtype), bias.to(x.dtype)
+    z, mean, rstd = torch.ops.aten.native_group_norm(x, w, bb, b, c, l, g, 1e-6)
+
+    def run():
+        dz = torch.ops.aten.silu_backward(dy, z) if silu else dy
+        return torch.ops.aten.native_group_norm_backward(dz, x, mean, rstd, w, b, c, l, g,
+                                                         [True, True, True])
+    return run
 
 
 def k1_bound(key, dtype):
@@ -529,42 +560,49 @@ def phase_train_step() -> tuple:
 
 
 def aekl_shapes(cfg: Config) -> dict:
-    """K3's shapes at the AEKL's G = 1 GroupNorms (stage 1 will train
-    them): the encoder's first and last resolutions, batch 2048, bf16."""
+    """K1's and K3's shapes at the AEKL's G = 1 GroupNorms (stage 1 will
+    train them): the encoder's first and last resolutions, batch 2048,
+    bf16."""
     a = cfg.aekl
     return {(AEKL_BATCH, a.num_channels[0], 3072, a.norm_num_groups, True, "torch.bfloat16"): 1,
             (AEKL_BATCH, a.num_channels[-1], 768, a.norm_num_groups, True, "torch.bfloat16"): 1}
 
 
-def phase_checks(tmp: Path, k2_only: bool = False) -> tuple:
+def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     """The sampler's warm-up DDIM step and one training step record the
     shapes each kernel gets on each path (the counts of the warm-up are
-    discarded), then every kernel is checked at every shape, K3 also at
-    the AEKL's G = 1 shapes, and B2 and B3 at theirs. The warm-up also
-    pays the process's one-time costs (cuDNN plans, the import of
+    discarded), then every kernel is checked at every shape, K1 and K3
+    also at the AEKL's G = 1 shapes, and B2 and B3 at theirs. The warm-up
+    also pays the process's one-time costs (cuDNN plans, the import of
     scipy.signal for the PSD's tapers, which takes seconds), so phase 5
-    times steady-state batches. ``k2_only``: no training step, and only
+    times steady-state batches. ``only`` "K2": no training step, and only
     K2 and B3 are checked; the step's K2 launches must equal the count
-    derived from the configuration."""
+    derived from the configuration. ``only`` "GN": only K1, K3 and B2 are
+    checked, and the warm-up's K1 launches must equal the count derived
+    from the configuration (the training step's are checked always)."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     reset_counts()
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
     torch.cuda.synchronize()
     sample_counts, sample_shapes = read_counts(), read_shapes()
-    if k2_only:
-        want = expected_launches(cfg, unet_forwards=1, decodes=1)["K2"]
-        if sample_counts["K2"] != want:
-            raise AssertionError(f"DDIM step: K2 launches {sample_counts['K2']}, expected {want}")
+    if only in ("K2", "GN"):
+        kid = "K2" if only == "K2" else "K1"
+        want = expected_launches(cfg, unet_forwards=1, decodes=1)[kid]
+        if sample_counts[kid] != want:
+            raise AssertionError(f"DDIM step: {kid} launches {sample_counts[kid]}, "
+                                 f"expected {want}")
+    if only == "K2":
         train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
     else:
         train_counts, train_shapes, evals = phase_train_step()
-    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]},
+    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **aekl_shapes(cfg)},
                 "K2": sample_shapes["K2"],
                 "K3": {**train_shapes["K3"], **aekl_shapes(cfg)},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
-    if k2_only:
-        to_check = {kid: to_check[kid] for kid in ("K2", "B3")}
+    if only:
+        keep = {"K2": ("K2", "B3"), "GN": ("K1", "K3", "B2")}[only]
+        to_check = {kid: to_check[kid] for kid in keep}
     results = {}
     for kid, keys in to_check.items():
         results[kid] = {key: check_kernel(kid, key) for key in keys}
@@ -769,9 +807,10 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     its launches in one run of the path, summed. ``ms``, ``plain_ms`` and
     ``library_ms`` are eager (per call as a caller pays it);
     ``graph_ms``, ``plain_graph_ms`` and ``library_graph_ms`` the
-    same calls' device time from a CUDA graph (K3's library backward has
-    none: null). ``paths`` maps a row to (kernel id, path name, {shape:
-    launches in the run}, launches)."""
+    same calls' device time from a CUDA graph (for K3's library, an
+    autograd backward, the graph holds the aten ops it runs,
+    ``k3_library_ops``). ``paths`` maps a row to (kernel id, path name,
+    {shape: launches in the run}, launches)."""
     rows, per_shape = [], []
     for kid, path, shapes, launches in paths.values():
         spec = KERNELS[kid]
@@ -790,6 +829,8 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             for name, (fn, fn_args) in calls.items():
                 t[name], t[name.replace("ms", "graph_ms")] = time_ms(
                     fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
+            if kid == "K3":  # autograd cannot be captured: its aten ops can
+                t["library_graph_ms"] = time_ms(k3_library_ops(*args), (), reps)[1]
             t["bound_ms"], kind = spec["bound"](key, torch.bfloat16)
             bound_kinds.add(kind)
             for k in tot:
@@ -817,6 +858,27 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             max_abs_err=max(r["bf16_max_abs_err"] for r in errs),
             bound_by="operations" if "operations" in bound_kinds else "bytes", **tot))
     return rows, per_shape
+
+
+def time_strided_dy(strided: dict, k3_calls: int) -> dict:
+    """What K3's wrapper pays to copy a strided dy to a contiguous one, per
+    training step: at each (shape, dy's strides) of ``read_shapes()``'s
+    ``K3_strided_dy``, ``.contiguous()`` of a bf16 tensor with those
+    strides, eager and from a CUDA graph, times its calls, summed;
+    ``k3_calls`` is K3's launches in the same step."""
+    ms = graph_ms = 0.0
+    copies = 0
+    for (b, c, l, _, _, _, stride), count in strided.items():
+        dy = torch.empty_strided((b, c, l), stride, dtype=torch.bfloat16, device="cuda")
+        e, g = time_ms(torch.Tensor.contiguous, (dy.normal_(),), 50)
+        ms, graph_ms, copies = ms + e * count, graph_ms + g * count, copies + count
+        del dy
+    free_card()
+    say("strided-dy", copies=copies, k3_calls=k3_calls, ms_per_step=f"{ms:.4f}",
+        graph_ms_per_step=f"{graph_ms:.4f}")
+    return dict(copies=copies, k3_calls=k3_calls, ms=ms, graph_ms=graph_ms,
+                shapes=[dict(key=list(k[:6]), stride=list(k[6]), count=v)
+                        for k, v in strided.items()])
 
 
 def _device_us(event) -> float:
@@ -938,16 +1000,44 @@ def k2_only(smi: str, build_logs: dict) -> int:
     K2's and B3's checks, then their timings per DDIM step (the step's
     measured launches at each shape); no {"ok": ...} line."""
     with tempfile.TemporaryDirectory() as td:
-        shapes, checks = phase_checks(Path(td), k2_only=True)
+        shapes, checks = phase_checks(Path(td), only="K2")
     rows, per_shape = phase_timings(
         {"K2": ("K2", "DDIM step", shapes["sample"]["K2"], shapes["sample_counts"]["K2"]),
          "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
+    return write_only_report("k2", smi, build_logs, rows, per_shape, checks)
+
+
+def gn_only(smi: str, build_logs: dict) -> int:
+    """``--only GN``: the sampler's warm-up call (one DDIM step and the
+    decode) and one training step record K1's and K3's shapes and
+    launches, each count checked against the configuration; K1's, K3's and
+    B2's checks; then their timings: K1 per DDIM step (the warm-up call's
+    measured launches, decode included) and per training step, K3 per
+    training step, B2; and the cost of K3's strided-dy copies per step; no
+    {"ok": ...} line."""
+    with tempfile.TemporaryDirectory() as td:
+        shapes, checks = phase_checks(Path(td), only="GN")
+    step = shapes["train_counts"]
+    rows, per_shape = phase_timings(
+        {"K1 sample": ("K1", "DDIM step", shapes["sample"]["K1"], shapes["sample_counts"]["K1"]),
+         "K1 train": ("K1", "train step", shapes["train"]["K1"], step["K1"]),
+         "K3": ("K3", "train step", shapes["train"]["K3"], step["K3"]),
+         "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
+    strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
+    return write_only_report("gn", smi, build_logs, rows, per_shape, checks,
+                             strided_dy=strided)
+
+
+def write_only_report(tag: str, smi: str, build_logs: dict, rows, per_shape, checks,
+                      **extra) -> int:
+    """An ``--only`` run's end: chiprun_out/chip_smoke_<tag>_report.json and
+    the kernels' JSON line."""
     report = dict(card=smi, kernels=rows, per_shape=per_shape, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
-                          for kid, res in checks.items()})
+                          for kid, res in checks.items()}, **extra)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_k2_report.json").write_text(json.dumps(report, indent=1))
+    (out_dir / f"chip_smoke_{tag}_report.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     return 0
 
@@ -959,6 +1049,8 @@ def main(only: str | None = None) -> int:
     build_logs = phase_build()
     if only == "K2":
         return k2_only(smi, build_logs)
+    if only == "GN":
+        return gn_only(smi, build_logs)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
@@ -976,6 +1068,7 @@ def main(only: str | None = None) -> int:
     rows, per_shape = phase_timings(paths, checks)
     train_k1, train_k1_shapes = phase_timings(
         {"K1": ("K1", "train step", shapes["train"]["K1"], step_counts["K1"])}, checks)
+    strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step_counts["K3"])
     prof = phase_profile()
     train_prof = phase_train_profile()
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
@@ -983,7 +1076,7 @@ def main(only: str | None = None) -> int:
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
                   eval_relayouts=shapes["evals"],
                   kernels=rows, train_k1=train_k1, per_shape=per_shape + train_k1_shapes,
-                  profile=prof, train_profile=train_prof, build_logs=build_logs,
+                  strided_dy=strided, profile=prof, train_profile=train_prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"
@@ -1000,6 +1093,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold-batch"]:
         cold_batch(sys.argv[2])
         sys.exit(0)
-    if sys.argv[1:] and sys.argv[1:] != ["--only", "K2"]:
-        sys.exit(f"usage: {sys.argv[0]} [--only K2]")
+    if sys.argv[1:] and sys.argv[1:] not in (["--only", "K2"], ["--only", "GN"]):
+        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN]")
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -3,23 +3,114 @@
 // Replaces the Pallas TPU kernel sleepgen/pallas_kernels/group_norm.py
 // (fused_group_norm_silu -> _pallas_forward -> _kernel): fp32 statistics
 // per (batch row, group), normalise, per-channel affine, optional SiLU,
-// output in the input's dtype (fp32 or bf16).
+// output in the input's dtype (fp32 or bf16). Every launch also writes
+// each group's (mean, rstd), which the backward (group_norm_silu_bwd.cu)
+// reads back instead of computing them again.
 //
 // Bound on the card: bytes. The least work reads x once and writes y once
 // (at 3.35 TB/s); the arithmetic is a few operations per element.
-// Design: the TPU kernel holds a whole (L, C) row in VMEM; a block on
-// Hopper cannot, and one block per group would leave most SMs idle for
-// the AEKL's G = 1 (64 groups at batch 64). So the reduction is split
-// over blocks (gn_stats.cuh, the L-tiled form of the Pallas B2 kernel):
-// pass 1 writes per-chunk (count, mean, M2), pass 2 merges a group's
-// chunks in its first thread and normalises the chunk. x is read twice
-// (the second read mostly from L2), so the kernel moves about 1.5x the
-// bound's bytes. The first block of each group also writes the group's
-// (mean, rstd), which the backward (group_norm_silu_bwd.cu) reads back
-// instead of computing them again.
-#include "gn_stats.cuh"
+//
+// On-chip path, every group of n <= kOnChipMax elements (gn_group.cuh;
+// every stage-2 GroupNorm): the TPU kernel's own formulation (the whole
+// slice resident, statistics, then apply), scaled from a (L, C) row to one
+// group. One block per group loads it once with 16-byte vectors and keeps
+// it in registers; exact two-pass fp32 statistics (the sum, then the sum
+// of squared deviations) from those registers with fixed-order block
+// reductions; per channel a_c = rstd * scale_c into shared memory beside
+// bias_c, so that with L % kVec == 0 (a vector inside one channel row) an
+// element costs a subtraction, one FMA, y = (x - mean) a_c + bias_c, and
+// the SiLU (silu_fast, gn_group.cuh: __expf and __frcp_rn); 16-byte
+// stores. x is read once and y written once, the bound's bytes, in one
+// launch with no scratch. (x - mean) a_c + bias_c rather than x a_c + d_c
+// keeps the reference's rounding when |mean| is large against the spread.
+//
+// Streaming path, larger groups (the AEKL's G = 1, B2's long window): the
+// split reduction of gn_stats.cuh (pass 1 per 2048-element chunk), then
+// gn_apply merges a group's chunks in its first thread and normalises the
+// chunk. x is read twice; a group of the AEKL at batch 1024 (up to 200 MB)
+// does not stay in the 50 MB L2 between the passes.
+#include "gn_group.cuh"
 
 namespace sg {
+
+// grid B * G, OnChip<T>::kThreads threads; dynamic shared memory cpg
+// float2 when kAligned. Block bg normalises group bg; stats[bg] = (mean, rstd).
+template <typename T, int kVPT, bool kAligned>
+__global__ void __launch_bounds__(OnChip<T>::kThreads)
+gn_fwd_on_chip(const T* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, int n, int L, int cpg, int G, float eps,
+               int apply_silu, T* __restrict__ y, float2* __restrict__ stats) {
+  constexpr int kVec = OnChip<T>::kVec, kThreads = OnChip<T>::kThreads;
+  extern __shared__ float2 affine[];  // (rstd * scale_c, bias_c) per channel of the group
+  __shared__ float red[33];
+  const int64_t bg = blockIdx.x;
+  const T* xg = x + bg * n;
+  uint4 r[kVPT];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    r[k] = load_vec<T, kAligned>(xg, (k * kThreads + threadIdx.x) * kVec, n);  // 0 past n
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) s += elem<T>(r[k], j);
+  }
+  const float mean = block_sum(s, red) / n;
+  float m2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * kVec;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float d = elem<T>(r[k], j) - mean;
+      m2 += (k < kVPT - 1 || e + j < n) ? d * d : 0.f;
+    }
+  }
+  const float rstd = rsqrtf(block_sum(m2, red) / n + eps);
+  if (threadIdx.x == 0) stats[bg] = make_float2(mean, rstd);
+  const int c0 = (int)(bg % G) * cpg;
+  if constexpr (kAligned) {
+    for (int c = threadIdx.x; c < cpg; c += kThreads)
+      affine[c] = make_float2(rstd * scale[c0 + c], bias[c0 + c]);
+    __syncthreads();
+  }
+  T* yg = y + bg * n;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * kVec;
+    if (k == kVPT - 1 && e >= n) break;
+    float f[kVec];
+    if constexpr (kAligned) {
+      const float2 ad = affine[e / L];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = fmaf(elem<T>(r[k], j) - mean, ad.x, ad.y);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = c0 + min(e + j, n - 1) / L;
+        f[j] = (elem<T>(r[k], j) - mean) * rstd * scale[c] + bias[c];
+      }
+    }
+    if (apply_silu) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = silu_fast(f[j]);
+    }
+    store_vec<T, kAligned>(yg, e, n, f);
+  }
+}
+
+template <typename T, int kVPT>
+static cudaError_t launch_on_chip(const T* x, const float* scale, const float* bias, T* y,
+                                  float2* stats, int B, int L, int cpg, int G, float eps,
+                                  int apply_silu, cudaStream_t stream) {
+  constexpr int kVec = OnChip<T>::kVec, kThreads = OnChip<T>::kThreads;
+  const int n = cpg * L;
+  if (L % kVec == 0 && aligned16(x) && aligned16(y))
+    gn_fwd_on_chip<T, kVPT, true><<<B * G, kThreads, cpg * sizeof(float2), stream>>>(
+        x, scale, bias, n, L, cpg, G, eps, apply_silu, y, stats);
+  else
+    gn_fwd_on_chip<T, kVPT, false><<<B * G, kThreads, 0, stream>>>(
+        x, scale, bias, n, L, cpg, G, eps, apply_silu, y, stats);
+  return cudaGetLastError();
+}
 
 // grid (B * G, nchunks), kStatsThreads threads: block normalises chunk
 // blockIdx.y of group blockIdx.x; stats[group] = (mean, rstd).
@@ -51,20 +142,36 @@ gn_apply(const T* __restrict__ x, const float3* __restrict__ partial, int nchunk
 }
 
 template <typename T>
-static cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
-                          void* stats, void* partial, int B, int C, int L, int G, float eps,
+static cudaError_t launch(const void* xv, const void* scalev, const void* biasv, void* yv,
+                          void* statsv, void* partial, int B, int C, int L, int G, float eps,
                           int apply_silu, cudaStream_t stream) {
   const int cpg = C / G;
   const int n = cpg * L;
+  const T* x = static_cast<const T*>(xv);
+  const float* scale = static_cast<const float*>(scalev);
+  const float* bias = static_cast<const float*>(biasv);
+  T* y = static_cast<T*>(yv);
+  float2* stats = static_cast<float2*>(statsv);
+  if (n <= kOnChipMax) {
+#define SG_ON_CHIP(V) \
+  launch_on_chip<T, V>(x, scale, bias, y, stats, B, L, cpg, G, eps, apply_silu, stream)
+    switch (vecs_per_thread<T>(n)) {
+      case 1: return SG_ON_CHIP(1);
+      case 2: return SG_ON_CHIP(2);
+      case 3: return SG_ON_CHIP(3);
+      case 4: return SG_ON_CHIP(4);
+      case 5: return SG_ON_CHIP(5);
+      default: return SG_ON_CHIP(6);
+    }
+#undef SG_ON_CHIP
+  }
+  if (partial == nullptr) return cudaErrorInvalidValue;
   const int nchunks = stats_chunks(n);
-  const dim3 grid(B * G, nchunks);
-  const cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
-                                               static_cast<float3*>(partial), stream);
+  const cudaError_t err = launch_partial_stats(x, B * G, n, static_cast<float3*>(partial), stream);
   if (err != cudaSuccess) return err;
-  gn_apply<T><<<grid, kStatsThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float3*>(partial), nchunks,
-      static_cast<const float*>(scale), static_cast<const float*>(bias), n, L, cpg, G, eps,
-      apply_silu, static_cast<T*>(y), static_cast<float2*>(stats));
+  gn_apply<T><<<dim3(B * G, nchunks), kStatsThreads, 0, stream>>>(
+      x, static_cast<const float3*>(partial), nchunks, scale, bias, n, L, cpg, G, eps,
+      apply_silu, y, stats);
   return cudaGetLastError();
 }
 
@@ -72,9 +179,16 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, vo
 
 extern "C" {
 
+// Floats of scratch sg_group_norm_silu needs: 0 on the on-chip path.
+int sg_group_norm_silu_scratch_floats(int B, int C, int L, int G) {
+  const int n = (C / G) * L;
+  return n <= sg::kOnChipMax ? 0 : 3 * B * G * sg::stats_chunks(n);
+}
+
 // x, y: (B, C, L) contiguous, dtype 0 = fp32, 1 = bf16; scale, bias: (C,) fp32;
-// stats: (B * G) x (mean, rstd) fp32, written. Returns the cudaError_t of the
-// launches (0 = success).
+// stats: (B * G) x (mean, rstd) fp32, written; partial: scratch of
+// sg_group_norm_silu_scratch_floats floats (may be null when that is 0).
+// Returns the cudaError_t of the launches (0 = success).
 int sg_group_norm_silu(const void* x, const void* scale, const void* bias, void* y,
                        void* stats, void* partial, int B, int C, int L, int G, float eps,
                        int apply_silu, int dtype, void* stream) {

@@ -6,9 +6,12 @@ K1 is the counterpart of the Pallas TPU kernel
 in CUDA C++ for Hopper: ``sleepgen_torch/csrc/group_norm_silu.cu``. K3 is
 the counterpart of that kernel's VJP, with the closed form of
 ``sleepgen/nn/fused_norm.py``: ``sleepgen_torch/csrc/group_norm_silu_bwd.cu``.
-Each source note gives the kernel's bound and design. Statistics are fp32
-for either input dtype, eps defaults to 1e-6 (not torch's 1e-5), outputs
-and dx have the input's dtype, and the parameter gradients are fp32.
+Each source note gives the kernel's bound and design: a group of at most
+``ON_CHIP_MAX`` elements is held by one block on chip (one launch for K1,
+two for K3), a larger one streams in 2048-element chunks. Statistics are
+fp32 for either input dtype, eps defaults to 1e-6 (not torch's 1e-5),
+outputs and dx have the input's dtype, and the parameter gradients are
+fp32.
 
 ``group_norm_silu`` is a ``torch.autograd.Function``: its forward saves
 x, scale, bias and the per-(batch row, group) mean and rstd, and its
@@ -34,8 +37,14 @@ launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 backward_launches = 0
 backward_launch_shapes: collections.Counter = collections.Counter()
+# K3 calls whose dy came strided and was copied to a contiguous tensor
+# first, by the same key plus dy's strides
+strided_dy_shapes: collections.Counter = collections.Counter()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Largest group, (C / G) * L elements, that one block holds on chip
+# (kOnChipMax in csrc/gn_group.cuh)
+ON_CHIP_MAX = 12288
 
 
 def reset_counts() -> None:
@@ -43,6 +52,7 @@ def reset_counts() -> None:
     launches = backward_launches = 0
     launch_shapes.clear()
     backward_launch_shapes.clear()
+    strided_dy_shapes.clear()
 
 
 def group_stats_reference(x: torch.Tensor, num_groups: int,
@@ -138,11 +148,12 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     lib = _build.load()
     y = torch.empty_like(x)
     stats = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(lib.sg_gn_scratch_floats(b, c, l, num_groups),
-                          dtype=torch.float32, device=x.device)
+    floats = lib.sg_group_norm_silu_scratch_floats(b, c, l, num_groups)  # 0 on chip
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
     code = lib.sg_group_norm_silu(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
-        scratch.data_ptr(), b, c, l, num_groups, eps, int(apply_silu),
+        None if scratch is None else scratch.data_ptr(), b, c, l, num_groups, eps,
+        int(apply_silu),
         DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "group_norm_silu")
     global launches
@@ -164,7 +175,10 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
         raise ValueError(f"no kernel for device {x.device}")
     check_group_inputs(x, scale, bias, num_groups)
     b, c, l = x.shape
-    dy = dy.contiguous()  # cuDNN's convolution backward may hand back strided ones
+    if not dy.is_contiguous():  # cuDNN's convolution backward may hand back strided ones
+        strided_dy_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype),
+                           tuple(dy.stride()))] += 1
+        dy = dy.contiguous()
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be a {tuple(x.shape)} {x.dtype} tensor on {x.device}, "
                          f"got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
@@ -224,9 +238,9 @@ def group_norm_silu_tiled(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     """Counterpart of the Pallas ``group_norm_silu_tiled``
     (``sleepgen/pallas_kernels/group_norm.py:159``), the long-window form:
     forward only, any L. ``tile`` sets the Pallas kernel's VMEM block
-    (shrunk there to a divisor of L); K1 already streams every group in
-    2048-element chunks whatever L is, so the launch is K1's and the tile
-    is only checked: a tile of 0 fails in JAX too."""
+    (shrunk there to a divisor of L); K1 already takes any L (a long
+    group streams in 2048-element chunks), so the launch is K1's and the
+    tile is only checked: a tile of 0 fails in JAX too."""
     if tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
     return group_norm_silu_forward(x, scale, bias, num_groups, eps, apply_silu)[0]

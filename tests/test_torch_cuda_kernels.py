@@ -49,9 +49,22 @@ def _inputs(seed, b, c, l, c_out=None):
     return out
 
 
+# Every distinct (C, L) that stage 2 gives K1 and K3 (sleepgen_torch/nn/unet1d.py
+# at mc 128, channel_mult [1, 2, 4], latent length 768; G 32): groups of 1536
+# to 9216 elements, all on the on-chip path
+STAGE2_GN_SHAPES = [(128, 768), (128, 384), (256, 384), (256, 192), (512, 192), (1024, 192),
+                    (768, 192), (512, 384), (768, 384), (384, 384), (384, 768), (256, 768)]
+# ... at batch 2; then groups of ON_CHIP_MAX and ON_CHIP_MAX + 8 elements
+# (G 1), on each side of the switch to the streaming path; L 130, not a
+# multiple of a 16-byte vector
+GN_CASES = ([(2, c, l, 32) for c, l in STAGE2_GN_SHAPES]
+            + [(2, 16, group_norm.ON_CHIP_MAX // 16, 1), (2, 1, group_norm.ON_CHIP_MAX + 8, 1),
+               (3, 48, 130, 8)])
+
+
 @pytest.mark.parametrize("b,c,l,g", [(2, 16, 64, 4), (3, 64, 768, 1),
                                      (4, 128, 768, 32), (2, 24, 37, 8),
-                                     (2, 32, 3072, 1)])
+                                     (2, 32, 3072, 1)] + GN_CASES)
 @pytest.mark.parametrize("apply_silu", [True, False])
 def test_group_norm_silu_kernel_fp32(b, c, l, g, apply_silu):
     x, scale, bias = _inputs(0, b, c, l)
@@ -61,7 +74,8 @@ def test_group_norm_silu_kernel_fp32(b, c, l, g, apply_silu):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("b,c,l,g", [(4, 128, 768, 32), (2, 32, 3072, 1)])
+@pytest.mark.parametrize("b,c,l,g", [(4, 128, 768, 32), (2, 32, 3072, 1), (2, 24, 37, 8)]
+                         + GN_CASES)
 def test_group_norm_silu_kernel_bf16(b, c, l, g):
     x, scale, bias = _inputs(1, b, c, l)
     xb = x.bfloat16()
@@ -206,14 +220,16 @@ def _backward_case(seed, b, c, l, g, apply_silu, dtype):
 
 
 @pytest.mark.parametrize("b,c,l,g", [(2, 16, 64, 4), (3, 64, 768, 1), (4, 128, 768, 32),
-                                     (2, 24, 37, 8), (2, 32, 3072, 1), (5, 1024, 192, 32)])
+                                     (2, 24, 37, 8), (2, 32, 3072, 1), (5, 1024, 192, 32)]
+                         + GN_CASES)
 @pytest.mark.parametrize("apply_silu", [True, False])
 def test_group_norm_backward_kernel_fp32(b, c, l, g, apply_silu):
     dx, want = _backward_case(6, b, c, l, g, apply_silu, torch.float32)
     torch.testing.assert_close(dx, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,c,l,g", [(4, 128, 768, 32), (2, 32, 3072, 1), (3, 768, 192, 32)])
+@pytest.mark.parametrize("b,c,l,g", [(4, 128, 768, 32), (2, 32, 3072, 1), (3, 768, 192, 32),
+                                     (2, 24, 37, 8)] + GN_CASES)
 def test_group_norm_backward_kernel_bf16(b, c, l, g):
     dx, want = _backward_case(7, b, c, l, g, True, torch.bfloat16)
     assert dx.dtype == torch.bfloat16
@@ -229,6 +245,62 @@ def test_group_norm_backward_is_deterministic():
     b = group_norm.group_norm_silu_backward(x, dy, scale, bias, stats, 32)
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,c,l,g", [(8, 768, 384, 32), (2, 32, 3072, 1)])
+def test_group_norm_silu_is_deterministic(dtype, b, c, l, g):
+    """Two launches give equal bits, y and stats, on the on-chip path and
+    on the streaming one."""
+    x, scale, bias = _inputs(16, b, c, l)
+    x = x.to(dtype)
+    y1, s1 = group_norm.group_norm_silu_forward(x, scale, bias, g)
+    y2, s2 = group_norm.group_norm_silu_forward(x, scale, bias, g)
+    assert torch.equal(y1.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       y2.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+
+
+def test_group_norm_path_switch_at_on_chip_max():
+    """A group of ON_CHIP_MAX elements takes the on-chip path (no scratch),
+    one of ON_CHIP_MAX + 8 the streaming path."""
+    from sleepgen_torch.kernels import _build
+    lib = _build.load()
+    n = group_norm.ON_CHIP_MAX
+    assert lib.sg_group_norm_silu_scratch_floats(2, 16, n // 16, 1) == 0
+    assert lib.sg_group_norm_silu_scratch_floats(2, 1, n + 8, 1) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_group_norm_kernels_take_unaligned_bases(dtype):
+    """x, dy and the outputs on bases that are not 16-byte aligned (a view
+    one element into its storage): element loads, same results."""
+    b, c, l, g = 2, 64, 192, 32
+    x, scale, bias = _inputs(17, b, c, l)
+    dy = torch.randn_like(x)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(t.flatten())
+        return buf[1:].view(b, c, l)
+
+    xs, dys = shifted(x), shifted(dy)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    y, stats = group_norm.group_norm_silu_forward(xs, scale, bias, g)
+    got = group_norm.group_norm_silu_backward(xs, dys, scale, bias, stats, g)
+    torch.cuda.synchronize()
+    xf, dyf = xs.float(), dys.float()
+    want_y = group_norm.group_norm_silu_reference(xf, scale, bias, g)
+    want = group_norm.group_norm_silu_backward_reference(xf, dyf, scale, bias, stats, g)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, rtol=1e-5, atol=2e-6)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    else:
+        for gv, wv in ((y, want_y), (got[0], want[0])):
+            err = (gv.float() - wv).abs()
+            assert bool((err <= BF16_RTOL * wv.abs() + 1e-5).all()), err.max()
+    for gv, wv in zip(got[1:], want[1:]):
+        torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-5 * (b * l) ** 0.5)
 
 
 def test_group_norm32_gradients_on_cuda_equal_plain():
