@@ -15,20 +15,36 @@
 //
 // Bound on the card: bytes. The least work reads x and dy once and writes
 // dx once (at 3.35 TB/s); the arithmetic is about 20 operations per element.
-// Design, three launches, no atomics, so two runs give the same bits:
-//  1. gn_bwd_rows: one warp per (b, c) row sums dz and dz * xhat over L.
-//     These row sums serve both reductions: the group means are
-//     sum_c scale[c] * row / n, and the parameter gradients are sums of rows
-//     over the batch. A row is long enough at every shape the models use
-//     (L 192 to 3072) to keep a warp busy, and B * C rows fill the card.
-//  2. gn_bwd_dx: grid (B * G, chunks of 2048 elements), as K1's apply pass;
-//     each block sums its group's cpg row sums (a block reduction), then
-//     writes dx for its chunk.
-//  3. gn_bwd_params: one thread per (channel, batch slice) adds the row sums
+// No atomics anywhere, so two runs give the same bits. Both paths go
+// through per-(b, c) row sums of dz and dz * xhat: they serve both
+// reductions, as the group means are sum_c scale[c] * row / n and the
+// parameter gradients are sums of rows over the batch.
+//
+// On-chip path, groups of n <= kOnChipMax elements with L % kVec == 0 and
+// 16-byte aligned bases (gn_group.cuh; every stage-2 training shape), two
+// launches:
+//  1. gn_bwd_on_chip: one block per (b, g) loads x and dy once as 16-byte
+//     vectors and keeps them in registers; each vector lies in one channel
+//     row, so a thread forms its vectors' partial (sum dz, sum dz * xhat)
+//     into shared memory; one warp per channel adds its row's L / kVec
+//     partials (lane-strided, then a butterfly) and writes row_sums[b, c];
+//     the warps' sums of scale_c * row give m1 and m2 through a block
+//     reduction, all in fixed order; then dx from the registers, the
+//     sigmoid formed again rather than held (registers keep 4 blocks an SM
+//     resident). x and dy are read once and dx written once.
+//  2. gn_bwd_params: one thread per (channel, batch slice) adds the row sums
 //     over the batch in a fixed order, then a fixed-order sum over slices.
-// x and dy are read twice (passes 1 and 2), so the kernel moves about 5/3
-// of the bound's bytes: simple first.
-#include "gn_stats.cuh"
+// The sigmoid uses __expf and __frcp_rn (sigmoid_fast).
+//
+// Three-pass path, larger groups (the AEKL's G = 1 at stage 1's batch) and
+// ragged or unaligned rows:
+//  1. gn_bwd_rows: one warp per (b, c) row sums dz and dz * xhat over L.
+//  2. gn_bwd_dx: grid (B * G, chunks of 2048 elements), as K1's streaming
+//     apply; each block sums its group's cpg row sums (a block reduction),
+//     then writes dx for its chunk.
+//  3. gn_bwd_params, as above.
+// x and dy are read twice (passes 1 and 2): about 5/3 of the bound's bytes.
+#include "gn_group.cuh"
 
 namespace sg {
 
@@ -41,6 +57,94 @@ __device__ __forceinline__ float grad_z(float dy, float z, int apply_silu) {
   if (!apply_silu) return dy;
   const float s = 1.f / (1.f + expf(-z));
   return dy * s * (1.f + z * (1.f - s));
+}
+
+__device__ __forceinline__ float grad_z_fast(float dy, float z, int apply_silu) {
+  if (!apply_silu) return dy;
+  const float s = sigmoid_fast(z);
+  return dy * s * (1.f + z * (1.f - s));
+}
+
+// grid B * G, OnChip<T>::kThreads threads, dynamic shared memory n / kVec
+// float2. Block bg writes dx for group bg and row_sums[b * C + c] =
+// (sum dz, sum dz * xhat) for its channels.
+template <typename T, int kVPT>
+__global__ void __launch_bounds__(OnChip<T>::kThreads)
+gn_bwd_on_chip(const T* __restrict__ x, const T* __restrict__ dy,
+               const float2* __restrict__ stats, const float* __restrict__ scale,
+               const float* __restrict__ bias, int n, int L, int cpg, int G, int apply_silu,
+               T* __restrict__ dx, float2* __restrict__ row_sums) {
+  constexpr int kVec = OnChip<T>::kVec, kThreads = OnChip<T>::kThreads;
+  extern __shared__ float2 part[];  // per vector: (sum dz, sum dz * xhat)
+  __shared__ float red[33];
+  const int64_t bg = blockIdx.x;
+  const int c0 = (int)(bg % G) * cpg;
+  const float2 st = stats[bg];  // (mean, rstd)
+  uint4 rx[kVPT], rd[kVPT];
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * kVec;
+    rx[k] = load_vec<T, true>(x + bg * n, e, n);
+    rd[k] = load_vec<T, true>(dy + bg * n, e, n);
+  }
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int v = k * kThreads + threadIdx.x;
+    if (k == kVPT - 1 && v * kVec >= n) break;
+    const int c = c0 + v * kVec / L;
+    const float sc = scale[c], bi = bias[c];
+    float p1 = 0.f, p2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
+      const float dz = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
+      p1 += dz;
+      p2 += dz * xh;
+    }
+    part[v] = make_float2(p1, p2);
+  }
+  __syncthreads();
+  // one warp per channel row: its L / kVec partials, lane-strided, then a butterfly
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_row = L / kVec;
+  float a1 = 0.f, a2 = 0.f;  // lane 0: sum over the warp's channels of scale_c * row
+  for (int c = warp; c < cpg; c += kThreads / 32) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < per_row; i += 32) {
+      const float2 p = part[c * per_row + i];
+      s1 += p.x;
+      s2 += p.y;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (lane == 0) {
+      row_sums[bg * cpg + c] = make_float2(s1, s2);  // b * C + c0 + c
+      const float sc = scale[c0 + c];
+      a1 += sc * s1;
+      a2 += sc * s2;
+    }
+  }
+  const float m1 = block_sum(a1, red) / n;  // mean_g(dxhat)
+  const float m2 = block_sum(a2, red) / n;  // mean_g(dxhat * xhat)
+  T* dxg = dx + bg * n;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int v = k * kThreads + threadIdx.x;
+    if (k == kVPT - 1 && v * kVec >= n) break;
+    const int c = c0 + v * kVec / L;
+    const float sc = scale[c], bi = bias[c];
+    float f[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
+      const float dz = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
+      f[j] = st.y * (dz * sc - m1 - xh * m2);
+    }
+    store_vec<T, true>(dxg, v * kVec, n, f);
+  }
 }
 
 // grid ceil(B * C / kRowsPerBlock), kBwdThreads threads; warp w handles row
@@ -151,13 +255,33 @@ static cudaError_t launch_bwd(const void* x, const void* dy, const void* stats, 
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   float2* rs = static_cast<float2*>(row_sums);
-  gn_bwd_rows<T><<<(unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock), kBwdThreads, 0,
-                   stream>>>(xt, dyt, st, sc, bi, rows, C, L, cpg, apply_silu, rs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gn_bwd_dx<T><<<dim3(B * G, stats_chunks(n)), kStatsThreads, 0, stream>>>(
-      xt, dyt, st, sc, bi, rs, n, C, L, cpg, G, apply_silu, static_cast<T*>(dx));
-  err = cudaGetLastError();
+  T* dxt = static_cast<T*>(dx);
+  constexpr int kVec = OnChip<T>::kVec;
+  cudaError_t err;
+  if (n <= kOnChipMax && L % kVec == 0 && aligned16(x) && aligned16(dy) && aligned16(dx)) {
+    const size_t smem = (size_t)(n / kVec) * sizeof(float2);
+#define SG_BWD_ON_CHIP(V)                                                                    \
+  gn_bwd_on_chip<T, V><<<B * G, OnChip<T>::kThreads, smem, stream>>>(xt, dyt, st, sc, bi, n, L, \
+                                                                   cpg, G, apply_silu, dxt, rs)
+    switch (vecs_per_thread<T>(n)) {
+      case 1: SG_BWD_ON_CHIP(1); break;
+      case 2: SG_BWD_ON_CHIP(2); break;
+      case 3: SG_BWD_ON_CHIP(3); break;
+      case 4: SG_BWD_ON_CHIP(4); break;
+      case 5: SG_BWD_ON_CHIP(5); break;
+      default: SG_BWD_ON_CHIP(6); break;
+    }
+#undef SG_BWD_ON_CHIP
+    err = cudaGetLastError();
+  } else {
+    gn_bwd_rows<T><<<(unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock), kBwdThreads, 0,
+                     stream>>>(xt, dyt, st, sc, bi, rows, C, L, cpg, apply_silu, rs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gn_bwd_dx<T><<<dim3(B * G, stats_chunks(n)), kStatsThreads, 0, stream>>>(
+        xt, dyt, st, sc, bi, rs, n, C, L, cpg, G, apply_silu, dxt);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   gn_bwd_params<<<(C + 31) / 32, dim3(32, kParamSlices), 0, stream>>>(
       rs, B, C, static_cast<float*>(dscale), static_cast<float*>(dbias));
