@@ -24,11 +24,16 @@
 // launch with no scratch. (x - mean) a_c + bias_c rather than x a_c + d_c
 // keeps the reference's rounding when |mean| is large against the spread.
 //
-// Streaming path, larger groups (the AEKL's G = 1, B2's long window): the
-// split reduction of gn_stats.cuh (pass 1 per 2048-element chunk), then
-// gn_apply merges a group's chunks in its first thread and normalises the
-// chunk. x is read twice; a group of the AEKL at batch 1024 (up to 200 MB)
-// does not stay in the 50 MB L2 between the passes.
+// Streaming path, larger groups (the AEKL's G = 1, B2's long window), three
+// launches: the split reduction of gn_stats.cuh (pass 1, one block per
+// 2048-element chunk: (count, mean, M2)); gn_finalize, one warp per group
+// merging its chunks with Chan's formula in a fixed tree order and writing
+// (mean, rstd); gn_apply, one block per chunk, which reads those two floats
+// and normalises with 16-byte vectors. The merge is done once per group,
+// not once per block (PR 4's form merged every chunk in every block: the
+// square of the chunk count). x is read twice: the AEKL's activations at a
+// training batch of 1024 (up to 200 MB) do not stay in the 50 MB L2
+// between the passes.
 #include "gn_group.cuh"
 
 namespace sg {
@@ -112,32 +117,76 @@ static cudaError_t launch_on_chip(const T* x, const float* scale, const float* b
   return cudaGetLastError();
 }
 
-// grid (B * G, nchunks), kStatsThreads threads: block normalises chunk
-// blockIdx.y of group blockIdx.x; stats[group] = (mean, rstd).
-template <typename T>
-__global__ void __launch_bounds__(kStatsThreads)
-gn_apply(const T* __restrict__ x, const float3* __restrict__ partial, int nchunks,
-         const float* __restrict__ scale, const float* __restrict__ bias, int n, int L,
-         int cpg, int G, float eps, int apply_silu, T* __restrict__ y,
-         float2* __restrict__ stats) {
-  __shared__ float ms[2];
-  const int64_t bg = blockIdx.x;
-  if (threadIdx.x == 0) {
-    merge_group(partial + bg * nchunks, nchunks, eps, &ms[0], &ms[1]);
-    if (blockIdx.y == 0) stats[bg] = make_float2(ms[0], ms[1]);
+// Chan et al.'s merge of two (count, mean, M2) states; an empty b leaves a
+// as it is, an empty a gives b.
+__device__ __forceinline__ float3 chan_merge(float3 a, float3 b) {
+  const float n = a.x + b.x;
+  if (n == 0.f) return a;
+  const float w = b.x / n, d = b.y - a.y;
+  return make_float3(n, a.y + d * w, a.z + b.z + d * d * a.x * w);
+}
+
+constexpr int kFinalizeWarps = 8;
+
+// grid ceil(groups / kFinalizeWarps), 32 * kFinalizeWarps threads: one warp
+// per group merges its chunks' states in a fixed order (lane l takes chunks
+// l, l + 32, ..., then lane l merges lane l + o for o = 16, 8, 4, 2, 1) and
+// writes stats[group] = (mean, rstd).
+__global__ void __launch_bounds__(32 * kFinalizeWarps)
+gn_finalize(const float3* __restrict__ partial, int groups, int nchunks, float eps,
+            float2* __restrict__ stats) {
+  const int lane = threadIdx.x & 31;
+  const int64_t grp = (int64_t)blockIdx.x * kFinalizeWarps + (threadIdx.x >> 5);
+  if (grp >= groups) return;  // warp-uniform
+  const float3* p = partial + grp * nchunks;
+  float3 s = make_float3(0.f, 0.f, 0.f);
+  for (int c = lane; c < nchunks; c += 32) s = chan_merge(s, p[c]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float3 q = make_float3(__shfl_down_sync(0xffffffffu, s.x, o),
+                                 __shfl_down_sync(0xffffffffu, s.y, o),
+                                 __shfl_down_sync(0xffffffffu, s.z, o));
+    if (lane < o) s = chan_merge(s, q);
   }
-  __syncthreads();
-  const float mean = ms[0], rstd = ms[1];
+  if (lane == 0) stats[grp] = make_float2(s.y, rsqrtf(s.z / s.x + eps));
+}
+
+// grid (B * G, nchunks), kStatsThreads threads: block normalises chunk
+// blockIdx.y of group blockIdx.x from the group's stats, 16-byte vectors
+// when kAligned (a vector then lies in one channel row).
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kStatsThreads)
+gn_apply(const T* __restrict__ x, const float2* __restrict__ stats,
+         const float* __restrict__ scale, const float* __restrict__ bias, int n, int L,
+         int cpg, int G, int apply_silu, T* __restrict__ y) {
+  constexpr int kVec = OnChip<T>::kVec;
+  const int64_t bg = blockIdx.x;
+  const float2 st = stats[bg];  // (mean, rstd)
   const int c0 = (int)(bg % G) * cpg;
   const int start = blockIdx.y * kStatsChunk;
   const int cnt = min(kStatsChunk, n - start);
   const T* xg = x + bg * n + start;
   T* yg = y + bg * n + start;
-  for (int i = threadIdx.x; i < cnt; i += kStatsThreads) {
-    const int c = c0 + (start + i) / L;
-    float v = (to_f(xg[i]) - mean) * rstd * scale[c] + bias[c];
-    if (apply_silu) v = silu(v);
-    yg[i] = from_f<T>(v);
+  for (int e = threadIdx.x * kVec; e < cnt; e += kStatsThreads * kVec) {
+    const uint4 r = load_vec<T, kAligned>(xg, e, cnt);
+    float f[kVec];
+    if constexpr (kAligned) {
+      const int c = c0 + (start + e) / L;
+      const float a = st.y * scale[c], b = bias[c];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = fmaf(elem<T>(r, j) - st.x, a, b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const int c = c0 + (start + min(e + j, cnt - 1)) / L;
+        f[j] = (elem<T>(r, j) - st.x) * st.y * scale[c] + bias[c];
+      }
+    }
+    if (apply_silu) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = silu_fast(f[j]);
+    }
+    store_vec<T, kAligned>(yg, e, cnt, f);
   }
 }
 
@@ -166,12 +215,21 @@ static cudaError_t launch(const void* xv, const void* scalev, const void* biasv,
 #undef SG_ON_CHIP
   }
   if (partial == nullptr) return cudaErrorInvalidValue;
-  const int nchunks = stats_chunks(n);
-  const cudaError_t err = launch_partial_stats(x, B * G, n, static_cast<float3*>(partial), stream);
+  const int groups = B * G, nchunks = stats_chunks(n);
+  float3* part = static_cast<float3*>(partial);
+  cudaError_t err = launch_partial_stats(x, groups, n, part, stream);
   if (err != cudaSuccess) return err;
-  gn_apply<T><<<dim3(B * G, nchunks), kStatsThreads, 0, stream>>>(
-      x, static_cast<const float3*>(partial), nchunks, scale, bias, n, L, cpg, G, eps,
-      apply_silu, y, stats);
+  gn_finalize<<<(groups + kFinalizeWarps - 1) / kFinalizeWarps, 32 * kFinalizeWarps, 0,
+                stream>>>(part, groups, nchunks, eps, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(groups, nchunks);
+  if (L % OnChip<T>::kVec == 0 && aligned16(x) && aligned16(y))
+    gn_apply<T, true><<<grid, kStatsThreads, 0, stream>>>(x, stats, scale, bias, n, L, cpg, G,
+                                                          apply_silu, y);
+  else
+    gn_apply<T, false><<<grid, kStatsThreads, 0, stream>>>(x, stats, scale, bias, n, L, cpg,
+                                                           G, apply_silu, y);
   return cudaGetLastError();
 }
 
