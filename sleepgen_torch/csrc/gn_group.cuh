@@ -34,11 +34,16 @@ inline int vecs_per_thread(int n) {
   return (n + per_pass - 1) / per_pass;
 }
 
-// SiLU and the sigmoid with the hardware exponential and a correctly
-// rounded reciprocal: a few ulp of fp32 (|v| < 20: under 3e-6 relative),
-// inside the fp32 bounds, and an eighth of the instructions of expf and
-// an IEEE division.
-__device__ __forceinline__ float sigmoid_fast(float v) { return __frcp_rn(1.f + __expf(-v)); }
+// SiLU and the sigmoid with the hardware exponential and reciprocal
+// (ex2.approx, rcp.approx: two MUFU instructions and two FP32 ones): a few
+// ulp of fp32 (|v| < 20: under 3e-6 relative), inside the fp32 bounds, for
+// a small part of the instructions of expf and an IEEE division.
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float sigmoid_fast(float v) { return rcp_approx(1.f + __expf(-v)); }
 __device__ __forceinline__ float silu_fast(float v) { return v * sigmoid_fast(v); }
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {

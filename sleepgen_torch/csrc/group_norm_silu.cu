@@ -19,7 +19,7 @@
 // reductions; per channel a_c = rstd * scale_c into shared memory beside
 // bias_c, so that with L % kVec == 0 (a vector inside one channel row) an
 // element costs a subtraction, one FMA, y = (x - mean) a_c + bias_c, and
-// the SiLU (silu_fast, gn_group.cuh: __expf and __frcp_rn); 16-byte
+// the SiLU (silu_fast, gn_group.cuh: ex2.approx and rcp.approx); 16-byte
 // stores. x is read once and y written once, the bound's bytes, in one
 // launch with no scratch. (x - mean) a_c + bias_c rather than x a_c + d_c
 // keeps the reference's rounding when |mean| is large against the spread.

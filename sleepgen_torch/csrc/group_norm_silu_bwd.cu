@@ -29,12 +29,14 @@
 //     into shared memory; one warp per channel adds its row's L / kVec
 //     partials (lane-strided, then a butterfly) and writes row_sums[b, c];
 //     the warps' sums of scale_c * row give m1 and m2 through a block
-//     reduction, all in fixed order; then dx from the registers, the
-//     sigmoid formed again rather than held (registers keep 4 blocks an SM
-//     resident). x and dy are read once and dx written once.
+//     reduction, all in fixed order; then dx from the registers: dz is
+//     held in fp32 where dy's registers were, so the sigmoid is formed
+//     once per element. x and dy are read once and dx written once.
 //  2. gn_bwd_params: one thread per (channel, batch slice) adds the row sums
 //     over the batch in a fixed order, then a fixed-order sum over slices.
-// The sigmoid uses __expf and __frcp_rn (sigmoid_fast).
+// The sigmoid uses the hardware exponential and reciprocal (sigmoid_fast):
+// formed twice per element with a correctly rounded reciprocal, it made
+// the kernel short of instruction issue rather than of bytes (PERF.md).
 //
 // Three-pass path, larger groups (the AEKL's G = 1 at stage 1's batch) and
 // ragged or unaligned rows:
@@ -80,28 +82,32 @@ gn_bwd_on_chip(const T* __restrict__ x, const T* __restrict__ dy,
   const int64_t bg = blockIdx.x;
   const int c0 = (int)(bg % G) * cpg;
   const float2 st = stats[bg];  // (mean, rstd)
-  uint4 rx[kVPT], rd[kVPT];
+  uint4 rx[kVPT];
+  float dz[kVPT][kVec];  // dy's registers become dz's
+  {
+    uint4 rd[kVPT];
 #pragma unroll
-  for (int k = 0; k < kVPT; ++k) {
-    const int e = (k * kThreads + threadIdx.x) * kVec;
-    rx[k] = load_vec<T, true>(x + bg * n, e, n);
-    rd[k] = load_vec<T, true>(dy + bg * n, e, n);
-  }
-#pragma unroll
-  for (int k = 0; k < kVPT; ++k) {
-    const int v = k * kThreads + threadIdx.x;
-    if (k == kVPT - 1 && v * kVec >= n) break;
-    const int c = c0 + v * kVec / L;
-    const float sc = scale[c], bi = bias[c];
-    float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
-      const float dz = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
-      p1 += dz;
-      p2 += dz * xh;
+    for (int k = 0; k < kVPT; ++k) {
+      const int e = (k * kThreads + threadIdx.x) * kVec;
+      rx[k] = load_vec<T, true>(x + bg * n, e, n);
+      rd[k] = load_vec<T, true>(dy + bg * n, e, n);
     }
-    part[v] = make_float2(p1, p2);
+#pragma unroll
+    for (int k = 0; k < kVPT; ++k) {
+      const int v = k * kThreads + threadIdx.x;
+      if (k == kVPT - 1 && v * kVec >= n) break;
+      const int c = c0 + v * kVec / L;
+      const float sc = scale[c], bi = bias[c];
+      float p1 = 0.f, p2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
+        dz[k][j] = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
+        p1 += dz[k][j];
+        p2 += dz[k][j] * xh;
+      }
+      part[v] = make_float2(p1, p2);
+    }
   }
   __syncthreads();
   // one warp per channel row: its L / kVec partials, lane-strided, then a butterfly
@@ -134,14 +140,12 @@ gn_bwd_on_chip(const T* __restrict__ x, const T* __restrict__ dy,
   for (int k = 0; k < kVPT; ++k) {
     const int v = k * kThreads + threadIdx.x;
     if (k == kVPT - 1 && v * kVec >= n) break;
-    const int c = c0 + v * kVec / L;
-    const float sc = scale[c], bi = bias[c];
+    const float sc = scale[c0 + v * kVec / L];
     float f[kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
       const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
-      const float dz = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
-      f[j] = st.y * (dz * sc - m1 - xh * m2);
+      f[j] = st.y * (dz[k][j] * sc - m1 - xh * m2);
     }
     store_vec<T, true>(dxg, v * kVec, n, f);
   }
