@@ -132,7 +132,7 @@ TIMED_BATCHES = 3
 TRAIN_BATCH = 1024  # ldm.yaml
 TRAIN_EPOCHS = 7  # one step each; the first is not timed
 VALID_WINDOWS = 64
-AEKL_BATCH = 2048  # aekl_eeg.yaml, for K3 at the AEKL's G = 1 shapes
+AEKL_BATCH = 2048  # aekl_eeg.yaml, for K1 and K3 at the AEKL's G = 1 shapes
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -1076,7 +1076,8 @@ def main(only: str | None = None) -> int:
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
                   eval_relayouts=shapes["evals"],
                   kernels=rows, train_k1=train_k1, per_shape=per_shape + train_k1_shapes,
-                  strided_dy=strided, profile=prof, train_profile=train_prof, build_logs=build_logs,
+                  strided_dy=strided, profile=prof, train_profile=train_prof,
+                  build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"

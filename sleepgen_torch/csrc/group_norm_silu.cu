@@ -29,11 +29,11 @@
 // 2048-element chunk: (count, mean, M2)); gn_finalize, one warp per group
 // merging its chunks with Chan's formula in a fixed tree order and writing
 // (mean, rstd); gn_apply, one block per chunk, which reads those two floats
-// and normalises with 16-byte vectors. The merge is done once per group,
-// not once per block (PR 4's form merged every chunk in every block: the
-// square of the chunk count). x is read twice: the AEKL's activations at a
-// training batch of 1024 (up to 200 MB) do not stay in the 50 MB L2
-// between the passes.
+// and normalises with 16-byte vectors. The merge runs once per group, so
+// its work grows with the chunk count, not with its square as a merge in
+// every block would. x is read twice: the AEKL's activations at a training
+// batch of 1024 (up to 200 MB) do not stay in the 50 MB L2 between the
+// passes.
 #include "gn_group.cuh"
 
 namespace sg {

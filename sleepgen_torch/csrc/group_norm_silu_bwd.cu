@@ -34,9 +34,10 @@
 //     once per element. x and dy are read once and dx written once.
 //  2. gn_bwd_params: one thread per (channel, batch slice) adds the row sums
 //     over the batch in a fixed order, then a fixed-order sum over slices.
-// The sigmoid uses the hardware exponential and reciprocal (sigmoid_fast):
-// formed twice per element with a correctly rounded reciprocal, it made
-// the kernel short of instruction issue rather than of bytes (PERF.md).
+// Holding dz, and the sigmoid on the hardware exponential and reciprocal
+// (sigmoid_fast, both paths), keep the instructions per element below what
+// the bytes allow: formed twice with a correctly rounded reciprocal, the
+// sigmoid left the kernel short of instruction issue (PERF.md).
 //
 // Three-pass path, larger groups (the AEKL's G = 1 at stage 1's batch) and
 // ragged or unaligned rows:
@@ -56,12 +57,6 @@ constexpr int kParamSlices = 8;  // batch slices per channel in pass 3
 
 // Gradient at the affine output z, through SiLU when apply_silu.
 __device__ __forceinline__ float grad_z(float dy, float z, int apply_silu) {
-  if (!apply_silu) return dy;
-  const float s = 1.f / (1.f + expf(-z));
-  return dy * s * (1.f + z * (1.f - s));
-}
-
-__device__ __forceinline__ float grad_z_fast(float dy, float z, int apply_silu) {
   if (!apply_silu) return dy;
   const float s = sigmoid_fast(z);
   return dy * s * (1.f + z * (1.f - s));
@@ -102,7 +97,7 @@ gn_bwd_on_chip(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const float xh = (elem<T>(rx[k], j) - st.x) * st.y;
-        dz[k][j] = grad_z_fast(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
+        dz[k][j] = grad_z(elem<T>(rd[k], j), fmaf(xh, sc, bi), apply_silu);
         p1 += dz[k][j];
         p2 += dz[k][j] * xh;
       }

@@ -153,8 +153,7 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     code = lib.sg_group_norm_silu(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
         None if scratch is None else scratch.data_ptr(), b, c, l, num_groups, eps,
-        int(apply_silu),
-        DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+        int(apply_silu), DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "group_norm_silu")
     global launches
     launches += 1

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.kernels import _build, fused_resblock, group_norm
 from sleepgen_torch.nn.layers import GroupNorm32
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_card")]
@@ -264,7 +264,6 @@ def test_group_norm_silu_is_deterministic(dtype, b, c, l, g):
 def test_group_norm_path_switch_at_on_chip_max():
     """A group of ON_CHIP_MAX elements takes the on-chip path (no scratch),
     one of ON_CHIP_MAX + 8 the streaming path."""
-    from sleepgen_torch.kernels import _build
     lib = _build.load()
     n = group_norm.ON_CHIP_MAX
     assert lib.sg_group_norm_silu_scratch_floats(2, 16, n // 16, 1) == 0
