@@ -2,19 +2,23 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives two paths: LDM
-sampling and stage-2 LDM training. Phases, one line each:
+CUDA toolkit: ``python3 chip_smoke.py``. It drives three paths: LDM
+sampling, stage-2 LDM training and stage-1 AEKL training. Phases, one
+line each:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
      source, in parallel;
-  3. kernel checks: one-step runs of both paths record the shapes they
+  3. kernel checks: one-step runs of the paths record the shapes they
      give each kernel (a DDIM step of the sampler at batch 64; one
      full-width training step at batch 1024, whose launch counts must
      equal those derived from the configuration, K2 none; then a warm-up
      eval batch, one more step and two eval batches on the fp32 masters:
      the first after the step re-lays out each K2 weight once, the second
-     none); at every one of
+     none; one full-width stage-1 step at ``aekl_eeg.yaml``'s batch 2048,
+     bf16, whose K1 and K3 launches, 26 each, must equal those derived
+     from the configuration, K2 none, with the strided dy copies K3's
+     wrapper made); at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
      off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
      the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
@@ -23,9 +27,8 @@ sampling and stage-2 LDM training. Phases, one line each:
      on the same bf16 inputs, to bf16 rounding: K1 and K3's dx |err| <=
      2^-8 |ref| + 1e-5, K2 |err| <= 2^-8 |ref| + 2^-6 rms(ref), as K2
      also rounds h to bf16 before its convolution; K3's dscale and dbias
-     are fp32 sums, held to the fp32 bound). K1 and K3 are also checked at
-     the AEKL's G = 1 shapes at stage 1's batch 2048, B2 at its long window
-     (16, 32, 49152, G 1) and B3 at the Pallas test shapes and one
+     are fp32 sums, held to the fp32 bound). B2 is checked at its long
+     window (16, 32, 49152, G 1) and B3 at the Pallas test shapes and one
      sampler shape;
   4. tiny sampler: 4 DDIM steps plus decode at tiny widths, on the card
      with the kernels against the CPU with the plain versions, same seeds
@@ -47,6 +50,19 @@ sampling and stage-2 LDM training. Phases, one line each:
      ldm.yaml's width, batch 1024, bf16, seven one-step epochs: median ms
      per step after the first (min-max), windows/s, peak memory; launch
      counts equal those derived from the configuration; finite losses;
+  S1. tiny stage-1 trainer: two steps (the G step, then the D step) at
+     tiny widths, fp32, Adam at 1e-4 for G and D, on the card and on the
+     CPU from the same weights, batch and eps: losses, parameters and
+     BatchNorm statistics at the model bound; then one ``train_aekl`` run
+     on the card that reaches an eval, a checkpoint and
+     ``best_model/params.npz``, and one ``train_ldm`` run on that run dir
+     (the port's stage 1 into its own stage 2);
+  S2. full-width stage-1 trainer: ``train_aekl`` at ``aekl_eeg.yaml``
+     (AEKL [32, 32, 64], PatchDiscriminator 3 x 64, batch 2048, bf16) on a
+     synthetic npy tree, seven one-step epochs and one eval after the
+     last: median ms per step after the first (min-max), windows/s, peak
+     memory; K1 and K3 launches equal those derived from the
+     configuration; finite losses;
   8. timings: each kernel at each shape of its path in bf16: kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
      eager (per call in a loop, host cost included where it exceeds the
@@ -56,17 +72,19 @@ sampling and stage-2 LDM training. Phases, one line each:
      graph holds the aten ops it runs), and the bound; for K2 also the
      time of its weight re-layout (``fused_resblock.conv_tiles``), which
      the wrapper caches per weight; the copies K3's wrapper makes of a
-     strided dy in one training step, and their time;
+     strided dy in one training step of each stage, and their time;
   9. profile: model build and one AEKL decode on the host clock; the PSD's
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
      time per step by kernel, and the device's busy share of the wall time;
-     one full-width training step the same way.
+     one full-width training step of each stage the same way.
 
-The line before the device line at the end is one JSON object with every
-kernel's launches in one run of its path (K1, K2: a sampler batch; K3: a
-training step; B2, B3: on no path), its error and its times (each shape's
-time times its launches in that run, summed); the last line is
+The line before the device line at the end is one JSON object with a row
+per kernel and path: launches in one run of the path (K1: a sampler
+batch, a stage-2 and a stage-1 training step; K2: a sampler batch; K3: a
+stage-2 and a stage-1 training step; B2, B3: on no path), its error and
+its times (each shape's time times its launches in that run, summed);
+the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke_report.json. Any failure raises and the script
 exits non-zero without the last line.
@@ -82,11 +100,11 @@ and exits non-zero on any failure.
 
 ``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2:
 phases 1 and 2, the sampler's warm-up call (one DDIM step and the
-decode) and one full-width training step, whose K1 and K3 launches are
-checked against the configuration; K1's, K3's and B2's fp32 and bf16
-checks at those shapes, at the AEKL's G = 1 shapes and at B2's; the
-phase-8 timings of K1 (paths "DDIM step" and "train step"), K3 ("train
-step") and B2, and of K3's strided-dy copies. Report in
+decode), one full-width training step of each stage, whose K1 and K3
+launches are checked against the configuration; K1's, K3's and B2's fp32
+and bf16 checks at those shapes and at B2's; the phase-8 timings of K1
+(paths "DDIM step", "train step" and "stage-1 step"), K3 ("train step",
+"stage-1 step") and B2, and of K3's strided-dy copies. Report in
 chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
 """
 from __future__ import annotations
@@ -116,8 +134,10 @@ from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models, 
                                               build_unet, sample_ldm_trials,
                                               sampling_schedule)
 from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
+from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
-from sleepgen_torch.utils.weights import load_numpy_state, seeded_state_dict  # noqa: E402
+from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,  # noqa: E402
+                                          load_params_npz, seeded_state_dict)
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
 # fp32 CUDA-core operations/s.
@@ -132,7 +152,8 @@ TIMED_BATCHES = 3
 TRAIN_BATCH = 1024  # ldm.yaml
 TRAIN_EPOCHS = 7  # one step each; the first is not timed
 VALID_WINDOWS = 64
-AEKL_BATCH = 2048  # aekl_eeg.yaml, for K1 and K3 at the AEKL's G = 1 shapes
+AEKL_CONFIG = ROOT / "sleepgen" / "configs" / "aekl_eeg.yaml"  # read as YAML
+AEKL_BATCH = 2048  # aekl_eeg.yaml
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -150,7 +171,12 @@ B3_SHAPES = [(2, 32, 64, 96, 32, "torch.bfloat16"), (3, 16, 16, 64, 8, "torch.bf
              (2, 32, 32, 128, 1, "torch.bfloat16"), (64, 512, 512, 192, 32, "torch.bfloat16")]
 
 
+START = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One phase line, with the seconds since the script started (``at_s``)."""
+    fields = {"at_s": f"{time.perf_counter() - START:.1f}", **fields}
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -219,6 +245,36 @@ def expected_train_launches(cfg: Config, steps: int, eval_batches: int,
             + eval_batches * (unet_eval["K1"] + n["coder_gn"]) + encodes * n["coder_gn"],
             "K2": eval_batches * unet_eval["K2"],
             "K3": steps * n["unet_gn"]}
+
+
+def stage1_config() -> Config:
+    """``aekl_eeg.yaml`` as it stands: AEKL [32, 32, 64], latent 1, G 1;
+    PatchDiscriminator 3 layers x 64 channels; batch 2048; bf16."""
+    cfg = Config.from_yaml(AEKL_CONFIG)
+    if (cfg.train.batch_size, cfg.dtype, cfg.aekl.norm_num_groups) != (AEKL_BATCH, "bfloat16", 1):
+        raise AssertionError(f"{AEKL_CONFIG}: batch {cfg.train.batch_size}, dtype {cfg.dtype}, "
+                             f"G {cfg.aekl.norm_num_groups}")
+    return cfg
+
+
+def tiny_stage1_config() -> Config:
+    """Tiny widths in fp32 (AEKL [4, 4, 8], PatchDiscriminator 3 x 8) with
+    Adam at 1e-4 for G and D: Adam's first update is about lr * sign(g), so
+    the configuration's 5e-3 would turn a gradient sign that rounds
+    differently on the two devices into a 1e-2 gap."""
+    cfg = tiny_config(steps=4)
+    cfg.discriminator.num_channels = 8
+    cfg.losses.optimizer_g_lr = cfg.losses.optimizer_d_lr = 1e-4
+    return cfg
+
+
+def expected_stage1_launches(cfg: Config, steps: int, eval_batches: int) -> dict:
+    """Kernel launches of stage-1 training, derived from the configuration:
+    a step runs K1 at every GroupNorm of the AEKL's encoder and decoder and
+    K3 at each for its gradient; an eval batch (the reconstruction) runs
+    K1 at each; the discriminator has none; no K2."""
+    n = 2 * gn_counts(cfg)["coder_gn"]
+    return {"K1": (steps + eval_batches) * n, "K2": 0, "K3": steps * n}
 
 
 def reset_counts() -> None:
@@ -559,27 +615,62 @@ def phase_train_step() -> tuple:
     return counts, shapes, evals
 
 
-def aekl_shapes(cfg: Config) -> dict:
-    """K1's and K3's shapes at the AEKL's G = 1 GroupNorms (stage 1 will
-    train them): the encoder's first and last resolutions, batch 2048,
-    bf16."""
-    a = cfg.aekl
-    return {(AEKL_BATCH, a.num_channels[0], 3072, a.norm_num_groups, True, "torch.bfloat16"): 1,
-            (AEKL_BATCH, a.num_channels[-1], 768, a.norm_num_groups, True, "torch.bfloat16"): 1}
+def stage1_trainer(cfg: Config):
+    """train_aekl's models and Adams on the card, and its train step."""
+    ae, disc, opt_g, opt_d = A.build_trainer(cfg, "cuda")
+    return A.make_train_step(ae, disc, opt_g, opt_d, cfg, DTYPES[cfg.dtype])
+
+
+def stage1_inputs(cfg: Config, seed: int) -> tuple:
+    """A full batch of windows in the compute dtype, as train_aekl casts
+    them, and the encoder's eps of step 0."""
+    x = train_windows(cfg.train.batch_size, seed).to(DTYPES[cfg.dtype])
+    gen = T.make_generator(cfg.train.seed, "cuda", A.AEKL_STREAM, 0)
+    eps = torch.randn((x.shape[0], cfg.aekl.latent_channels, T.latent_length(cfg, x.shape[-1])),
+                      generator=gen, device="cuda")
+    return x, eps
+
+
+def phase_stage1_step() -> tuple:
+    """One full-width stage-1 step (aekl_eeg.yaml, batch 2048, bf16) with
+    the counts set to 0 before and read after: they must equal those
+    derived from the configuration, K2 none, and the metrics must be
+    finite. Returns the counts and the shapes the step gave K1 and K3,
+    with the strided dy tensors K3's wrapper copied."""
+    cfg = stage1_config()
+    step = stage1_trainer(cfg)
+    x, eps = stage1_inputs(cfg, SEED)
+    reset_counts()
+    metrics = step(x, eps)
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    want = expected_stage1_launches(cfg, steps=1, eval_batches=0)
+    values = {k: float(v) for k, v in metrics.items()}
+    if counts != want or not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"stage-1 step: launches {counts}, expected {want}, "
+                             f"metrics {values}")
+    say("stage1-step", batch=cfg.train.batch_size, k1_launches=counts["K1"],
+        k3_launches=counts["K3"], k2_launches=counts["K2"], k1_shapes=len(shapes["K1"]),
+        k3_shapes=len(shapes["K3"]),
+        k3_strided_dy=sum(shapes["K3_strided_dy"].values()),
+        **{k: f"{v:.5g}" for k, v in values.items()})
+    del step, x, eps, metrics
+    free_card()
+    return counts, shapes
 
 
 def phase_checks(tmp: Path, only: str | None = None) -> tuple:
-    """The sampler's warm-up DDIM step and one training step record the
-    shapes each kernel gets on each path (the counts of the warm-up are
-    discarded), then every kernel is checked at every shape, K1 and K3
-    also at the AEKL's G = 1 shapes, and B2 and B3 at theirs. The warm-up
+    """The sampler's warm-up DDIM step and one training step of each stage
+    record the shapes each kernel gets on each path (the counts of the
+    warm-up are discarded), then every kernel is checked at every shape,
+    and B2 and B3 at theirs. The warm-up
     also pays the process's one-time costs (cuDNN plans, the import of
     scipy.signal for the PSD's tapers, which takes seconds), so phase 5
     times steady-state batches. ``only`` "K2": no training step, and only
     K2 and B3 are checked; the step's K2 launches must equal the count
     derived from the configuration. ``only`` "GN": only K1, K3 and B2 are
     checked, and the warm-up's K1 launches must equal the count derived
-    from the configuration (the training step's are checked always)."""
+    from the configuration (the training steps' are checked always)."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     reset_counts()
@@ -594,11 +685,13 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
                                  f"expected {want}")
     if only == "K2":
         train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
+        stage1_counts, stage1_shapes = {}, {"K1": {}, "K3": {}}
     else:
         train_counts, train_shapes, evals = phase_train_step()
-    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **aekl_shapes(cfg)},
+        stage1_counts, stage1_shapes = phase_stage1_step()
+    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **stage1_shapes["K1"]},
                 "K2": sample_shapes["K2"],
-                "K3": {**train_shapes["K3"], **aekl_shapes(cfg)},
+                "K3": {**train_shapes["K3"], **stage1_shapes["K3"]},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
     if only:
         keep = {"K2": ("K2", "B3"), "GN": ("K1", "K3", "B2")}[only]
@@ -612,7 +705,8 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
             bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in results[kid].values()):.3e}")
     reset_counts()
     return dict(sample=sample_shapes, sample_counts=sample_counts, train=train_shapes,
-                train_counts=train_counts, evals=evals), results
+                train_counts=train_counts, evals=evals, stage1=stage1_shapes,
+                stage1_counts=stage1_counts), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -802,6 +896,125 @@ def phase_train_full(tmp: Path) -> dict:
     return out
 
 
+def stage1_state(ae, disc) -> dict:
+    return {**{f"ae.{k}": v.detach().cpu().numpy() for k, v in ae.state_dict().items()},
+            **{f"disc.{k}": v.detach().cpu().numpy() for k, v in disc.state_dict().items()}}
+
+
+def phase_tiny_stage1(tmp: Path) -> dict:
+    """Two stage-1 steps at tiny widths, fp32, on the card (K1, K3) and on
+    the CPU (plain versions) from the same weights, batch and eps; the six
+    metrics, the parameters and the BatchNorm running statistics held at
+    the model bound. Then one train_aekl run on the card that reaches an
+    eval, a checkpoint and best_model/, and one train_ldm run on the card
+    whose frozen AEKL is that best_model/."""
+    cfg = tiny_stage1_config()
+    rng = np.random.default_rng(SEED + 30)
+    b, length = 4, 256
+    x = rng.uniform(size=(b, 1, length)).astype(np.float32)
+    eps = [rng.standard_normal((b, 1, length // 4)).astype(np.float32) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        ae, disc, opt_g, opt_d = A.build_trainer(cfg, dev)
+        step = A.make_train_step(ae, disc, opt_g, opt_d, cfg)
+        metrics = [{k: float(v) for k, v in step(torch.from_numpy(x).to(dev),
+                                                  torch.from_numpy(e).to(dev)).items()}
+                   for e in eps]
+        runs[dev] = metrics, stage1_state(ae, disc), read_counts()
+    (card_m, card_p, counts), (cpu_m, cpu_p, _) = runs["cuda"], runs["cpu"]
+    want = expected_stage1_launches(cfg, steps=2, eval_batches=0)
+    if counts != want:
+        raise AssertionError(f"tiny stage-1 trainer on the card: launches {counts}, "
+                             f"expected {want}")
+    for i, (cm, pm) in enumerate(zip(card_m, cpu_m)):
+        for k in A.METRICS:
+            np.testing.assert_allclose(cm[k], pm[k], rtol=2e-3, atol=2e-4,
+                                       err_msg=f"tiny stage-1 step {i} {k}: card vs CPU")
+    for k in cpu_p:
+        np.testing.assert_allclose(card_p[k], cpu_p[k], rtol=2e-3, atol=2e-4,
+                                   err_msg=f"tiny stage-1 trainer {k}: card vs CPU")
+    param_err = max(float(np.abs(card_p[k] - cpu_p[k]).max()) for k in cpu_p)
+    metric_err = max(abs(cm[k] - pm[k]) for cm, pm in zip(card_m, cpu_m) for k in A.METRICS)
+    say("tiny-stage1", g_losses=[f"{m['g_loss']:.5f}" for m in card_m],
+        metric_max_abs_err=f"{metric_err:.3e}", param_max_abs_err=f"{param_err:.3e}",
+        k1_launches=counts["K1"], k3_launches=counts["K3"])
+
+    cfg.train.n_epochs, cfg.train.batch_size, cfg.train.val_interval = 2, 4, 1
+    cfg.train.output_dir = str(tmp / "tiny_stage1")
+    train_ds, valid_ds = write_split(tmp, "tiny_stage1_npy", 6, 2, SEED + 4)
+    t0 = time.perf_counter()
+    result = A.train_aekl(cfg, train_ds, valid_ds, device="cuda")
+    aekl_seconds = time.perf_counter() - t0
+    best = Path(result.run_dir) / "best_model"
+    missing = [n for n in ("best_model/params.npz", "best_model/config.yaml",
+                           "final_model/params.npz", "checkpoints/step_00000004.pt")
+               if not (Path(result.run_dir) / n).exists()]
+    if missing or result.stopped_on_nan or not np.isfinite(result.best_loss):
+        raise AssertionError(f"tiny train_aekl run: missing {missing}, best {result.best_loss}")
+    ldm_cfg = tiny_config(steps=4)
+    ldm_cfg.train.n_epochs, ldm_cfg.train.batch_size, ldm_cfg.train.val_interval = 1, 4, 1
+    ldm_cfg.train.output_dir = str(tmp / "tiny_stage1_ldm")
+    t0 = time.perf_counter()
+    ldm = T.train_ldm(ldm_cfg, train_ds, valid_ds,
+                      aekl_state_from_jax(load_params_npz(best / "params.npz")),
+                      aekl_cfg=Config.from_yaml(best / "config.yaml"), device="cuda")
+    ldm_seconds = time.perf_counter() - t0
+    if not (Path(ldm.run_dir) / "best_model" / "params.npz").exists() or not np.isfinite(
+            ldm.best_loss):
+        raise AssertionError(f"tiny train_ldm on the port's AEKL: best {ldm.best_loss}")
+    say("tiny-stage1", run="train_aekl -> train_ldm", aekl_seconds=f"{aekl_seconds:.2f}",
+        aekl_best_loss=f"{result.best_loss:.5f}", ldm_seconds=f"{ldm_seconds:.2f}",
+        ldm_best_loss=f"{ldm.best_loss:.5f}", scale_factor=f"{ldm.scale_factor:.4f}")
+    return dict(metrics=card_m, cpu_metrics=cpu_m, param_max_abs_err=param_err,
+                metric_max_abs_err=metric_err, train_aekl_seconds=aekl_seconds,
+                train_ldm_seconds=ldm_seconds)
+
+
+def phase_stage1_full(tmp: Path) -> dict:
+    """``train_aekl`` through the entry point at aekl_eeg.yaml (batch 2048,
+    bf16) on a synthetic npy tree of 2048 training and 64 validation
+    recordings: one step per epoch, one eval after the last. Counts set to
+    0 before and read after the call; each epoch's seconds (one step, its
+    windows' gather and copy included) come from metrics_train.jsonl."""
+    cfg = stage1_config()
+    cfg.train.n_epochs = cfg.train.val_interval = TRAIN_EPOCHS
+    cfg.train.output_dir = str(tmp / "stage1_full")
+    train_ds, valid_ds = write_split(tmp, "stage1_npy", AEKL_BATCH, VALID_WINDOWS, SEED + 3)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = A.train_aekl(cfg, train_ds, valid_ds, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_stage1_launches(cfg, steps=TRAIN_EPOCHS, eval_batches=1)
+    log = [json.loads(line) for line in
+           (Path(result.run_dir) / "metrics_train.jsonl").read_text().splitlines()]
+    ms = [r["seconds"] * 1e3 for r in log[1:]]
+    if counts != want:
+        raise AssertionError(f"train_aekl launches {counts}, expected {want}")
+    finite = all(np.isfinite(r[k]) for r in log for k in A.METRICS)
+    if len(log) != TRAIN_EPOCHS or not finite or result.stopped_on_nan or not (
+            Path(result.run_dir) / "best_model" / "params.npz").exists():
+        raise AssertionError(f"train_aekl log {log}, best {result.best_loss}")
+    median = statistics.median(ms)
+    out = dict(batch=AEKL_BATCH, log=log, step_ms=ms, median_step_ms=median,
+               windows_per_s=AEKL_BATCH / median * 1e3, peak_bytes=peak, wall_s=wall,
+               launches=counts, best_loss=result.best_loss)
+    say("stage1", batch=AEKL_BATCH, epochs=TRAIN_EPOCHS,
+        g_losses=[f"{r['g_loss']:.4f}" for r in log],
+        recons_losses=[f"{r['recons_loss']:.4f}" for r in log],
+        disc_losses=[f"{r['disc_loss']:.4f}" for r in log], val_l1=f"{result.best_loss:.4f}")
+    say("stage1", median_ms_per_step=f"{median:.2f}", min_ms=f"{min(ms):.2f}",
+        max_ms=f"{max(ms):.2f}", windows_per_s=f"{out['windows_per_s']:.2f}",
+        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts)
+    free_card()
+    return out
+
+
 def phase_timings(paths: dict, checks: dict) -> tuple:
     """Each kernel at each shape of its path, bf16: ms of one launch, times
     its launches in one run of the path, summed. ``ms``, ``plain_ms`` and
@@ -821,7 +1034,8 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
-            reps = 20 if kid in ("K2", "B3") else 50
+            # fewer calls at the stage-1 groups of 50-200 M elements
+            reps = 20 if kid in ("K2", "B3") else 50 if args[0].numel() < 2**26 else 10
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                          library_ms=(spec["library"](*args), ()) if kid == "K3"
                          else (spec["library"], args))
@@ -971,28 +1185,37 @@ def phase_profile() -> dict:
     return out
 
 
+def profile_step(tag: str, step, inputs) -> dict:
+    """One training step under torch.profiler after two warm-up steps:
+    device time by kernel and the busy share."""
+    for _ in range(2):
+        step(*inputs)
+    wall_ms, device_ms, top, n_kernels = device_profile(lambda: step(*inputs), 1)
+    out = dict(step_ms=wall_ms, device_ms_per_step=device_ms, busy_share=device_ms / wall_ms,
+               top=top)
+    say(tag, step_ms=f"{wall_ms:.2f}", device_ms_per_step=f"{device_ms:.2f}",
+        busy_share=f"{out['busy_share']:.3f}", kernels=n_kernels)
+    for row in top[:10]:
+        say(f"{tag}-top", ms_per_step=f"{row['ms_per_run']:.3f}", kernel=row["kernel"][:80])
+    free_card()
+    return out
+
+
 def phase_train_profile() -> dict:
-    """One full-width training step (batch 1024, bf16) under torch.profiler
-    after two warm-up steps: device time by kernel and the busy share."""
+    """A full-width stage-2 training step (batch 1024, bf16), profiled."""
     cfg = flagship_config(steps=1)
     _, ae_sd = seeded_weights(cfg, SEED)
     step, _, sched, latent_shape = full_trainer(cfg, ae_sd)
     x = train_windows(TRAIN_BATCH, SEED)
     gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
-    for _ in range(2):
-        step(x, *inputs)
-    wall_ms, device_ms, top, n_kernels = device_profile(lambda: step(x, *inputs), 1)
-    out = dict(step_ms=wall_ms, device_ms_per_step=device_ms, busy_share=device_ms / wall_ms,
-               top=top)
-    say("profile-train", step_ms=f"{wall_ms:.2f}", device_ms_per_step=f"{device_ms:.2f}",
-        busy_share=f"{out['busy_share']:.3f}", kernels=n_kernels)
-    for row in top[:10]:
-        say("profile-train-top", ms_per_step=f"{row['ms_per_run']:.3f}",
-            kernel=row["kernel"][:80])
-    del step, x
-    free_card()
-    return out
+    return profile_step("profile-train", step, (x, *inputs))
+
+
+def phase_stage1_profile() -> dict:
+    """A full-width stage-1 step (aekl_eeg.yaml, batch 2048, bf16), profiled."""
+    cfg = stage1_config()
+    return profile_step("profile-stage1", stage1_trainer(cfg), stage1_inputs(cfg, SEED))
 
 
 def k2_only(smi: str, build_logs: dict) -> int:
@@ -1017,15 +1240,23 @@ def gn_only(smi: str, build_logs: dict) -> int:
     {"ok": ...} line."""
     with tempfile.TemporaryDirectory() as td:
         shapes, checks = phase_checks(Path(td), only="GN")
-    step = shapes["train_counts"]
+    step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
     rows, per_shape = phase_timings(
         {"K1 sample": ("K1", "DDIM step", shapes["sample"]["K1"], shapes["sample_counts"]["K1"]),
-         "K1 train": ("K1", "train step", shapes["train"]["K1"], step["K1"]),
-         "K3": ("K3", "train step", shapes["train"]["K3"], step["K3"]),
-         "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
+         **training_paths(shapes), "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
     strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
+    strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"], stage1["K3"])
     return write_only_report("gn", smi, build_logs, rows, per_shape, checks,
-                             strided_dy=strided)
+                             strided_dy=strided, strided_dy_stage1=strided_stage1)
+
+
+def training_paths(shapes: dict) -> dict:
+    """phase_timings' rows of K1 and K3 on one training step of each stage."""
+    step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
+    return {"K1 train": ("K1", "train step", shapes["train"]["K1"], step["K1"]),
+            "K1 stage1": ("K1", "stage-1 step", shapes["stage1"]["K1"], stage1["K1"]),
+            "K3 train": ("K3", "train step", shapes["train"]["K3"], step["K3"]),
+            "K3 stage1": ("K3", "stage-1 step", shapes["stage1"]["K3"], stage1["K3"])}
 
 
 def write_only_report(tag: str, smi: str, build_logs: dict, rows, per_shape, checks,
@@ -1059,25 +1290,27 @@ def main(only: str | None = None) -> int:
         cold = phase_cold(tmp)
         tiny_train = phase_tiny_train(tmp)
         train = phase_train_full(tmp)
-    step_counts = shapes["train_counts"]
-    paths = {"K1": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
+        tiny_stage1 = phase_tiny_stage1(tmp)
+        stage1 = phase_stage1_full(tmp)
+    paths = {"K1 sample": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
              "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
-             "K3": ("K3", "train step", shapes["train"]["K3"], step_counts["K3"]),
+             **training_paths(shapes),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
-    train_k1, train_k1_shapes = phase_timings(
-        {"K1": ("K1", "train step", shapes["train"]["K1"], step_counts["K1"])}, checks)
-    strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step_counts["K3"])
+    strided = time_strided_dy(shapes["train"]["K3_strided_dy"], shapes["train_counts"]["K3"])
+    strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"],
+                                     shapes["stage1_counts"]["K3"])
     prof = phase_profile()
     train_prof = phase_train_profile()
+    stage1_prof = phase_stage1_profile()
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
                   full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
-                  eval_relayouts=shapes["evals"],
-                  kernels=rows, train_k1=train_k1, per_shape=per_shape + train_k1_shapes,
-                  strided_dy=strided, profile=prof, train_profile=train_prof,
-                  build_logs=build_logs,
+                  stage1=stage1, tiny_stage1=tiny_stage1, eval_relayouts=shapes["evals"],
+                  kernels=rows, per_shape=per_shape, strided_dy=strided,
+                  strided_dy_stage1=strided_stage1, profile=prof, train_profile=train_prof,
+                  stage1_profile=stage1_prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"

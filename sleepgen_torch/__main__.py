@@ -5,6 +5,7 @@ import sys
 
 COMMANDS = {
     "sample": "sleepgen_torch.cli.sample_trials",
+    "train-aekl": "sleepgen_torch.cli.train_autoencoderkl",
     "train-ldm": "sleepgen_torch.cli.train_ldm",
 }
 

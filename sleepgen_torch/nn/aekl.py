@@ -5,7 +5,8 @@ with the reference configuration: GroupNorm with one group, no attention).
 Submodules carry MONAI's names (``encoder.blocks.1.norm1``,
 ``decoder.blocks.0.conv.weight``, ...), so state dicts of
 ``sleepgen.utils.torch_import.export_aekl_monai`` load with ``strict=True``.
-Every GroupNorm runs kernel K1; the convolutions run ``F.conv1d``.
+Every GroupNorm runs kernel K1 (K3 for its gradient in stage-1 training);
+the convolutions run ``F.conv1d``.
 """
 from __future__ import annotations
 
@@ -173,3 +174,9 @@ class AutoencoderKL(nn.Module):
 
     def decode_stage_2_outputs(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor):
+        """(recon, z_mu, z_sigma) of x through the posterior sample
+        z = z_mu + eps * z_sigma, with eps given (B, latent_channels, L')."""
+        z_mu, z_sigma = self.encode(x)
+        return self.decode(z_mu + eps.to(z_sigma.dtype) * z_sigma), z_mu, z_sigma

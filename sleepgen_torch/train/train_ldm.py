@@ -50,12 +50,10 @@ from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
-from sleepgen_torch.utils.weights import load_numpy_state
+from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state,
+                                          unet_state_to_jax)
 
 TRAIN_STREAM, EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM = 0, 1, 2, 3
-# flax's lecun_normal: a normal truncated at two standard deviations,
-# divided by the truncated normal's own standard deviation.
-TRUNCATED_NORMAL_STD = 0.87962566103423978
 # Layers the reference zero-initialises: each resblock's last conv, each
 # attention output projection and the UNet's output conv.
 ZERO_INIT_SUFFIXES = (".out_layers.3.weight", ".proj_out.weight", "out.2.weight")
@@ -84,25 +82,10 @@ def latent_length(aekl_cfg: Config, length: int) -> int:
 
 
 def init_unet_state(unet: UNet1d, seed: int) -> Dict[str, np.ndarray]:
-    """Initial UNet weights drawn with numpy from ``seed`` in state_dict
-    order, as the JAX package initialises them: kernels lecun-normal
-    (fan_in = every axis but the output one), the reference's zero-init
-    convs zero, biases zero, GroupNorm weights one."""
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for name, p in unet.state_dict().items():
-        shape = tuple(p.shape)
-        if len(shape) < 2:
-            v = np.full(shape, 1.0 if name.endswith("weight") else 0.0)
-        elif name.endswith(ZERO_INIT_SUFFIXES):
-            v = np.zeros(shape)
-        else:
-            v = rng.standard_normal(shape)
-            while (out := np.abs(v) > 2.0).any():
-                v[out] = rng.standard_normal(int(out.sum()))
-            v *= math.sqrt(1.0 / np.prod(shape[1:])) / TRUNCATED_NORMAL_STD
-        sd[name] = v.astype(np.float32)
-    return sd
+    """Initial UNet weights drawn with numpy from ``seed``, as the JAX
+    package initialises them: kernels lecun-normal, the reference's
+    zero-init convs zero, biases zero, GroupNorm weights one."""
+    return lecun_normal_state(unet, seed, ZERO_INIT_SUFFIXES)
 
 
 def posterior_sample(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor) -> torch.Tensor:
@@ -318,7 +301,7 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
             st = state()
             ckpt.save(step, st)
             if improved:
-                ckpt.save_best(model_params(st), scale_factor, cfg)
+                ckpt.save_best(unet_state_to_jax(model_params(st)), cfg, scale_factor=scale_factor)
 
     if stopped_on_nan:  # the final model is the last finite checkpoint, if any
         final = ckpt.restore_latest()
@@ -326,7 +309,8 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
         final = state()
         ckpt.save(step, final)
     if final is not None:
-        ckpt.save_best(model_params(final), final["scale_factor"], cfg, name="final_model")
+        ckpt.save_best(unet_state_to_jax(model_params(final)), cfg, "final_model",
+                       final["scale_factor"])
     logger_t.close()
     logger_v.close()
     return DiffusionTrainResult(str(run_dir), best_loss, last_epoch, scale_factor,

@@ -5,9 +5,10 @@ The port's counterpart of ``sleepgen/utils/checkpoint.py`` (orbax there):
 parameters, Adam state, EMA, best loss, scale factor) as
 ``checkpoints/step_{step:08d}.pt`` with ``torch.save``; ``restore_latest``
 reads the newest. ``save_best`` writes ``best_model/`` or
-``final_model/`` as a port run dir that ``python -m sleepgen_torch sample``
-reads: ``config.yaml``, ``params.npz`` (the UNet in the JAX package's
-flax-tree keys) and ``scale_factor.txt``.
+``final_model/`` as a port run dir: ``config.yaml`` and ``params.npz``
+(the model in the JAX package's flax-tree keys), plus
+``scale_factor.txt`` for an LDM. ``python -m sleepgen_torch sample``
+reads both kinds; ``train-ldm --best_model_path`` reads an AEKL's.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 
 from sleepgen_torch.config import Config
-from sleepgen_torch.utils.weights import save_params_npz, unet_state_to_jax
+from sleepgen_torch.utils.weights import save_params_npz
 
 
 KEEP = 3  # periodic checkpoints kept, as the JAX package keeps
@@ -56,15 +57,18 @@ class CheckpointManager:
         return torch.load(self.dir / f"step_{step:08d}.pt", map_location="cpu",
                           weights_only=True)
 
-    def save_best(self, unet_state: Mapping[str, torch.Tensor], scale_factor: float,
-                  cfg: Config, name: str = "best_model") -> Path:
-        """Write ``run_dir/name`` as a port LDM run dir."""
+    def save_best(self, params: Mapping[str, Any], cfg: Config, name: str = "best_model",
+                  scale_factor: Optional[float] = None) -> Path:
+        """Write ``run_dir/name`` as a port run dir: ``params`` is the
+        model's flax parameter tree (``weights.unet_state_to_jax`` or
+        ``aekl_state_to_jax`` of its state dict); ``scale_factor`` (an
+        LDM's) goes to ``scale_factor.txt`` when given."""
         path = self.run_dir / name
         if path.exists():
             shutil.rmtree(path)
         path.mkdir()
         cfg.to_yaml(path / "config.yaml")
-        save_params_npz(path / "params.npz", unet_state_to_jax(unet_state))
-        (path / "scale_factor.txt").write_text(repr(float(scale_factor)))
+        save_params_npz(path / "params.npz", params)
+        if scale_factor is not None:
+            (path / "scale_factor.txt").write_text(repr(float(scale_factor)))
         return path
-

@@ -3,12 +3,19 @@
 ``unet_state_from_jax`` and ``aekl_state_from_jax`` map a flax parameter
 tree of numpy arrays (as the JAX package's ``UNet1d`` and
 ``AutoencoderKL`` hold them) to the port's ``state_dict`` names, which are
-the reference UNetModel's and MONAI's; ``unet_state_to_jax`` maps a UNet
-back. Conventions: conv kernel
-(k, in, out) -> weight (out, in, k); Dense kernel (in, out) -> weight
-(out, in); GroupNorm scale/bias -> weight/bias; Embed embedding -> weight.
+the reference UNetModel's and MONAI's; ``unet_state_to_jax`` and
+``aekl_state_to_jax`` map them back, so the run dirs the port trains hold
+the JAX package's keys. ``discriminator_state_from_jax`` maps a
+``PatchDiscriminator``'s ``params`` and ``batch_stats``. Conventions: conv
+kernel (k, in, out) -> weight (out, in, k); Dense kernel (in, out) ->
+weight (out, in); GroupNorm and BatchNorm scale/bias -> weight/bias;
+BatchNorm mean/var -> running_mean/running_var; Embed embedding -> weight.
 The tree's structure (levels, resblocks per level, attention) is read
-from its keys.
+from its keys, each model's layout by one walk that both directions use.
+
+``init_unet_state`` (``train/train_ldm.py``), ``init_aekl_state`` and
+``init_discriminator_state`` draw initial weights with numpy with the JAX
+package's initialisers (``lecun_normal_state``).
 
 A JAX run dir becomes a port run dir through a flat ``'/'``-keyed
 ``params.npz`` (``save_params_npz`` / ``load_params_npz``); the export
@@ -16,14 +23,19 @@ recipe is in the README.
 """
 from __future__ import annotations
 
+import math
 import re
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Tree = Mapping[str, Any]
+Layers = Iterator[Tuple[str, str, Tuple[str, ...]]]
+# flax's lecun_normal: a normal truncated at two standard deviations,
+# divided by the truncated normal's own standard deviation.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def _params(tree: Tree) -> Tree:
@@ -54,8 +66,7 @@ def _count(p: Tree, fmt: str) -> int:
     return n
 
 
-def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]
-                 ) -> Iterator[Tuple[str, str, Tuple[str, ...]]]:
+def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Layers:
     """(kind, port prefix, flax path) of every layer of a UNet1d with
     ``levels`` levels and ``nrb`` resblocks per level, in order; kind is
     conv, dense, gn or embed. ``has(flax name, port prefix)`` says whether
@@ -115,45 +126,35 @@ def _node(tree: Tree, path) -> Any:
     return tree
 
 
-def unet_state_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
-    """JAX ``UNet1d`` params -> the port's ``UNet1d`` state_dict (numpy)."""
-    p = _params(tree)
+def _numpy_state(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+            for k, v in state.items()}
 
+
+def _has_node(p: Tree) -> Callable[[str, str], bool]:
     def has(name, _port):
         try:
             _node(p, name.split("/"))
             return True
         except KeyError:
             return False
+    return has
 
+
+def _state_from_tree(p: Tree, layers: Layers) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
     convert = {"conv": _conv, "dense": _dense, "gn": _gn}
-    for kind, port, path in _unet_layers(_count(p, "down_{}_res_0"),
-                                         _count(p, "down_0_res_{}"), has):
+    for kind, port, path in layers:
         if kind == "embed":
-            sd[f"{port}.weight"] = np.asarray(p["label_emb"]["embedding"], np.float32)
+            sd[f"{port}.weight"] = np.asarray(_node(p, path)["embedding"], np.float32)
         else:
             convert[kind](sd, port, _node(p, path))
     return sd
 
 
-def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
-    """The port's ``UNet1d`` state_dict (numpy arrays or tensors) -> the JAX
-    ``UNet1d`` params tree (nested dicts of fp32 numpy arrays), the inverse
-    of ``unet_state_from_jax``: a run dir the port trains samples with
-    either package."""
-    sd = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
-          for k, v in state.items()}
-    ups = {k.split(".")[1] for k in sd
-           if re.fullmatch(r"output_blocks\.\d+\.[12]\.in_layers\.0\.weight", k)}
-    levels = len(ups) + 1
-    nrb = len({k.split(".")[1] for k in sd if k.startswith("output_blocks.")}) // levels - 1
-
-    def has(_name, port):
-        return f"{port}.weight" in sd or f"{port}.qkv.weight" in sd
-
+def _tree_from_state(sd: Mapping[str, np.ndarray], layers: Layers) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for kind, port, path in _unet_layers(levels, nrb, has):
+    for kind, port, path in layers:
         node = tree
         for part in path:
             node = node.setdefault(part, {})
@@ -170,38 +171,107 @@ def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def _aekl_res(sd, prefix, node) -> None:
-    _gn(sd, f"{prefix}.norm1", node["GroupNorm32_0"])
-    _conv(sd, f"{prefix}.conv1.conv", node["conv1"])
-    _gn(sd, f"{prefix}.norm2", node["GroupNorm32_1"])
-    _conv(sd, f"{prefix}.conv2.conv", node["conv2"])
-    if "nin_shortcut" in node:
-        _conv(sd, f"{prefix}.nin_shortcut.conv", node["nin_shortcut"])
+def unet_state_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``UNet1d`` params -> the port's ``UNet1d`` state_dict (numpy)."""
+    p = _params(tree)
+    return _state_from_tree(p, _unet_layers(_count(p, "down_{}_res_0"),
+                                            _count(p, "down_0_res_{}"), _has_node(p)))
+
+
+def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``UNet1d`` state_dict (numpy arrays or tensors) -> the JAX
+    ``UNet1d`` params tree (nested dicts of fp32 numpy arrays), the inverse
+    of ``unet_state_from_jax``: a run dir the port trains samples with
+    either package."""
+    sd = _numpy_state(state)
+    ups = {k.split(".")[1] for k in sd
+           if re.fullmatch(r"output_blocks\.\d+\.[12]\.in_layers\.0\.weight", k)}
+    levels = len(ups) + 1
+    nrb = len({k.split(".")[1] for k in sd if k.startswith("output_blocks.")}) // levels - 1
+
+    def has(_name, port):
+        return f"{port}.weight" in sd or f"{port}.qkv.weight" in sd
+
+    return _tree_from_state(sd, _unet_layers(levels, nrb, has))
+
+
+def _aekl_layers(shape: Callable[[str, str], Tuple[int, int]],
+                 has: Callable[[str, str], bool]) -> Layers:
+    """(kind, port prefix, flax path) of every layer of an AutoencoderKL, in
+    order; kind is conv or gn. ``shape(side, tag)`` gives a column's
+    (levels, resblocks per level); ``has(flax name, port prefix)`` says
+    whether a resblock has its 1x1 shortcut. MONAI's block list: conv_in,
+    the resblocks with a resampling conv between levels, norm_out,
+    conv_out."""
+    for side, tag, resample in (("encoder", "down", "downsample"),
+                                ("decoder", "up", "upsample")):
+        levels, nrb = shape(side, tag)
+        pre = f"{side}.blocks"
+        yield "conv", f"{pre}.0.conv", (side, "conv_in")
+        b = 1
+        for i in range(levels):
+            for j in range(nrb):
+                name, port = f"{tag}_{i}_res_{j}", f"{pre}.{b}"
+                yield "gn", f"{port}.norm1", (side, name, "GroupNorm32_0")
+                yield "conv", f"{port}.conv1.conv", (side, name, "conv1")
+                yield "gn", f"{port}.norm2", (side, name, "GroupNorm32_1")
+                yield "conv", f"{port}.conv2.conv", (side, name, "conv2")
+                if has(f"{side}/{name}/nin_shortcut", f"{port}.nin_shortcut.conv"):
+                    yield "conv", f"{port}.nin_shortcut.conv", (side, name, "nin_shortcut")
+                b += 1
+            if i != levels - 1:
+                yield "conv", f"{pre}.{b}.conv.conv", (side, f"{tag}_{i}_{resample}", "conv")
+                b += 1
+        yield "gn", f"{pre}.{b}", (side, "norm_out")
+        yield "conv", f"{pre}.{b + 1}.conv", (side, "conv_out")
+    for name in ("quant_conv_mu", "quant_conv_log_sigma", "post_quant_conv"):
+        yield "conv", f"{name}.conv", (name,)
 
 
 def aekl_state_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
     """JAX ``AutoencoderKL`` params -> the port's state_dict (numpy)."""
     p = _params(tree)
+
+    def shape(side, tag):
+        return _count(p[side], tag + "_{}_res_0"), _count(p[side], tag + "_0_res_{}")
+
+    return _state_from_tree(p, _aekl_layers(shape, _has_node(p)))
+
+
+def aekl_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``AutoencoderKL`` state_dict (numpy arrays or tensors) ->
+    the JAX ``AutoencoderKL`` params tree, the inverse of
+    ``aekl_state_from_jax``: a stage-1 run dir the port trains is what
+    ``train-ldm --best_model_path`` and ``sample`` read."""
+    sd = _numpy_state(state)
+
+    def shape(side, _tag):
+        def n(pattern):
+            return sum(bool(re.fullmatch(rf"{side}\.blocks\.\d+\.{pattern}\.weight", k))
+                       for k in sd)
+        levels = n(r"conv\.conv") + 1  # a resampling conv between levels
+        return levels, n("norm1") // levels
+
+    def has(_name, port):
+        return f"{port}.weight" in sd
+
+    return _tree_from_state(sd, _aekl_layers(shape, has))
+
+
+def discriminator_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``PatchDiscriminator`` variables (``params`` and ``batch_stats``)
+    -> the port's ``PatchDiscriminator`` state_dict (numpy), the BatchNorm
+    running mean and (biased) variance included."""
+    p, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
-    for side, tag, resample in (("encoder", "down", "downsample"),
-                                ("decoder", "up", "upsample")):
-        col = p[side]
-        levels = _count(col, tag + "_{}_res_0")
-        nrb = _count(col, tag + "_0_res_{}")
-        pre = f"{side}.blocks"
-        _conv(sd, f"{pre}.0.conv", col["conv_in"])
-        b = 1
-        for i in range(levels):
-            for j in range(nrb):
-                _aekl_res(sd, f"{pre}.{b}", col[f"{tag}_{i}_res_{j}"])
-                b += 1
-            if i != levels - 1:
-                _conv(sd, f"{pre}.{b}.conv.conv", col[f"{tag}_{i}_{resample}"]["conv"])
-                b += 1
-        _gn(sd, f"{pre}.{b}", col["norm_out"])
-        _conv(sd, f"{pre}.{b + 1}.conv", col["conv_out"])
-    for name in ("quant_conv_mu", "quant_conv_log_sigma", "post_quant_conv"):
-        _conv(sd, f"{name}.conv", p[name])
+    _conv(sd, "initial_conv", p["initial_conv"])
+    for l in range(_count(p, "layer_{}_conv")):
+        _conv(sd, f"layer_{l}_conv", p[f"layer_{l}_conv"])
+        bn, st = p[f"layer_{l}_bn"], stats[f"layer_{l}_bn"]
+        for port, v in (("weight", bn["scale"]), ("bias", bn["bias"]),
+                        ("running_mean", st["mean"]), ("running_var", st["var"])):
+            sd[f"layer_{l}_bn.{port}"] = np.asarray(v, np.float32)
+    _conv(sd, "final_conv", p["final_conv"])
     return sd
 
 
@@ -254,6 +324,43 @@ def seeded_state_dict(module: torch.nn.Module, seed: int) -> Dict[str, np.ndarra
             v = 0.1 * rng.standard_normal(shape)
         sd[name] = v.astype(np.float32)
     return sd
+
+
+def lecun_normal_state(module: torch.nn.Module, seed: int | Sequence[int],
+                       zero_suffixes: Tuple[str, ...] = ()) -> Dict[str, np.ndarray]:
+    """Initial weights of every entry of ``module``'s state_dict, drawn with
+    numpy from ``seed`` in state_dict order, as the JAX package initialises
+    them: kernels lecun-normal (fan_in = every axis but the output one),
+    zero for names ending in ``zero_suffixes``; 1-D weights (GroupNorm and
+    BatchNorm scales) and BatchNorm running variances one; biases and
+    running means zero."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, p in module.state_dict().items():
+        shape = tuple(p.shape)
+        if len(shape) < 2:
+            v = np.full(shape, 1.0 if name.endswith(("weight", "running_var")) else 0.0)
+        elif name.endswith(zero_suffixes):
+            v = np.zeros(shape)
+        else:
+            v = rng.standard_normal(shape)
+            while (out := np.abs(v) > 2.0).any():
+                v[out] = rng.standard_normal(int(out.sum()))
+            v *= math.sqrt(1.0 / np.prod(shape[1:])) / TRUNCATED_NORMAL_STD
+        sd[name] = v.astype(np.float32)
+    return sd
+
+
+def init_aekl_state(ae: torch.nn.Module, seed: int | Sequence[int]) -> Dict[str, np.ndarray]:
+    """Initial ``AutoencoderKL`` weights (it has no zero-initialised layer)."""
+    return lecun_normal_state(ae, seed)
+
+
+def init_discriminator_state(disc: torch.nn.Module,
+                             seed: int | Sequence[int]) -> Dict[str, np.ndarray]:
+    """Initial ``PatchDiscriminator`` weights and BatchNorm buffers (running
+    mean 0, variance 1, as flax's ``batch_stats`` start)."""
+    return lecun_normal_state(disc, seed)
 
 
 def load_numpy_state(module: torch.nn.Module, state: Mapping[str, np.ndarray]) -> torch.nn.Module:

@@ -58,9 +58,11 @@ def _tiny_models():
     return unet, ae, sampling_schedule(Config())
 
 
-def test_entry_points_default_to_the_gpu():
+def test_entry_points_default_to_the_gpu(tmp_path):
     from sleepgen_torch.config import Config
     from sleepgen_torch.sample.sample_ldm import make_ldm_sampler, sample_ldm_trials
+    from sleepgen_torch.train.train_aekl import train_aekl
+    from sleepgen_torch.train.train_ldm import train_ldm
 
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is valid")
@@ -69,6 +71,13 @@ def test_entry_points_default_to_the_gpu():
         make_ldm_sampler(unet, ae, sched, latent_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_ldm_trials(Config(), {}, {}, 1.0, "unused")
+    cfg = Config()
+    cfg.train.output_dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ldm(cfg, None, None, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_aekl(cfg, None, None)
+    assert not any(tmp_path.iterdir())  # raised before writing a run dir
 
 
 def test_cpu_device_runs_the_plain_versions():
@@ -82,6 +91,26 @@ def test_cpu_device_runs_the_plain_versions():
     assert out.shape == (2, 4 * 32 - 72, 1) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     assert (group_norm.launches, fused_resblock.launches) == before
+
+
+def test_cpu_training_step_runs_the_plain_versions():
+    """One tiny stage-1 step on CPU tensors: every GroupNorm forward and
+    backward runs its plain version, so no kernel launch is counted."""
+    from sleepgen_torch.config import Config
+    from sleepgen_torch.kernels import fused_resblock, group_norm
+    from sleepgen_torch.train import train_aekl as A
+
+    cfg = Config()
+    cfg.aekl.num_channels, cfg.discriminator.num_channels = [2, 2, 4], 4
+    ae, disc, opt_g, opt_d = A.build_trainer(cfg, "cpu")
+    before = (group_norm.launches, group_norm.backward_launches, fused_resblock.launches)
+    metrics = A.make_train_step(ae, disc, opt_g, opt_d, cfg)(torch.rand(2, 1, 64),
+                                                             torch.randn(2, 1, 16))
+    assert set(metrics) == set(A.METRICS)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(p.grad is not None for p in ae.parameters())
+    assert (group_norm.launches, group_norm.backward_launches,
+            fused_resblock.launches) == before
 
 
 def test_kernel_build_names_the_missing_compiler(monkeypatch, tmp_path):
