@@ -52,8 +52,12 @@ line each:
      counts equal those derived from the configuration; finite losses;
   S1. tiny stage-1 trainer: two steps (the G step, then the D step) at
      tiny widths, fp32, Adam at 1e-4 for G and D, on the card and on the
-     CPU from the same weights, batch and eps: losses, parameters and
-     BatchNorm statistics at the model bound; then one ``train_aekl`` run
+     CPU from the same weights, batch and eps: losses at the model bound,
+     each step's gradients within 2e-3 of each leaf's largest, and what
+     the steps changed in the parameters and BatchNorm statistics within
+     1e-2 of each leaf's largest change (parameter entries whose gradient
+     is below 1e-3 of their leaf's largest left out, as Adam's update
+     takes their sign from a rounding); then one ``train_aekl`` run
      on the card that reaches an eval, a checkpoint and
      ``best_model/params.npz``, and one ``train_ldm`` run on that run dir
      (the port's stage 1 into its own stage 2);
@@ -134,6 +138,7 @@ from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models, 
                                               build_unet, sample_ldm_trials,
                                               sampling_schedule)
 from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
+from sleepgen_torch.train import common as C  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,  # noqa: E402
@@ -259,9 +264,9 @@ def stage1_config() -> Config:
 
 def tiny_stage1_config() -> Config:
     """Tiny widths in fp32 (AEKL [4, 4, 8], PatchDiscriminator 3 x 8) with
-    Adam at 1e-4 for G and D: Adam's first update is about lr * sign(g), so
-    the configuration's 5e-3 would turn a gradient sign that rounds
-    differently on the two devices into a 1e-2 gap."""
+    Adam at 1e-4 for G and D: a small first step keeps the second step's
+    gradients on the two devices close, however the first's signs
+    rounded."""
     cfg = tiny_config(steps=4)
     cfg.discriminator.num_channels = 8
     cfg.losses.optimizer_g_lr = cfg.losses.optimizer_d_lr = 1e-4
@@ -543,12 +548,12 @@ def full_trainer(cfg: Config, ae_state):
     unet, ae, sched, opt = T.build_trainer(cfg, ae_state, cfg, "cuda")
     step = T.make_ldm_train_step(unet, ae, sched, opt, 1.0, DTYPES[cfg.dtype])
     evaluate = T.make_ldm_eval_step(unet, ae, sched, DTYPES[cfg.dtype])
-    return step, evaluate, sched, (cfg.aekl.latent_channels, T.latent_length(cfg, 3072))
+    return step, evaluate, sched, (cfg.aekl.latent_channels, C.latent_length(cfg, 3072))
 
 
 def train_windows(n: int, seed: int) -> torch.Tensor:
     ds = WindowDataset.from_raw(make_synthetic_dataset(n, 35.0, seed))
-    return T.windows_to_device(ds.epoch_windows(np.random.default_rng(seed)),
+    return C.windows_to_device(ds.epoch_windows(np.random.default_rng(seed)),
                                torch.device("cuda"))
 
 
@@ -560,7 +565,7 @@ def eval_relayouts(step, step_inputs, evaluate, sched, latent_shape, cfg: Config
     once, the second none; the difference of their seconds (host clock)
     is what an eval, or an in-training sample, pays per weight update."""
     x = train_windows(VALID_WINDOWS, SEED + 2)
-    gen = T.make_generator(cfg.train.seed, "cuda", T.EVAL_STREAM, 0)
+    gen = C.make_generator(cfg.train.seed, "cuda", C.EVAL_STREAM, 0)
     inputs = T.draw_step_inputs(gen, VALID_WINDOWS, latent_shape, sched.num_timesteps)
     per_forward = expected_launches(cfg, 1, 0)["K2"]
     seconds, relayouts = [], []
@@ -596,7 +601,7 @@ def phase_train_step() -> tuple:
     _, ae_sd = seeded_weights(cfg, SEED)
     step, evaluate, sched, latent_shape = full_trainer(cfg, ae_sd)
     x = train_windows(TRAIN_BATCH, SEED)
-    gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
+    gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
     reset_counts()
     loss = step(x, *inputs)
@@ -625,8 +630,8 @@ def stage1_inputs(cfg: Config, seed: int) -> tuple:
     """A full batch of windows in the compute dtype, as train_aekl casts
     them, and the encoder's eps of step 0."""
     x = train_windows(cfg.train.batch_size, seed).to(DTYPES[cfg.dtype])
-    gen = T.make_generator(cfg.train.seed, "cuda", A.AEKL_STREAM, 0)
-    eps = torch.randn((x.shape[0], cfg.aekl.latent_channels, T.latent_length(cfg, x.shape[-1])),
+    gen = C.make_generator(cfg.train.seed, "cuda", C.AEKL_STREAM, 0)
+    eps = torch.randn((x.shape[0], cfg.aekl.latent_channels, C.latent_length(cfg, x.shape[-1])),
                       generator=gen, device="cuda")
     return x, eps
 
@@ -896,49 +901,114 @@ def phase_train_full(tmp: Path) -> dict:
     return out
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that later in-place updates do not reach (on
+    the CPU, ``.numpy()`` alone shares the tensor's storage)."""
+    return t.detach().cpu().numpy().copy()
+
+
 def stage1_state(ae, disc) -> dict:
-    return {**{f"ae.{k}": v.detach().cpu().numpy() for k, v in ae.state_dict().items()},
-            **{f"disc.{k}": v.detach().cpu().numpy() for k, v in disc.state_dict().items()}}
+    return {**{f"ae.{k}": host_copy(v) for k, v in ae.state_dict().items()},
+            **{f"disc.{k}": host_copy(v) for k, v in disc.state_dict().items()}}
+
+
+def tiny_stage1_run(cfg: Config, dev: str, x: np.ndarray, eps: list) -> dict:
+    """Steps of the stage-1 trainer on ``dev`` from ``build_trainer``'s
+    weights, one per eps: each step's metrics and gradients (the AEKL's
+    from the G loss, the discriminator's from the D loss), and the state
+    (parameters and BatchNorm buffers) before and after."""
+    ae, disc, opt_g, opt_d = A.build_trainer(cfg, dev)
+    named = [*((f"ae.{k}", p) for k, p in ae.named_parameters()),
+             *((f"disc.{k}", p) for k, p in disc.named_parameters())]
+    before = stage1_state(ae, disc)
+    step = A.make_train_step(ae, disc, opt_g, opt_d, cfg)
+    metrics, grads = [], []
+    for e in eps:
+        m = step(torch.from_numpy(x).to(dev), torch.from_numpy(e).to(dev))
+        metrics.append({k: float(v) for k, v in m.items()})
+        missing = [k for k, p in named if p.grad is None]
+        if missing:
+            raise AssertionError(f"tiny stage-1 step on {dev}: no gradient for {missing}")
+        grads.append({k: host_copy(p.grad) for k, p in named})
+    return dict(metrics=metrics, grads=grads, before=before, after=stage1_state(ae, disc))
+
+
+def hold_tiny_stage1(got: dict, want: dict) -> dict:
+    """Hold one ``tiny_stage1_run`` (``got``) to another (``want``), from
+    the same weights, batch and eps; raise listing every disagreement.
+
+    - metrics of every step at the model bound (rtol 2e-3 / atol 2e-4);
+    - gradients of every step, each leaf within 2e-3 of its largest |g|
+      (a wrong backward shows here, whatever Adam makes of it);
+    - what the steps changed, new - old, of every parameter and BatchNorm
+      buffer, within 1e-2 of the leaf's largest change, which must not be
+      0. Adam's update is about lr * sign(g): parameter entries whose
+      gradient in any step is below 1e-3 of its leaf's largest are left
+      out, as their sign is a rounding's. A step whose update was left
+      out differs by 1.0 of the largest change; a flipped sign by 2.0.
+
+    Returns the worst ratios and the entries left out."""
+    faults = []
+    for i, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k in A.METRICS:
+            if not abs(gm[k] - wm[k]) <= 2e-4 + 2e-3 * abs(wm[k]):
+                faults.append(f"step {i} {k}: {gm[k]:.6g}, expected {wm[k]:.6g}")
+    grad_ratio = 0.0
+    for i, (gg, wg) in enumerate(zip(got["grads"], want["grads"])):
+        for k, w in wg.items():
+            top, err = float(np.abs(w).max()), float(np.abs(gg[k] - w).max())
+            if not (top > 0 and err <= 2e-3 * top):
+                faults.append(f"step {i} gradient {k}: |err| {err:.3e}, "
+                              f"leaf's largest |g| {top:.3e}")
+            grad_ratio = max(grad_ratio, err / top if top > 0 else np.inf)
+    update_ratio, left_out, entries = 0.0, 0, 0
+    for k, old in want["before"].items():
+        change, mine = want["after"][k] - old, got["after"][k] - old
+        keep = np.ones(old.shape, bool)
+        if k in want["grads"][0]:
+            for g in want["grads"]:
+                keep &= np.abs(g[k]) >= 1e-3 * np.abs(g[k]).max()
+            left_out, entries = left_out + int((~keep).sum()), entries + keep.size
+        top = float(np.abs(change).max())
+        err = float(np.abs(mine - change)[keep].max(initial=0.0))
+        if not (top > 0 and err <= 1e-2 * top):
+            faults.append(f"change of {k}: |err| {err:.3e}, leaf's largest change {top:.3e}")
+        update_ratio = max(update_ratio, err / top if top > 0 else np.inf)
+    if faults:
+        raise AssertionError(f"tiny stage-1 trainer, {len(faults)} disagreements:\n"
+                             + "\n".join(faults))
+    return dict(grad_err_ratio=grad_ratio, update_err_ratio=update_ratio, left_out=left_out,
+                entries=entries)
 
 
 def phase_tiny_stage1(tmp: Path) -> dict:
     """Two stage-1 steps at tiny widths, fp32, on the card (K1, K3) and on
-    the CPU (plain versions) from the same weights, batch and eps; the six
-    metrics, the parameters and the BatchNorm running statistics held at
-    the model bound. Then one train_aekl run on the card that reaches an
-    eval, a checkpoint and best_model/, and one train_ldm run on the card
-    whose frozen AEKL is that best_model/."""
+    the CPU (plain versions) from the same weights, batch and eps, held by
+    ``hold_tiny_stage1``: metrics, gradients, and what the steps changed.
+    Then one train_aekl run on the card that reaches an eval, a checkpoint
+    and best_model/, and one train_ldm run on the card whose frozen AEKL
+    is that best_model/."""
     cfg = tiny_stage1_config()
     rng = np.random.default_rng(SEED + 30)
     b, length = 4, 256
     x = rng.uniform(size=(b, 1, length)).astype(np.float32)
     eps = [rng.standard_normal((b, 1, length // 4)).astype(np.float32) for _ in range(2)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        reset_counts()
-        ae, disc, opt_g, opt_d = A.build_trainer(cfg, dev)
-        step = A.make_train_step(ae, disc, opt_g, opt_d, cfg)
-        metrics = [{k: float(v) for k, v in step(torch.from_numpy(x).to(dev),
-                                                  torch.from_numpy(e).to(dev)).items()}
-                   for e in eps]
-        runs[dev] = metrics, stage1_state(ae, disc), read_counts()
-    (card_m, card_p, counts), (cpu_m, cpu_p, _) = runs["cuda"], runs["cpu"]
+    reset_counts()
+    card = tiny_stage1_run(cfg, "cuda", x, eps)
+    counts = read_counts()
     want = expected_stage1_launches(cfg, steps=2, eval_batches=0)
     if counts != want:
         raise AssertionError(f"tiny stage-1 trainer on the card: launches {counts}, "
                              f"expected {want}")
-    for i, (cm, pm) in enumerate(zip(card_m, cpu_m)):
-        for k in A.METRICS:
-            np.testing.assert_allclose(cm[k], pm[k], rtol=2e-3, atol=2e-4,
-                                       err_msg=f"tiny stage-1 step {i} {k}: card vs CPU")
-    for k in cpu_p:
-        np.testing.assert_allclose(card_p[k], cpu_p[k], rtol=2e-3, atol=2e-4,
-                                   err_msg=f"tiny stage-1 trainer {k}: card vs CPU")
-    param_err = max(float(np.abs(card_p[k] - cpu_p[k]).max()) for k in cpu_p)
-    metric_err = max(abs(cm[k] - pm[k]) for cm, pm in zip(card_m, cpu_m) for k in A.METRICS)
-    say("tiny-stage1", g_losses=[f"{m['g_loss']:.5f}" for m in card_m],
-        metric_max_abs_err=f"{metric_err:.3e}", param_max_abs_err=f"{param_err:.3e}",
-        k1_launches=counts["K1"], k3_launches=counts["K3"])
+    cpu = tiny_stage1_run(cfg, "cpu", x, eps)
+    held = hold_tiny_stage1(card, cpu)
+    metric_err = max(abs(cm[k] - pm[k]) for cm, pm in zip(card["metrics"], cpu["metrics"])
+                     for k in A.METRICS)
+    say("tiny-stage1", g_losses=[f"{m['g_loss']:.5f}" for m in card["metrics"]],
+        metric_max_abs_err=f"{metric_err:.3e}", grad_err_ratio=f"{held['grad_err_ratio']:.3e}",
+        update_err_ratio=f"{held['update_err_ratio']:.3e}",
+        left_out=f"{held['left_out']}/{held['entries']}", k1_launches=counts["K1"],
+        k3_launches=counts["K3"])
 
     cfg.train.n_epochs, cfg.train.batch_size, cfg.train.val_interval = 2, 4, 1
     cfg.train.output_dir = str(tmp / "tiny_stage1")
@@ -966,9 +1036,8 @@ def phase_tiny_stage1(tmp: Path) -> dict:
     say("tiny-stage1", run="train_aekl -> train_ldm", aekl_seconds=f"{aekl_seconds:.2f}",
         aekl_best_loss=f"{result.best_loss:.5f}", ldm_seconds=f"{ldm_seconds:.2f}",
         ldm_best_loss=f"{ldm.best_loss:.5f}", scale_factor=f"{ldm.scale_factor:.4f}")
-    return dict(metrics=card_m, cpu_metrics=cpu_m, param_max_abs_err=param_err,
-                metric_max_abs_err=metric_err, train_aekl_seconds=aekl_seconds,
-                train_ldm_seconds=ldm_seconds)
+    return dict(metrics=card["metrics"], cpu_metrics=cpu["metrics"], metric_max_abs_err=metric_err,
+                **held, train_aekl_seconds=aekl_seconds, train_ldm_seconds=ldm_seconds)
 
 
 def phase_stage1_full(tmp: Path) -> dict:
@@ -1034,8 +1103,8 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, torch.bfloat16, seed=3)
-            # fewer calls at the stage-1 groups of 50-200 M elements
-            reps = 20 if kid in ("K2", "B3") else 50 if args[0].numel() < 2**26 else 10
+            # fewer calls at the stage-1 step's groups of 50-200 M elements
+            reps = 20 if kid in ("K2", "B3") else 10 if path == "stage-1 step" else 50
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                          library_ms=(spec["library"](*args), ()) if kid == "K3"
                          else (spec["library"], args))
@@ -1207,7 +1276,7 @@ def phase_train_profile() -> dict:
     _, ae_sd = seeded_weights(cfg, SEED)
     step, _, sched, latent_shape = full_trainer(cfg, ae_sd)
     x = train_windows(TRAIN_BATCH, SEED)
-    gen = T.make_generator(cfg.train.seed, "cuda", T.TRAIN_STREAM, 0)
+    gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
     return profile_step("profile-train", step, (x, *inputs))
 

@@ -14,20 +14,17 @@ REAL_LABEL = 1.0
 FAKE_LABEL = 0.0
 
 
-def _least_squares(logits: torch.Tensor, target: float, activate: bool) -> torch.Tensor:
-    x = logits.float()
-    if activate:
-        x = F.leaky_relu(x, negative_slope=0.05)
+def _least_squares(logits: torch.Tensor, target: float) -> torch.Tensor:
+    x = F.leaky_relu(logits.float(), negative_slope=0.05)
     return (x - target).square().mean()
 
 
-def generator_adv_loss(logits_fake: torch.Tensor, activate: bool = True) -> torch.Tensor:
+def generator_adv_loss(logits_fake: torch.Tensor) -> torch.Tensor:
     """Generator side: push D(fake) toward the real label."""
-    return _least_squares(logits_fake, REAL_LABEL, activate)
+    return _least_squares(logits_fake, REAL_LABEL)
 
 
-def discriminator_adv_loss(logits_fake: torch.Tensor, logits_real: torch.Tensor,
-                           activate: bool = True) -> torch.Tensor:
+def discriminator_adv_loss(logits_fake: torch.Tensor, logits_real: torch.Tensor) -> torch.Tensor:
     """Discriminator side: 0.5 * (MSE(D(fake), 0) + MSE(D(real), 1))."""
-    return 0.5 * (_least_squares(logits_fake, FAKE_LABEL, activate)
-                  + _least_squares(logits_real, REAL_LABEL, activate))
+    return 0.5 * (_least_squares(logits_fake, FAKE_LABEL)
+                  + _least_squares(logits_real, REAL_LABEL))

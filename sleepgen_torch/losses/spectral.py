@@ -14,16 +14,16 @@ from __future__ import annotations
 import torch
 
 
-def fft_amplitude(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """|FFT(x)| along ``dim`` with ortho normalisation, in fp32."""
-    xf = torch.fft.fft(x.float(), dim=dim, norm="ortho")
+def fft_amplitude(x: torch.Tensor) -> torch.Tensor:
+    """|FFT(x)| along the time axis with ortho normalisation, in fp32."""
+    xf = torch.fft.fft(x.float(), dim=-1, norm="ortho")
     return torch.sqrt(xf.real.square() + xf.imag.square())
 
 
-def jukebox_loss(recon: torch.Tensor, target: torch.Tensor, dim: int = -1,
+def jukebox_loss(recon: torch.Tensor, target: torch.Tensor,
                  reduction: str = "sum") -> torch.Tensor:
     """Spectral L2 between the FFT amplitudes of ``recon`` and ``target``."""
-    sq = (fft_amplitude(target, dim) - fft_amplitude(recon, dim)).square()
+    sq = (fft_amplitude(target) - fft_amplitude(recon)).square()
     if reduction == "sum":
         return sq.sum()
     if reduction == "mean":

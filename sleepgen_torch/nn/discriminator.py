@@ -17,11 +17,12 @@ Two of flax's semantics are kept:
 
 * Convolutions pad as flax's ``"SAME"``: for kernel 3 and stride 2 on an
   even length that is (0, 1), not torch's (1, 1).
-* BatchNorm normalises in fp32 with the batch's statistics in training
-  and returns fp32. Its running mean and *biased* variance move only when
-  the caller asks (``update_stats``), as flax's ``mutable=["batch_stats"]``
-  only counts when the update is kept, and they decay as flax's momentum
-  0.9: ``r = 0.9 r + 0.1 batch``. (torch's ``BatchNorm1d`` would keep the
+* BatchNorm normalises in fp32 with the batch's statistics, as flax's
+  does in training (the only mode the trainer runs), and returns fp32.
+  Its running mean and *biased* variance move only when the caller asks
+  (``update_stats``), as flax's ``mutable=["batch_stats"]`` only counts
+  when the update is kept, and they decay as flax's momentum 0.9:
+  ``r = 0.9 r + 0.1 batch``. (torch's ``BatchNorm1d`` would keep the
   unbiased variance and move in every training pass.)
 """
 from __future__ import annotations
@@ -58,27 +59,24 @@ class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over (B, C, L) (statistics over B and L),
     in fp32: epsilon 1e-5, momentum 0.9, biased running variance."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def __init__(self, channels: int):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = True,
-                update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         x = x.float()
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, training=False, eps=self.eps)
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
-                self.running_mean.lerp_(mean, 1.0 - self.momentum)
-                self.running_var.lerp_(var, 1.0 - self.momentum)
+                self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+                self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
-                            eps=self.eps)
+                            eps=self.EPS)
 
 
 class PatchDiscriminator(nn.Module):
@@ -96,16 +94,15 @@ class PatchDiscriminator(nn.Module):
             ch *= 2
         self.final_conv = SameConv1d(ch, out_channels, k)
 
-    def forward(self, x: torch.Tensor, train: bool = True,
-                update_stats: bool = False) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> List[torch.Tensor]:
         """Every block's output on x (B, C, L), the logits last. BatchNorm
-        uses the batch's statistics when ``train`` (the running ones
-        otherwise) and moves its running ones only when ``update_stats``."""
+        uses the batch's statistics and moves its running ones only when
+        ``update_stats``."""
         h = F.leaky_relu(self.initial_conv(x), 0.2)
         outs = [h]
         for l in range(self.num_layers_d):
             h = getattr(self, f"layer_{l}_conv")(h)
-            h = getattr(self, f"layer_{l}_bn")(h, train, update_stats)
+            h = getattr(self, f"layer_{l}_bn")(h, update_stats)
             h = F.leaky_relu(h, 0.2)
             outs.append(h)
         outs.append(self.final_conv(h))

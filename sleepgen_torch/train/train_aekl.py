@@ -32,8 +32,8 @@ MSEs and BatchNorm run in fp32. On the card every AEKL GroupNorm runs K1
 forward and K3 backward.
 
 Random draws: the encoder's eps of step ``s`` comes from
-``train_ldm.make_generator(seed, device, AEKL_STREAM, s)``, a stream of
-its own; crop offsets come from ``numpy.random.default_rng(seed)`` in the
+``common.make_generator(seed, device, AEKL_STREAM, s)``, a stream of its
+own; crop offsets come from ``numpy.random.default_rng(seed)`` in the
 JAX package's order (training crops unshuffled, validation shuffled).
 """
 from __future__ import annotations
@@ -53,15 +53,14 @@ from sleepgen_torch.losses import (discriminator_adv_loss, generator_adv_loss, j
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.discriminator import PatchDiscriminator
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl
+from sleepgen_torch.train.common import (AEKL_STREAM, latent_length, make_generator,
+                                         windows_to_device)
 from sleepgen_torch.train.evals import masked_epoch_mean
-from sleepgen_torch.train.train_ldm import latent_length, make_generator, windows_to_device
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
-from sleepgen_torch.utils.weights import (aekl_state_to_jax, init_aekl_state,
-                                          init_discriminator_state, load_numpy_state)
+from sleepgen_torch.utils.weights import aekl_state_to_jax, lecun_normal_state, load_numpy_state
 
-AEKL_STREAM = 4  # stage 1's encoder eps, apart from train_ldm's streams 0-3
 METRICS = ("g_loss", "disc_loss", "recons_loss", "kl_loss", "gen_loss", "spec_loss")
 
 
@@ -77,8 +76,8 @@ def build_trainer(cfg: Config, dev: torch.device | str):
     ``cfg.losses``' rates."""
     with torch.device(dev):
         ae, disc = build_models(cfg)
-    load_numpy_state(ae, init_aekl_state(ae, cfg.train.seed))
-    load_numpy_state(disc, init_discriminator_state(disc, [cfg.train.seed, 1]))
+    load_numpy_state(ae, lecun_normal_state(ae, cfg.train.seed))  # no zero-init layer
+    load_numpy_state(disc, lecun_normal_state(disc, [cfg.train.seed, 1]))
     opt_g = torch.optim.Adam(ae.parameters(), lr=cfg.losses.optimizer_g_lr)
     opt_d = torch.optim.Adam(disc.parameters(), lr=cfg.losses.optimizer_d_lr)
     return ae, disc, opt_g, opt_d

@@ -17,16 +17,10 @@ the JAX state does, and computes in ``cfg.dtype`` under
 softmax and the loss in fp32). The frozen AEKL is cast to ``cfg.dtype``
 and runs without autograd.
 
-Random draws: JAX splits one threefry key per step, which torch cannot
-reproduce. The port's map is its own: every draw comes from a
-``torch.Generator`` on the training device, seeded from
-``(cfg.train.seed, stream, ...)`` through numpy's ``SeedSequence``
-(``make_generator``): stream 0 is a training step (by step number; draws
-the encoder's eps, then t, then the noise), 1 an eval batch (by epoch and
-batch), 2 the in-training sample (by epoch; z_T, then one noise per
-step), 3 the scale factor's encoder eps. Crop offsets come from
-``numpy.random.default_rng(cfg.train.seed)`` in the JAX package's order,
-so both packages train on the same windows.
+Random draws come from ``train/common.py``'s streams 0-3 (a training
+step, an eval batch, the in-training sample, the scale factor). Crop
+offsets come from ``numpy.random.default_rng(cfg.train.seed)`` in the JAX
+package's order, so both packages train on the same windows.
 """
 from __future__ import annotations
 
@@ -46,6 +40,9 @@ from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl, build_unet
 from sleepgen_torch.sample.samplers import ddpm_sample_loop
+from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM,
+                                         TRAIN_STREAM, latent_length, make_generator,
+                                         windows_to_device)
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.device import resolve_device
@@ -53,16 +50,9 @@ from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
 from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state,
                                           unet_state_to_jax)
 
-TRAIN_STREAM, EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM = 0, 1, 2, 3
 # Layers the reference zero-initialises: each resblock's last conv, each
 # attention output projection and the UNet's output conv.
 ZERO_INIT_SUFFIXES = (".out_layers.3.weight", ".proj_out.weight", "out.2.weight")
-
-
-def make_generator(seed: int, device: torch.device | str, *stream: int) -> torch.Generator:
-    """A generator on ``device`` seeded from (seed, *stream)."""
-    state = np.random.SeedSequence([seed, *stream]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def make_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSchedule:
@@ -71,14 +61,6 @@ def make_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSched
     d = cfg.diffusion
     return NoiseSchedule.create(d.beta_schedule, d.timesteps, d.linear_start, d.linear_end,
                                 prediction_type=d.prediction_type, device=device)
-
-
-def latent_length(aekl_cfg: Config, length: int) -> int:
-    """Latent length of a window of ``length`` samples: each of the AEKL's
-    downsamplings gives ceil(L / 2)."""
-    for _ in range(len(aekl_cfg.aekl.num_channels) - 1):
-        length = (length + 1) // 2
-    return length
 
 
 def init_unet_state(unet: UNet1d, seed: int) -> Dict[str, np.ndarray]:
@@ -185,11 +167,6 @@ class DiffusionTrainResult:
     last_epoch: int
     scale_factor: float
     stopped_on_nan: bool = False
-
-
-def windows_to_device(batch: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """(B, L, 1) numpy windows -> (B, 1, L) fp32 on ``dev``."""
-    return torch.from_numpy(batch).to(dev).transpose(1, 2).contiguous()
 
 
 def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,

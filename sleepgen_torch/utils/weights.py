@@ -13,9 +13,10 @@ BatchNorm mean/var -> running_mean/running_var; Embed embedding -> weight.
 The tree's structure (levels, resblocks per level, attention) is read
 from its keys, each model's layout by one walk that both directions use.
 
-``init_unet_state`` (``train/train_ldm.py``), ``init_aekl_state`` and
-``init_discriminator_state`` draw initial weights with numpy with the JAX
-package's initialisers (``lecun_normal_state``).
+``lecun_normal_state`` draws initial weights with numpy with the JAX
+package's initialisers: the trainers call it for the AEKL, the
+discriminator (BatchNorm buffers included) and, through
+``init_unet_state`` (``train/train_ldm.py``), the UNet.
 
 A JAX run dir becomes a port run dir through a flat ``'/'``-keyed
 ``params.npz`` (``save_params_npz`` / ``load_params_npz``); the export
@@ -349,18 +350,6 @@ def lecun_normal_state(module: torch.nn.Module, seed: int | Sequence[int],
             v *= math.sqrt(1.0 / np.prod(shape[1:])) / TRUNCATED_NORMAL_STD
         sd[name] = v.astype(np.float32)
     return sd
-
-
-def init_aekl_state(ae: torch.nn.Module, seed: int | Sequence[int]) -> Dict[str, np.ndarray]:
-    """Initial ``AutoencoderKL`` weights (it has no zero-initialised layer)."""
-    return lecun_normal_state(ae, seed)
-
-
-def init_discriminator_state(disc: torch.nn.Module,
-                             seed: int | Sequence[int]) -> Dict[str, np.ndarray]:
-    """Initial ``PatchDiscriminator`` weights and BatchNorm buffers (running
-    mean 0, variance 1, as flax's ``batch_stats`` start)."""
-    return lecun_normal_state(disc, seed)
 
 
 def load_numpy_state(module: torch.nn.Module, state: Mapping[str, np.ndarray]) -> torch.nn.Module:

@@ -160,16 +160,17 @@ LOSS_CASES = {
                     lambda mu, sig, f, r, a, b: losses.kl_gaussian(_bcl(mu), _bcl(sig))),
     "generator_adv": (lambda mu, sig, f, r, a, b: jax_losses.generator_adv_loss(f),
                       lambda mu, sig, f, r, a, b: losses.generator_adv_loss(_bcl(f))),
-    "generator_adv_no_activation": (
-        lambda mu, sig, f, r, a, b: jax_losses.generator_adv_loss(f, activate=False),
-        lambda mu, sig, f, r, a, b: losses.generator_adv_loss(_bcl(f), activate=False)),
+    "generator_adv_bf16_logits": (
+        lambda mu, sig, f, r, a, b: jax_losses.generator_adv_loss(f.astype(jnp.bfloat16)),
+        lambda mu, sig, f, r, a, b: losses.generator_adv_loss(_bcl(f).bfloat16())),
     "discriminator_adv": (
         lambda mu, sig, f, r, a, b: jax_losses.discriminator_adv_loss(f, r),
         lambda mu, sig, f, r, a, b: losses.discriminator_adv_loss(_bcl(f), _bcl(r))),
-    "discriminator_adv_no_activation": (
-        lambda mu, sig, f, r, a, b: jax_losses.discriminator_adv_loss(f, r, activate=False),
-        lambda mu, sig, f, r, a, b: losses.discriminator_adv_loss(_bcl(f), _bcl(r),
-                                                                  activate=False)),
+    "discriminator_adv_bf16_logits": (
+        lambda mu, sig, f, r, a, b: jax_losses.discriminator_adv_loss(f.astype(jnp.bfloat16),
+                                                                      r.astype(jnp.bfloat16)),
+        lambda mu, sig, f, r, a, b: losses.discriminator_adv_loss(_bcl(f).bfloat16(),
+                                                                  _bcl(r).bfloat16())),
     "fft_amplitude": (
         lambda mu, sig, f, r, a, b: jnp.transpose(jax_losses.fft_amplitude(a, axis=-2), (0, 2, 1)),
         lambda mu, sig, f, r, a, b: losses.fft_amplitude(_bcl(a))),
@@ -207,27 +208,26 @@ def test_same_padding_is_flax_same(length, kernel, stride):
     assert same_padding(length, kernel, stride) == tuple(want)
 
 
-@pytest.mark.parametrize("train", [True, False])
-def test_discriminator_matches_jax(setup, train):
-    """Every block's output of one pass and, after a train-mode pass whose
-    statistics update is kept, the running mean and biased variance."""
+# an even length that halves twice to an even one (flax's SAME pads the
+# stride-2 convs (0, 1)), and an odd one (padded (1, 1))
+@pytest.mark.parametrize("length", [200, 201])
+def test_discriminator_matches_jax(setup, length):
+    """Every block's output of a train-mode pass whose statistics update is
+    kept, and the running mean and biased variance after it."""
     s = setup
     variables = {"params": s["params_d"], "batch_stats": s["stats"]}
-    x = s["x"][:, :200]  # an even length that halves twice to an even one
-    if train:
-        outs, mut = jax.jit(lambda v, a: s["disc"].apply(v, a, train=True,
-                                                         mutable=["batch_stats"]))(variables, x)
-    else:
-        outs = jax.jit(lambda v, a: s["disc"].apply(v, a, train=False))(variables, x)
+    x = s["x"][:, :length]
+    outs, mut = jax.jit(lambda v, a: s["disc"].apply(v, a, train=True,
+                                                     mutable=["batch_stats"]))(variables, x)
     _, disc = _port_models(s)
     with torch.no_grad():
-        got = disc(_bcl(x), train=train, update_stats=train)
+        got = disc(_bcl(x), update_stats=True)
     assert len(got) == len(outs) == 5
     for g, w in zip(got, outs):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w).transpose(0, 2, 1), rtol=RTOL,
                                    atol=ATOL)
-    want_stats = _disc_state(s["params_d"], mut["batch_stats"] if train else s["stats"])
+    want_stats = _disc_state(s["params_d"], mut["batch_stats"])
     for k, v in disc.state_dict().items():
         if _is_buffer(k):
             np.testing.assert_allclose(v.numpy(), want_stats[k], rtol=LOSS_RTOL,
@@ -339,8 +339,8 @@ def test_init_matches_jax_initialisers(setup):
     jax_d = _disc_state(s["state"].params_d, s["state"].batch_stats_d)
     _, cfg = _configs(False)
     ae, disc = A.build_models(cfg)
-    for mine, ref in ((weights.init_aekl_state(ae, 0), jax_g),
-                      (weights.init_discriminator_state(disc, [0, 1]), jax_d)):
+    for mine, ref in ((weights.lecun_normal_state(ae, 0), jax_g),
+                      (weights.lecun_normal_state(disc, [0, 1]), jax_d)):
         assert set(mine) == set(ref)
         for k, v in ref.items():
             if v.ndim < 2:
@@ -360,3 +360,63 @@ def test_trainer_builds_from_the_configuration():
     assert disc.layer_2_conv.stride == (1,) and disc.layer_1_conv.stride == (2,)
     assert disc.final_conv.out_channels == 1 and disc.layer_2_bn.weight.shape == (8 * DISC_CH,)
     assert disc.num_layers_d == cfg.discriminator.num_layers_d == 3
+
+
+# -- the smoke's card-vs-CPU hold of the tiny stage-1 trainer ---------------------
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _no_g_update(ae, disc, opt_g, opt_d):
+    opt_g.step = lambda: None
+
+
+def _gradients_scaled(ae, disc, opt_g, opt_d):
+    for p in ae.parameters():  # Adam's update hardly changes: only the gradients show it
+        p.register_hook(lambda g: 1.1 * g)
+
+
+def _no_statistics(ae, disc, opt_g, opt_d):
+    for l in range(disc.num_layers_d):
+        bn = getattr(disc, f"layer_{l}_bn")
+        bn.forward = lambda x, update_stats=False, f=bn.forward: f(x)
+
+
+@pytest.mark.parametrize("fault,caught", [
+    (None, None), (_no_g_update, "change of ae."), (_gradients_scaled, "gradient ae."),
+    (_no_statistics, "change of disc.layer_0_bn.running_")])
+def test_smoke_stage1_hold_catches_a_broken_step(monkeypatch, fault, caught):
+    """``chip_smoke.hold_tiny_stage1``, the smoke's card-vs-CPU check of two
+    tiny stage-1 steps, run here CPU against CPU: it passes two equal runs
+    and fails a run whose G update was left out, whose AEKL gradients are
+    10 % off, or whose BatchNorm statistics never moved."""
+    smoke = _smoke()
+    cfg = smoke.tiny_stage1_config()
+    rng = np.random.default_rng(31)
+    x = rng.uniform(size=(4, 1, 256)).astype(np.float32)
+    eps = [rng.standard_normal((4, 1, 64)).astype(np.float32) for _ in range(2)]
+    want = smoke.tiny_stage1_run(cfg, "cpu", x, eps)
+    if fault is not None:
+        build = smoke.A.build_trainer
+
+        def broken(*a, **kw):
+            parts = build(*a, **kw)
+            fault(*parts)
+            return parts
+
+        monkeypatch.setattr(smoke.A, "build_trainer", broken)
+    got = smoke.tiny_stage1_run(cfg, "cpu", x, eps)
+    if caught is None:
+        held = smoke.hold_tiny_stage1(got, want)
+        assert held["grad_err_ratio"] == held["update_err_ratio"] == 0.0
+        assert 0 < held["left_out"] < 0.05 * held["entries"]
+    else:
+        with pytest.raises(AssertionError, match=caught):
+            smoke.hold_tiny_stage1(got, want)
