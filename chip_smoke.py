@@ -2,9 +2,10 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives three paths: LDM
-sampling, stage-2 LDM training and stage-1 AEKL training. Phases, one
-line each:
+CUDA toolkit: ``python3 chip_smoke.py``. It drives four paths: LDM
+sampling, stage-2 LDM training, stage-1 AEKL training and the evaluation
+(DPM++2M sampling, ``compute-fid``, ``compute-mmds``). Phases, one line
+each:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
@@ -18,7 +19,9 @@ line each:
      none; one full-width stage-1 step at ``aekl_eeg.yaml``'s batch 2048,
      bf16, whose K1 and K3 launches, 26 each, must equal those derived
      from the configuration, K2 none, with the strided dy copies K3's
-     wrapper made); at every one of
+     wrapper made; one ``compute-mmds`` reconstruction batch of 64
+     windows, fp32, whose 26 K1 launches must equal those derived from the
+     configuration); at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
      off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
      the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
@@ -33,6 +36,14 @@ line each:
   4. tiny sampler: 4 DDIM steps plus decode at tiny widths, on the card
      with the kernels against the CPU with the plain versions, same seeds
      and weights, fp32, at the model parity bound (rtol 2e-3 / atol 2e-4);
+  E1. tiny evaluation, card against CPU, same seeds and weights, fp32 with
+     TF32 off: 4 DPM++2M steps plus decode at tiny widths (model bound,
+     launch counts as derived); USleep (depth 12, L 3000, two sets of 8
+     windows, random BatchNorm statistics) bottleneck features at the
+     model bound and the Fréchet distance of the two sets within rtol
+     1e-3; ``ms_ssim_1d`` with the gaussian k 7 and the uniform k 16
+     kernels, and ``filter_band`` for each band, within rtol 1e-4 / atol
+     1e-5;
   5. full width: ``sample_ldm_trials`` at the flagship configuration
      (UNet mc 128 / [1, 2, 4] / attention [8, 4] / G 32 / latent 768 x 1,
      AEKL [32, 32, 64], bf16), batch 64, 200 DDIM steps, seeded random
@@ -67,7 +78,20 @@ line each:
      last: median ms per step after the first (min-max), windows/s, peak
      memory; K1 and K3 launches equal those derived from the
      configuration; finite losses;
-  8. timings: each kernel at each shape of its path in bf16: kernel,
+  E2. full-width evaluation on a synthetic test split of 1024 recordings
+     of 35 s: ``sample_ldm_trials`` at the flagship configuration with
+     DPM++2M-20, batch 64, seeded weights: a warm-up batch, three timed
+     batches (median windows/s, min-max; K1 and K2 launches per batch as
+     derived from the configuration), then seeds 0-1023 in 16 batches as
+     artifacts; ``python -m sleepgen_torch compute-fid`` (USleep depth 12,
+     seeded weights) on those samples against the split, then the
+     test-vs-test floor, each finite and at least -1e-6, with the CLI's
+     seconds and the features/s of ``usleep_fid_features``;
+     ``compute-mmds`` in both modes on a seeded full-width AEKL run dir
+     (``save_params_npz``): 26 K1 launches per reconstruction batch, one
+     TSV row per window (per pair), every score finite, and windows/s;
+  8. timings: each kernel at each shape of its path in bf16 (the
+     reconstruction's K1 in fp32, as it runs): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
      eager (per call in a loop, host cost included where it exceeds the
      device's) and as device time (the same calls
@@ -85,7 +109,8 @@ line each:
 
 The line before the device line at the end is one JSON object with a row
 per kernel and path: launches in one run of the path (K1: a sampler
-batch, a stage-2 and a stage-1 training step; K2: a sampler batch; K3: a
+batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
+reconstruction batch; K2: a sampler batch, a DPM++2M-20 batch; K3: a
 stage-2 and a stage-1 training step; B2, B3: on no path), its error and
 its times (each shape's time times its launches in that run, summed);
 the last line is
@@ -104,15 +129,18 @@ and exits non-zero on any failure.
 
 ``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2:
 phases 1 and 2, the sampler's warm-up call (one DDIM step and the
-decode), one full-width training step of each stage, whose K1 and K3
-launches are checked against the configuration; K1's, K3's and B2's fp32
+decode), one full-width training step of each stage and one
+reconstruction batch, whose K1 and K3 launches are checked against the
+configuration; K1's, K3's and B2's fp32
 and bf16 checks at those shapes and at B2's; the phase-8 timings of K1
-(paths "DDIM step", "train step" and "stage-1 step"), K3 ("train step",
+(paths "DDIM step", "train step", "stage-1 step" and "reconstruction
+batch"), K3 ("train step",
 "stage-1 step") and B2, and of K3's strided-dy copies. Report in
 chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
 """
 from __future__ import annotations
 
+import csv
 import json
 import statistics
 import subprocess
@@ -128,12 +156,20 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from sleepgen_torch.__main__ import main as sleepgen_torch_main  # noqa: E402
+from sleepgen_torch.cli.compute_fid import load_usleep  # noqa: E402
+from sleepgen_torch.cli.compute_mmds import reconstruction_scores  # noqa: E402
 from sleepgen_torch.config import Config  # noqa: E402
 from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
 from sleepgen_torch.data.synthetic import (make_synthetic_dataset, write_ids_csv,  # noqa: E402
                                            write_synthetic_npy_tree)
+from sleepgen_torch.data.transforms import center_crop_valid, to_bcl  # noqa: E402
+from sleepgen_torch.eval.bands import EEG_BANDS, filter_band  # noqa: E402
+from sleepgen_torch.eval.fid import frechet_distance, usleep_fid_features  # noqa: E402
+from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
 from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.nn.usleep import USleep  # noqa: E402
 from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models,  # noqa: E402
                                               build_unet, sample_ldm_trials,
                                               sampling_schedule)
@@ -141,8 +177,9 @@ from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
 from sleepgen_torch.train import common as C  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
-from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,  # noqa: E402
-                                          load_params_npz, seeded_state_dict)
+from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
+                                          lecun_normal_state, load_numpy_state,
+                                          load_params_npz, save_params_npz, seeded_state_dict)
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
 # fp32 CUDA-core operations/s.
@@ -159,6 +196,8 @@ TRAIN_EPOCHS = 7  # one step each; the first is not timed
 VALID_WINDOWS = 64
 AEKL_CONFIG = ROOT / "sleepgen" / "configs" / "aekl_eeg.yaml"  # read as YAML
 AEKL_BATCH = 2048  # aekl_eeg.yaml
+DPM_STEPS = 20  # the JAX package's fast path, sleepgen/cli/sample_trials.py:22-24
+EVAL_WINDOWS = 1024  # E2's test split, and the samples scored against it
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -664,10 +703,47 @@ def phase_stage1_step() -> tuple:
     return counts, shapes
 
 
+def recon_launches(cfg: Config, batches: int) -> dict:
+    """K1 launches of ``compute-mmds``'s reconstruction: every GroupNorm of
+    the AEKL's encoder and decoder per batch; no K2, no K3."""
+    return {"K1": batches * 2 * gn_counts(cfg)["coder_gn"], "K2": 0, "K3": 0}
+
+
+def eval_aekl(cfg: Config, ae_state) -> torch.nn.Module:
+    """The AEKL as ``compute-mmds`` builds it: fp32, on the card, eval mode."""
+    with torch.device("cuda"):
+        return load_numpy_state(build_aekl(cfg), ae_state).eval()
+
+
+def phase_recon_batch() -> tuple:
+    """One ``compute-mmds`` reconstruction batch at full width (AEKL [32,
+    32, 64], batch 64, fp32) with the counts set to 0 before and read
+    after: 26 K1 launches as derived from the configuration, every score
+    finite. Returns the counts and K1's shapes."""
+    cfg = flagship_config(steps=1)
+    _, ae_sd = seeded_weights(cfg, SEED)
+    ae = eval_aekl(cfg, ae_sd)
+    ds = WindowDataset.from_raw(make_synthetic_dataset(BATCH, 35.0, SEED + 6))
+    windows = ds.epoch_windows(np.random.default_rng(SEED))
+    reset_counts()
+    scores = reconstruction_scores(ae, windows, BATCH, torch.device("cuda"))
+    counts, shapes = read_counts(), read_shapes()
+    want = recon_launches(cfg, batches=1)
+    if counts != want or scores.shape != (BATCH,) or not np.isfinite(scores).all():
+        raise AssertionError(f"reconstruction batch: launches {counts}, expected {want}, "
+                             f"scores {scores.shape}")
+    say("recon-batch", batch=BATCH, k1_launches=counts["K1"], k1_shapes=len(shapes["K1"]),
+        mean_ms_ssim=f"{scores.mean():.5f}")
+    del ae
+    free_card()
+    return counts, shapes
+
+
 def phase_checks(tmp: Path, only: str | None = None) -> tuple:
-    """The sampler's warm-up DDIM step and one training step of each stage
-    record the shapes each kernel gets on each path (the counts of the
-    warm-up are discarded), then every kernel is checked at every shape,
+    """The sampler's warm-up DDIM step, one training step of each stage and
+    one reconstruction batch record the shapes each kernel gets on each
+    path (the counts of the warm-up are discarded), then every kernel is
+    checked at every shape,
     and B2 and B3 at theirs. The warm-up
     also pays the process's one-time costs (cuDNN plans, the import of
     scipy.signal for the PSD's tapers, which takes seconds), so phase 5
@@ -691,10 +767,13 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     if only == "K2":
         train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
         stage1_counts, stage1_shapes = {}, {"K1": {}, "K3": {}}
+        recon_counts, recon_shapes = {}, {"K1": {}}
     else:
         train_counts, train_shapes, evals = phase_train_step()
         stage1_counts, stage1_shapes = phase_stage1_step()
-    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **stage1_shapes["K1"]},
+        recon_counts, recon_shapes = phase_recon_batch()
+    to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **stage1_shapes["K1"],
+                       **recon_shapes["K1"]},
                 "K2": sample_shapes["K2"],
                 "K3": {**train_shapes["K3"], **stage1_shapes["K3"]},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
@@ -711,7 +790,8 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     reset_counts()
     return dict(sample=sample_shapes, sample_counts=sample_counts, train=train_shapes,
                 train_counts=train_counts, evals=evals, stage1=stage1_shapes,
-                stage1_counts=stage1_counts), results
+                stage1_counts=stage1_counts, recon=recon_shapes,
+                recon_counts=recon_counts), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -1084,6 +1164,210 @@ def phase_stage1_full(tmp: Path) -> dict:
     return out
 
 
+def usleep_state(seed: int) -> dict:
+    """Weights of the FID extractor for E1: the JAX package's initialisers
+    (``lecun_normal_state``), then running means N(0, 0.1^2) and variances
+    U(0.5, 1.5), so that no BatchNorm is the identity."""
+    with torch.device("meta"):
+        sd = lecun_normal_state(USleep(), seed)
+    rng = np.random.default_rng(seed)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            sd[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith("running_var"):
+            sd[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    return sd
+
+
+def hold(name: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs error of got (card) against want (CPU), raising past the bound."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=f"E1 {name}: card vs CPU")
+    return float(np.abs(got - want).max())
+
+
+def phase_tiny_eval(tmp: Path) -> dict:
+    """E1: the evaluation path at small sizes on the card against the CPU,
+    same seeds and weights, fp32 with TF32 off in cuDNN and matmuls:
+    DPM++2M (4 steps) plus decode at tiny widths; USleep's features of two
+    sets of 8 windows and their Fréchet distance; MS-SSIM with both
+    kernels; the three band filters."""
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            cfg = tiny_config(steps=4)
+            cfg.diffusion.sampler = "dpm++2m"
+            unet_sd, ae_sd = seeded_weights(cfg, SEED + 40)
+            kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
+            reset_counts()
+            card = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "e1_card", device="cuda", **kw)
+            counts = read_counts()
+            cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "e1_cpu", device="cpu", **kw)
+            want = expected_launches(cfg, unet_forwards=4, decodes=1)
+            if counts != {**want, "K3": 0}:
+                raise AssertionError(f"tiny DPM++2M sampler launches {counts}, expected {want}")
+            errs["dpm"] = hold("DPM++2M-4 + decode", card, cpu, 2e-3, 2e-4)
+
+            rng = np.random.default_rng(SEED + 41)
+            sets = rng.uniform(size=(2, 8, 1, 3000)).astype(np.float32)
+            sd = usleep_state(SEED + 42)
+            feats = {}
+            for dev in ("cuda", "cpu"):
+                usleep = load_numpy_state(USleep(), sd)
+                feats[dev] = [usleep_fid_features(usleep, w, 8, dev) for w in sets]
+            errs["usleep"] = hold("USleep features", feats["cuda"], feats["cpu"], 2e-3, 2e-4)
+            fids = {dev: frechet_distance(*f) for dev, f in feats.items()}
+            errs["fid"] = hold("Frechet distance", fids["cuda"], fids["cpu"], 1e-3, 0.0)
+
+            x = torch.from_numpy(sets[0])
+            y = torch.from_numpy(np.clip(sets[0] + 0.1 * rng.standard_normal(sets[0].shape),
+                                         0, 1).astype(np.float32))
+            for kernel_type, k in (("gaussian", 7), ("uniform", 16)):
+                got = ms_ssim_1d(x.cuda(), y.cuda(), kernel_size=k, kernel_type=kernel_type)
+                ref = ms_ssim_1d(x, y, kernel_size=k, kernel_type=kernel_type)
+                errs[f"ms_ssim_{kernel_type}"] = hold(f"ms_ssim_1d {kernel_type} k {k}",
+                                                      got.cpu(), ref, 1e-4, 1e-5)
+            for band in EEG_BANDS:
+                errs[f"band_{band}"] = hold(f"filter_band {band}", filter_band(x.cuda(), band).cpu(),
+                                            filter_band(x, band), 1e-4, 1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    say("tiny-eval", fid_card=f"{fids['cuda']:.6f}", fid_cpu=f"{fids['cpu']:.6f}",
+        k1_launches=counts["K1"], k2_launches=counts["K2"],
+        **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()})
+    free_card()
+    return dict(max_abs_err=errs, fid_card=fids["cuda"], fid_cpu=fids["cpu"], launches=counts)
+
+
+def run_cli(*argv) -> float:
+    """``python -m sleepgen_torch <argv>`` in this process (so its kernel
+    launches are counted here): the umbrella's ``main`` with ``sys.argv``
+    set, then restored."""
+    saved = sys.argv
+    sys.argv = ["sleepgen_torch", *argv]
+    try:
+        return sleepgen_torch_main()
+    finally:
+        sys.argv = saved
+
+
+def read_tsv(path: Path) -> tuple:
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh, delimiter="\t"))
+    return rows[0], np.array([float(r[1]) for r in rows[1:]])
+
+
+def timed(fn, *args):
+    """(result, seconds on the host clock) of fn(*args), the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_eval_full(tmp: Path) -> dict:
+    """E2: the evaluation at full width on a synthetic test split of 1024
+    recordings of 35 s. DPM++2M-20 sampling through ``sample_ldm_trials``
+    at the flagship configuration (batch 64, bf16, seeded weights): a
+    warm-up batch, three timed batches with their launch counts, then
+    seeds 0-1023 as artifacts; ``compute-fid`` on them and the floor;
+    ``compute-mmds`` in both modes on a seeded full-width AEKL run dir."""
+    cfg = flagship_config(steps=DPM_STEPS)
+    cfg.diffusion.sampler = "dpm++2m"
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    npy, ids = tmp / "eval_npy", tmp / "eval_test.csv"
+    write_ids_csv(ids, write_synthetic_npy_tree(npy, n_subjects=EVAL_WINDOWS // 2,
+                                                duration_s=35.0, seed=SEED + 5))
+    want = {**expected_launches(cfg, unet_forwards=DPM_STEPS, decodes=1), "K3": 0}
+    batches = EVAL_WINDOWS // BATCH
+    sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "dpm_warmup", 0, BATCH, BATCH)
+    seconds = []
+    for i in range(TIMED_BATCHES):
+        reset_counts()
+        out, sec = timed(sample_ldm_trials, cfg, unet_sd, ae_sd, 1.0, tmp / "dpm_timed",
+                         i * BATCH, (i + 1) * BATCH, BATCH)
+        seconds.append(sec)
+        launches, shapes = read_counts(), read_shapes()
+        if out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"DPM++2M batch {i}: output {out.shape}")
+        if launches != want:
+            raise AssertionError(f"DPM++2M batch {i}: launches {launches}, expected {want}")
+        say("dpm", batch=i, seconds=f"{sec:.3f}", k1_launches=launches["K1"],
+            k2_launches=launches["K2"], out_std=f"{out.std():.4f}")
+    median = statistics.median(seconds)
+    say("dpm", steps=DPM_STEPS, batches=TIMED_BATCHES, median_seconds=f"{median:.3f}",
+        min_seconds=f"{min(seconds):.3f}", max_seconds=f"{max(seconds):.3f}",
+        windows_per_s=f"{BATCH / median:.3f}",
+        windows_per_s_min_max=f"{BATCH / max(seconds):.3f}-{BATCH / min(seconds):.3f}")
+    samples = tmp / "dpm_samples"
+    reset_counts()
+    _, all_seconds = timed(sample_ldm_trials, cfg, unet_sd, ae_sd, 1.0, samples, 0,
+                           EVAL_WINDOWS, BATCH)
+    if read_counts() != {k: v * batches for k, v in want.items()} or len(
+            list(samples.glob("sample_*.npy"))) != EVAL_WINDOWS:
+        raise AssertionError(f"DPM++2M seeds 0-{EVAL_WINDOWS - 1}: launches {read_counts()}")
+    say("dpm", seeds=EVAL_WINDOWS, seconds=f"{all_seconds:.3f}",
+        windows_per_s=f"{EVAL_WINDOWS / all_seconds:.3f}")
+
+    data = ["--path_test_ids", str(ids), "--path_pre_processed", str(npy)]
+    fid, fid_s = timed(run_cli, "compute-fid", *data, "--sample_dir", str(samples))
+    floor, floor_s = timed(run_cli, "compute-fid", *data)
+    if not all(np.isfinite(v) and v >= -1e-6 for v in (fid, floor)):
+        raise AssertionError(f"compute-fid: FID {fid}, floor {floor}")
+    usleep = load_usleep(seed=2)
+    windows = to_bcl(center_crop_valid(load_split(ids, npy).epoch_windows(
+        np.random.default_rng(2))))
+    usleep_fid_features(usleep, windows, 256, "cuda")
+    feat_s = [timed(usleep_fid_features, usleep, windows, 256, "cuda")[1] for _ in range(3)]
+    features_per_s = EVAL_WINDOWS / statistics.median(feat_s)
+    say("fid", fid=f"{fid:.6f}", floor=f"{floor:.6f}", cli_seconds=f"{fid_s:.3f}",
+        floor_cli_seconds=f"{floor_s:.3f}", features_per_s=f"{features_per_s:.1f}",
+        features_s_min_max=f"{min(feat_s):.4f}-{max(feat_s):.4f}")
+    del usleep
+
+    run = tmp / "eval_aekl"
+    run.mkdir()
+    cfg.to_yaml(run / "config.yaml")
+    save_params_npz(run / "params.npz", {"params": aekl_state_to_jax(ae_sd)})
+    out = tmp / "eval_mmds"
+    reset_counts()
+    recon_mean, recon_s = timed(run_cli, "compute-mmds", "--best_model_path", str(run), *data,
+                                "--output_dir", str(out), "--batch_size", str(BATCH))
+    counts = read_counts()
+    if counts != recon_launches(cfg, batches=batches):
+        raise AssertionError(f"compute-mmds reconstruction: launches {counts}")
+    pairs_mean, pairs_s = timed(run_cli, "compute-mmds", "--best_model_path", str(run), *data,
+                                "--output_dir", str(out), "--mode", "test_pairs")
+    for name, rows in ((f"ms_ssim_reconstruction_edfx_no-spectral_{cfg.aekl.latent_channels}.tsv",
+                        EVAL_WINDOWS), ("ms_ssim_test_pairs_edfx.tsv", EVAL_WINDOWS - 1)):
+        header, scores = read_tsv(out / name)
+        if len(scores) != rows or not np.isfinite(scores).all():
+            raise AssertionError(f"{name}: {len(scores)} rows, expected {rows}, header {header}")
+    ae = eval_aekl(cfg, ae_sd)
+    windows = load_split(ids, npy).epoch_windows(np.random.default_rng(cfg.train.seed))
+    recon_s_all = [timed(reconstruction_scores, ae, windows, BATCH, torch.device("cuda"))[1]
+                   for _ in range(3)]
+    recon_per_s = EVAL_WINDOWS / statistics.median(recon_s_all)
+    say("mmds", reconstruction_mean=f"{recon_mean:.6f}", pairs_mean=f"{pairs_mean:.6f}",
+        k1_launches_per_batch=counts["K1"] // batches,
+        cli_seconds=f"{recon_s:.3f}", pairs_cli_seconds=f"{pairs_s:.3f}",
+        windows_per_s=f"{recon_per_s:.1f}",
+        seconds_min_max=f"{min(recon_s_all):.4f}-{max(recon_s_all):.4f}")
+    del ae
+    free_card()
+    return dict(dpm=dict(steps=DPM_STEPS, seconds=seconds, median_seconds=median,
+                         windows_per_s=BATCH / median, launches=launches, shapes=shapes,
+                         all_seconds=all_seconds),
+                fid=dict(fid=fid, floor=floor, cli_seconds=fid_s, floor_cli_seconds=floor_s,
+                         feature_seconds=feat_s, features_per_s=features_per_s),
+                mmds=dict(reconstruction_mean=recon_mean, pairs_mean=pairs_mean,
+                          cli_seconds=recon_s, pairs_cli_seconds=pairs_s,
+                          launches=counts, seconds=recon_s_all, windows_per_s=recon_per_s))
+
+
 def phase_timings(paths: dict, checks: dict) -> tuple:
     """Each kernel at each shape of its path, bf16: ms of one launch, times
     its launches in one run of the path, summed. ``ms``, ``plain_ms`` and
@@ -1092,9 +1376,11 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     same calls' device time from a CUDA graph (for K3's library, an
     autograd backward, the graph holds the aten ops it runs,
     ``k3_library_ops``). ``paths`` maps a row to (kernel id, path name,
-    {shape: launches in the run}, launches)."""
+    {shape: launches in the run}, launches[, dtype]): a dtype other than
+    bf16 (the reconstruction's fp32) is timed and bounded in it."""
     rows, per_shape = [], []
-    for kid, path, shapes, launches in paths.values():
+    for kid, path, shapes, launches, *dtype in paths.values():
+        dtype = dtype[0] if dtype else torch.bfloat16
         spec = KERNELS[kid]
         names = ("ms", "plain_ms", "library_ms", "graph_ms", "plain_graph_ms",
                  "library_graph_ms", "bound_ms")
@@ -1102,7 +1388,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         relayout = dict(relayout_ms=0.0, relayout_graph_ms=0.0)
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
-            args = spec["inputs"](key, torch.bfloat16, seed=3)
+            args = spec["inputs"](key, dtype, seed=3)
             # fewer calls at the stage-1 step's groups of 50-200 M elements
             reps = 20 if kid in ("K2", "B3") else 10 if path == "stage-1 step" else 50
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
@@ -1114,7 +1400,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                     fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
             if kid == "K3":  # autograd cannot be captured: its aten ops can
                 t["library_graph_ms"] = time_ms(k3_library_ops(*args), (), reps)[1]
-            t["bound_ms"], kind = spec["bound"](key, torch.bfloat16)
+            t["bound_ms"], kind = spec["bound"](key, dtype)
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] = None if tot[k] is None or t[k] is None else tot[k] + t[k] * count
@@ -1135,10 +1421,10 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 kernel_ms_per_run=f"{tot['ms']:.4f}",
                 kernel_graph_ms_per_run=f"{tot['graph_ms']:.4f}")
         errs = checks[kid].values()
+        err_key = "fp32_max_abs_err" if dtype == torch.float32 else "bf16_max_abs_err"
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],
-            path=path, launches=launches,
-            max_abs_err=max(r["bf16_max_abs_err"] for r in errs),
+            path=path, launches=launches, max_abs_err=max(r[err_key] for r in errs),
             bound_by="operations" if "operations" in bound_kinds else "bytes", **tot))
     return rows, per_shape
 
@@ -1301,10 +1587,11 @@ def k2_only(smi: str, build_logs: dict) -> int:
 
 def gn_only(smi: str, build_logs: dict) -> int:
     """``--only GN``: the sampler's warm-up call (one DDIM step and the
-    decode) and one training step record K1's and K3's shapes and
-    launches, each count checked against the configuration; K1's, K3's and
-    B2's checks; then their timings: K1 per DDIM step (the warm-up call's
-    measured launches, decode included) and per training step, K3 per
+    decode), one training step of each stage and one reconstruction batch
+    record K1's and K3's shapes and launches, each count checked against
+    the configuration; K1's, K3's and B2's checks; then their timings: K1
+    per DDIM step (the warm-up call's measured launches, decode included),
+    per training step and per reconstruction batch, K3 per
     training step, B2; and the cost of K3's strided-dy copies per step; no
     {"ok": ...} line."""
     with tempfile.TemporaryDirectory() as td:
@@ -1312,7 +1599,8 @@ def gn_only(smi: str, build_logs: dict) -> int:
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
     rows, per_shape = phase_timings(
         {"K1 sample": ("K1", "DDIM step", shapes["sample"]["K1"], shapes["sample_counts"]["K1"]),
-         **training_paths(shapes), "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
+         **training_paths(shapes), **recon_path(shapes),
+         "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
     strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
     strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"], stage1["K3"])
     return write_only_report("gn", smi, build_logs, rows, per_shape, checks,
@@ -1326,6 +1614,12 @@ def training_paths(shapes: dict) -> dict:
             "K1 stage1": ("K1", "stage-1 step", shapes["stage1"]["K1"], stage1["K1"]),
             "K3 train": ("K3", "train step", shapes["train"]["K3"], step["K3"]),
             "K3 stage1": ("K3", "stage-1 step", shapes["stage1"]["K3"], stage1["K3"])}
+
+
+def recon_path(shapes: dict) -> dict:
+    """phase_timings' row of K1 on one reconstruction batch, in fp32."""
+    return {"K1 recon": ("K1", "reconstruction batch", shapes["recon"]["K1"],
+                         shapes["recon_counts"]["K1"], torch.float32)}
 
 
 def write_only_report(tag: str, smi: str, build_logs: dict, rows, per_shape, checks,
@@ -1355,15 +1649,21 @@ def main(only: str | None = None) -> int:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
         phase_tiny(tmp)
+        tiny_eval = phase_tiny_eval(tmp)
         full = phase_full(tmp)
         cold = phase_cold(tmp)
         tiny_train = phase_tiny_train(tmp)
         train = phase_train_full(tmp)
         tiny_stage1 = phase_tiny_stage1(tmp)
         stage1 = phase_stage1_full(tmp)
+        evals = phase_eval_full(tmp)
+    dpm = evals["dpm"]
     paths = {"K1 sample": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
              "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
              **training_paths(shapes),
+             "K1 dpm": ("K1", "DPM++2M-20 batch", dpm["shapes"]["K1"], dpm["launches"]["K1"]),
+             "K2 dpm": ("K2", "DPM++2M-20 batch", dpm["shapes"]["K2"], dpm["launches"]["K2"]),
+             **recon_path(shapes),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -1377,6 +1677,8 @@ def main(only: str | None = None) -> int:
                   full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
                   stage1=stage1, tiny_stage1=tiny_stage1, eval_relayouts=shapes["evals"],
+                  tiny_eval=tiny_eval, eval_full={k: v for k, v in evals.items() if k != "dpm"},
+                  dpm={k: v for k, v in dpm.items() if k != "shapes"},
                   kernels=rows, per_shape=per_shape, strided_dy=strided,
                   strided_dy_stage1=strided_stage1, profile=prof, train_profile=train_prof,
                   stage1_profile=stage1_prof, build_logs=build_logs,

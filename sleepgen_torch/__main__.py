@@ -5,6 +5,8 @@ import sys
 
 COMMANDS = {
     "sample": "sleepgen_torch.cli.sample_trials",
+    "compute-fid": "sleepgen_torch.cli.compute_fid",
+    "compute-mmds": "sleepgen_torch.cli.compute_mmds",
     "train-aekl": "sleepgen_torch.cli.train_autoencoderkl",
     "train-ldm": "sleepgen_torch.cli.train_ldm",
 }

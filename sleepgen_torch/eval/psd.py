@@ -1,10 +1,15 @@
-"""DPSS multitaper power spectral density, the PSD of the sample artifacts.
+"""Power spectral densities of the sample artifacts, on the host in float64 numpy.
 
-Counterpart of ``sleepgen/eval/psd.py::multitaper_psd`` (MNE
-``psd_array_multitaper`` defaults: half-bandwidth 4, low-bias taper
-selection at eigenvalue > 0.9, non-adaptive eigenvalue weights, DC
-removal, 'length' normalisation), on the host in float64 numpy with
-scipy's DPSS tapers.
+Counterpart of ``sleepgen/eval/psd.py``:
+
+* ``multitaper_psd``: MNE ``psd_array_multitaper`` defaults (half-bandwidth
+  4, low-bias taper selection at eigenvalue > 0.9, non-adaptive eigenvalue
+  weights, DC removal, 'length' normalisation) with scipy's DPSS tapers;
+  the reference's artifact PSD.
+* ``welch_psd``: a Hamming / 256 / 50 % Welch periodogram (scipy's
+  defaults), density scaling, for the PSD health metrics.
+
+The ``*_db`` helpers give 10 log10 of the PSD, floored at 1e-30, in fp32.
 """
 from __future__ import annotations
 
@@ -54,10 +59,46 @@ def multitaper_psd(x: np.ndarray, sfreq: float = float(SFREQ), fmin: float = 0.0
     return psd[..., lo:hi], freqs[lo:hi]
 
 
+def welch_psd(x: np.ndarray, sfreq: float = float(SFREQ), nperseg: int = 256,
+              noverlap: int = 128, fmax: float | None = None) -> Tuple[np.ndarray, np.ndarray]:
+    """x (..., T) -> (psd (..., F), freqs (F,)) in V^2/Hz: segments of
+    ``nperseg`` samples every ``nperseg - noverlap``, each less its mean
+    and times a periodic Hamming window (scipy's ``get_window``, not
+    numpy's symmetric one); the one-sided spectrum doubles every bin but DC
+    and, for an even ``nperseg``, Nyquist; frequencies up to ``fmax``
+    inclusive."""
+    x = np.asarray(x, np.float64)
+    nperseg = min(nperseg, x.shape[-1])
+    noverlap = min(noverlap, nperseg - 1)
+    step = nperseg - noverlap
+    n_segments = (x.shape[-1] - noverlap) // step
+    idx = np.arange(nperseg)[None, :] + step * np.arange(n_segments)[:, None]
+    win = 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(nperseg) / nperseg)
+    segs = x[..., idx]  # (..., n_segments, nperseg)
+    spec = np.fft.rfft((segs - segs.mean(axis=-1, keepdims=True)) * win, axis=-1)
+    p = (spec.real**2 + spec.imag**2) / (sfreq * np.sum(win**2))
+    p[..., 1:-1 if nperseg % 2 == 0 else None] *= 2.0
+    psd = p.mean(axis=-2)
+    freqs = np.fft.rfftfreq(nperseg, d=1.0 / sfreq)
+    if fmax is not None:
+        keep = int(np.searchsorted(freqs, fmax, side="right"))
+        psd, freqs = psd[..., :keep], freqs[:keep]
+    return psd, freqs
+
+
+def _db(psd: np.ndarray, freqs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    psd_db = 10.0 * np.log10(np.maximum(psd, 1e-30))
+    return psd_db.astype(np.float32), freqs.astype(np.float32)
+
+
+def welch_psd_db(x: np.ndarray, sfreq: float = float(SFREQ),
+                 fmax: float = 18.0) -> Tuple[np.ndarray, np.ndarray]:
+    """dB Welch PSD, fp32."""
+    return _db(*welch_psd(x, sfreq=sfreq, fmax=fmax))
+
+
 def multitaper_psd_db(x: np.ndarray, sfreq: float = float(SFREQ),
                       fmax: float = 18.0) -> Tuple[np.ndarray, np.ndarray]:
     """dB multitaper PSD (10 log10, floored at 1e-30), float32 like the
     JAX package's artifacts."""
-    psd, freqs = multitaper_psd(x, sfreq=sfreq, fmax=fmax)
-    psd_db = 10.0 * np.log10(np.maximum(psd, 1e-30))
-    return psd_db.astype(np.float32), freqs.astype(np.float32)
+    return _db(*multitaper_psd(x, sfreq=sfreq, fmax=fmax))

@@ -1,12 +1,12 @@
 """LDM sampling with the reference's artifact contract.
 
-Counterpart of ``sleepgen/sample/sample_ldm.py`` (DDIM only). Per batch of
-seeds: per-seed x_T -> DDIM over the UNet -> AEKL decode of z /
-scale_factor -> crop of the border pad. Artifacts:
+Counterpart of ``sleepgen/sample/sample_ldm.py`` (unconditional). Per batch
+of seeds: per-seed x_T -> DDIM or DPM-Solver++(2M) over the UNet -> AEKL
+decode of z / scale_factor -> crop of the border pad. Artifacts:
 
   * ``sample_{i}.npy``   (1, 1, 3000) cropped signal, reference layout;
   * ``psd_list_{i}.npy`` [psds (1, F), freqs (F,), psds_mean (F,)], the dB
-    DPSS multitaper PSD up to 18 Hz;
+    PSD up to 18 Hz: DPSS multitaper (the reference's method) or Welch;
   * ``psd_list.npy``     the per-seed PSD entries stacked.
 
 Models run in torch's (B, C, L) layout; the sampler returns (B, 3000, C)
@@ -22,6 +22,7 @@ import torch
 
 from sleepgen_torch.config import Config
 from sleepgen_torch.data.transforms import BORDER_PAD, to_bcl
+from sleepgen_torch.diffusion.dpm_solver import dpm_solver_pp_2m_sample_loop
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
@@ -31,6 +32,7 @@ from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.weights import load_numpy_state
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+SAMPLERS = {"ddim": ddim_sample_loop, "dpm++2m": dpm_solver_pp_2m_sample_loop}
 
 
 def sampling_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSchedule:
@@ -85,15 +87,18 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                      ) -> Callable[[float, Sequence[int]], torch.Tensor]:
     """Returns ``sample(scale_factor, seeds) -> (B, L - 2 * border_pad, C)``
     fp32 on ``device``. ``unet``, ``ae`` and ``sched`` must already live on
-    ``device``. Only ``sampler="ddim"`` is ported."""
-    if sampler != "ddim":
-        raise NotImplementedError(f"sampler '{sampler}' is not ported; use 'ddim'")
+    ``device``. ``sampler``: "ddim" (the reference's) or "dpm++2m"
+    (DPM-Solver++(2M), about DDIM-200's quality in 20 steps); either makes
+    ``num_inference_steps`` UNet calls."""
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler '{sampler}'; one of {sorted(SAMPLERS)}")
+    loop = SAMPLERS[sampler]
     dev = resolve_device(device)
 
     def sample(scale_factor: float, seeds: Sequence[int]) -> torch.Tensor:
         with torch.inference_mode():
             x_T = seed_noise(seeds, (latent_len, latent_channels), dev)
-            z = ddim_sample_loop(unet, sched, x_T.transpose(1, 2), num_inference_steps)
+            z = loop(unet, sched, x_T.transpose(1, 2), num_inference_steps)
             signal = ae.decode_stage_2_outputs(z / scale_factor).float()
             return signal[:, :, border_pad:-border_pad].transpose(1, 2)
 
@@ -101,16 +106,20 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 
 
 def write_sample_artifacts(output_dir: str | Path, seeds: Sequence[int],
-                           signals_blc: np.ndarray, compute_psd: bool = True) -> None:
-    """Write per-seed ``.npy`` artifacts in the reference layout."""
-    from sleepgen_torch.eval.psd import multitaper_psd_db
+                           signals_blc: np.ndarray, compute_psd: bool = True,
+                           psd_method: str = "multitaper") -> None:
+    """Write per-seed ``.npy`` artifacts in the reference layout.
+    ``psd_method`` "multitaper" (default) is the reference's MNE Epochs
+    method; "welch" writes the Welch spectra instead."""
+    from sleepgen_torch.eval.psd import multitaper_psd_db, welch_psd_db
 
+    psd_db = {"multitaper": multitaper_psd_db, "welch": welch_psd_db}[psd_method]
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     signals_bcl = to_bcl(signals_blc)  # (B, 1, 3000)
     psd_list = []
     if compute_psd:
-        psds_all, freqs = multitaper_psd_db(signals_bcl, fmax=18.0)  # (B, 1, F)
+        psds_all, freqs = psd_db(signals_bcl, fmax=18.0)  # (B, 1, F)
     for i, seed in enumerate(seeds):
         np.save(output_dir / f"sample_{seed}.npy", signals_bcl[i:i + 1])
         if compute_psd:

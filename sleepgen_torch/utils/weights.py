@@ -6,7 +6,9 @@ tree of numpy arrays (as the JAX package's ``UNet1d`` and
 the reference UNetModel's and MONAI's; ``unet_state_to_jax`` and
 ``aekl_state_to_jax`` map them back, so the run dirs the port trains hold
 the JAX package's keys. ``discriminator_state_from_jax`` maps a
-``PatchDiscriminator``'s ``params`` and ``batch_stats``. Conventions: conv
+``PatchDiscriminator``'s ``params`` and ``batch_stats``, and
+``usleep_state_from_jax`` a ``USleep``'s to braindecode's names (those
+of the reference's pretrained USleep). Conventions: conv
 kernel (k, in, out) -> weight (out, in, k); Dense kernel (in, out) ->
 weight (out, in); GroupNorm and BatchNorm scale/bias -> weight/bias;
 BatchNorm mean/var -> running_mean/running_var; Embed embedding -> weight.
@@ -259,6 +261,12 @@ def aekl_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return _tree_from_state(sd, _aekl_layers(shape, has))
 
 
+def _batch_norm(sd, prefix, node, stats) -> None:
+    for port, v in (("weight", node["scale"]), ("bias", node["bias"]),
+                    ("running_mean", stats["mean"]), ("running_var", stats["var"])):
+        sd[f"{prefix}.{port}"] = np.asarray(v, np.float32)
+
+
 def discriminator_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
     """JAX ``PatchDiscriminator`` variables (``params`` and ``batch_stats``)
     -> the port's ``PatchDiscriminator`` state_dict (numpy), the BatchNorm
@@ -268,11 +276,37 @@ def discriminator_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
     _conv(sd, "initial_conv", p["initial_conv"])
     for l in range(_count(p, "layer_{}_conv")):
         _conv(sd, f"layer_{l}_conv", p[f"layer_{l}_conv"])
-        bn, st = p[f"layer_{l}_bn"], stats[f"layer_{l}_bn"]
-        for port, v in (("weight", bn["scale"]), ("bias", bn["bias"]),
-                        ("running_mean", st["mean"]), ("running_var", st["var"])):
-            sd[f"layer_{l}_bn.{port}"] = np.asarray(v, np.float32)
+        _batch_norm(sd, f"layer_{l}_bn", p[f"layer_{l}_bn"], stats[f"layer_{l}_bn"])
     _conv(sd, "final_conv", p["final_conv"])
+    return sd
+
+
+def usleep_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``USleep`` variables (``params`` and ``batch_stats``) -> the
+    port's ``USleep`` state_dict (numpy) in braindecode's ``nn.Sequential``
+    names, each BatchNorm's running statistics and a zero
+    ``num_batches_tracked`` included; the depth is read from the keys. The
+    inverse of ``sleepgen.utils.torch_import.import_usleep``."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def block(conv_port, conv_name, bn_port, bn_name):
+        _conv(sd, conv_port, p[conv_name])
+        _batch_norm(sd, bn_port, p[bn_name], stats[bn_name])
+        sd[f"{bn_port}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+    depth = _count(p, "enc_{}_conv")
+    for i in range(depth):
+        block(f"encoder.{i}.block_prepool.0", f"enc_{i}_conv",
+              f"encoder.{i}.block_prepool.2", f"enc_{i}_bn")
+    block("bottom.0", "bottom_conv", "bottom.2", "bottom_bn")
+    for i in range(depth):
+        block(f"decoder.{i}.block_preskip.1", f"dec_{i}_preskip_conv",
+              f"decoder.{i}.block_preskip.3", f"dec_{i}_preskip_bn")
+        block(f"decoder.{i}.block_postskip.0", f"dec_{i}_postskip_conv",
+              f"decoder.{i}.block_postskip.2", f"dec_{i}_postskip_bn")
+    for port, name in (("clf.0", "clf_conv_1"), ("clf.3", "clf_conv_2"), ("clf.5", "clf_conv_3")):
+        _conv(sd, port, p[name])
     return sd
 
 

@@ -12,6 +12,7 @@ error when the CUDA compiler is missing.
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,6 +79,23 @@ def test_entry_points_default_to_the_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_aekl(cfg, None, None)
     assert not any(tmp_path.iterdir())  # raised before writing a run dir
+
+    from sleepgen_torch.eval.fid import compute_fid, usleep_fid_features
+    from sleepgen_torch.nn.usleep import USleep
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_ldm_sampler(unet, ae, sched, latent_len=32, sampler="dpm++2m")
+    cfg.diffusion.sampler = "dpm++2m"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_ldm_trials(cfg, {}, {}, 1.0, "unused")
+    usleep = USleep(depth=4, input_size_s=2.555)
+    windows = np.zeros((2, 1, 256), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        usleep_fid_features(usleep, windows)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compute_fid(usleep, windows, windows)
+    feats = usleep_fid_features(usleep, windows, device="cpu")
+    assert feats.shape == (2, usleep.bottom[0].out_channels)
 
 
 def test_cpu_device_runs_the_plain_versions():
