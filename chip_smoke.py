@@ -1382,6 +1382,10 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     for kid, path, shapes, launches, *dtype in paths.values():
         dtype = dtype[0] if dtype else torch.bfloat16
         spec = KERNELS[kid]
+        unchecked = set(shapes) - set(checks[kid])
+        if unchecked:
+            raise AssertionError(f"{spec['name']} on the {path}: shapes never checked against "
+                                 f"the plain version: {sorted(unchecked)}")
         names = ("ms", "plain_ms", "library_ms", "graph_ms", "plain_graph_ms",
                  "library_graph_ms", "bound_ms")
         tot = dict.fromkeys(names, 0.0)
@@ -1420,7 +1424,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 **{f"{k}_per_run": f"{v:.4f}" for k, v in relayout.items()},
                 kernel_ms_per_run=f"{tot['ms']:.4f}",
                 kernel_graph_ms_per_run=f"{tot['graph_ms']:.4f}")
-        errs = checks[kid].values()
+        errs = [checks[kid][key] for key in shapes]
         err_key = "fp32_max_abs_err" if dtype == torch.float32 else "bf16_max_abs_err"
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],

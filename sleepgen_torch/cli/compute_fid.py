@@ -3,12 +3,10 @@ bottleneck features (the reference's ``compute_fid.py``); without
 ``--sample_dir``, the test-vs-test floor (``compute_fid_train_test.py``):
 the first half of the test windows against the second.
 
-USleep's weights, in order of precedence: ``--usleep_torch_params``, a
-torch state dict in braindecode's names (the reference's pretrained
-``params.pt``; a ``module.`` prefix is stripped), loaded with
-``strict=True``; ``--usleep_params_npz``, a flat '/'-keyed flax
-``{params, batch_stats}`` tree (the README shows how to export one from
-the JAX package); else seeded random weights from ``--seed``
+USleep's weights: ``--usleep_torch_params``, a torch state dict in
+braindecode's names (the reference's pretrained ``params.pt``; a
+``module.`` prefix is stripped), loaded with ``strict=True``; else seeded
+random weights from ``--seed``
 (``lecun_normal_state``: numpy draws of the JAX package's initialisers,
 not the same numbers as JAX's own random init, which comes from a
 threefry key torch cannot reproduce).
@@ -26,8 +24,7 @@ from sleepgen_torch.data.transforms import center_crop_valid, to_bcl
 from sleepgen_torch.eval.fid import compute_fid, frechet_distance, usleep_fid_features
 from sleepgen_torch.nn.usleep import USleep
 from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state, load_params_npz,
-                                          usleep_state_from_jax)
+from sleepgen_torch.utils.weights import lecun_normal_state, load_numpy_state
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,8 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--path_pre_processed", type=str, required=True)
     p.add_argument("--sample_dir", type=str, default=None,
                    help="dir of sample_*.npy; omit for the test-vs-test floor")
-    p.add_argument("--usleep_params_npz", type=str, default=None,
-                   help="flat '/'-keyed USleep variables exported from the JAX package")
     p.add_argument("--usleep_torch_params", type=str, default=None,
                    help="torch .pt state dict (the reference's pretrained USleep)")
     p.add_argument("--dataset", type=str, default="edfx")
@@ -49,16 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_usleep(params_npz: str | None = None, seed: int = 0,
-                torch_params: str | None = None) -> USleep:
+def load_usleep(torch_params: str | None = None, seed: int = 0) -> USleep:
     """The FID extractor as the reference builds it (2 channels, depth 12,
     5 classes, 30 s at 100 Hz), on the CPU, with the weights above."""
     m = USleep()
     if torch_params:
         sd = torch.load(torch_params, map_location="cpu", weights_only=True)
         m.load_state_dict({k.removeprefix("module."): v for k, v in sd.items()}, strict=True)
-    elif params_npz:
-        load_numpy_state(m, usleep_state_from_jax(load_params_npz(params_npz)))
     else:
         load_numpy_state(m, lecun_normal_state(m, seed))
     return m.eval()
@@ -69,7 +61,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     ds = load_split(args.path_test_ids, args.path_pre_processed, args.dataset)
     windows = to_bcl(center_crop_valid(ds.epoch_windows(np.random.default_rng(args.seed))))
-    m = load_usleep(args.usleep_params_npz, args.seed, args.usleep_torch_params)
+    m = load_usleep(args.usleep_torch_params, args.seed)
 
     if args.sample_dir:
         files = sorted(glob(f"{args.sample_dir}/sample_*.npy"))

@@ -6,7 +6,7 @@ decode of z / scale_factor -> crop of the border pad. Artifacts:
 
   * ``sample_{i}.npy``   (1, 1, 3000) cropped signal, reference layout;
   * ``psd_list_{i}.npy`` [psds (1, F), freqs (F,), psds_mean (F,)], the dB
-    PSD up to 18 Hz: DPSS multitaper (the reference's method) or Welch;
+    DPSS multitaper PSD up to 18 Hz;
   * ``psd_list.npy``     the per-seed PSD entries stacked.
 
 Models run in torch's (B, C, L) layout; the sampler returns (B, 3000, C)
@@ -106,20 +106,16 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 
 
 def write_sample_artifacts(output_dir: str | Path, seeds: Sequence[int],
-                           signals_blc: np.ndarray, compute_psd: bool = True,
-                           psd_method: str = "multitaper") -> None:
-    """Write per-seed ``.npy`` artifacts in the reference layout.
-    ``psd_method`` "multitaper" (default) is the reference's MNE Epochs
-    method; "welch" writes the Welch spectra instead."""
-    from sleepgen_torch.eval.psd import multitaper_psd_db, welch_psd_db
+                           signals_blc: np.ndarray, compute_psd: bool = True) -> None:
+    """Write per-seed ``.npy`` artifacts in the reference layout."""
+    from sleepgen_torch.eval.psd import multitaper_psd_db
 
-    psd_db = {"multitaper": multitaper_psd_db, "welch": welch_psd_db}[psd_method]
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     signals_bcl = to_bcl(signals_blc)  # (B, 1, 3000)
     psd_list = []
     if compute_psd:
-        psds_all, freqs = psd_db(signals_bcl, fmax=18.0)  # (B, 1, F)
+        psds_all, freqs = multitaper_psd_db(signals_bcl, fmax=18.0)  # (B, 1, F)
     for i, seed in enumerate(seeds):
         np.save(output_dir / f"sample_{seed}.npy", signals_bcl[i:i + 1])
         if compute_psd:

@@ -1,7 +1,7 @@
 """The port's evaluation path against the JAX package, on the CPU in fp32:
-DPM-Solver++(2M) and its timesteps, the inferer, the Welch PSD, SSIM and
-MS-SSIM, the band filters, USleep and its weight bridge, the Fréchet
-distance. Same numpy inputs on both sides; each tolerance is stated where
+DPM-Solver++(2M) and its timesteps, the Welch PSD, SSIM and MS-SSIM, the
+band filters, USleep and its weight bridge, the Fréchet distance and the
+FID over USleep's features. Same numpy inputs on both sides; each tolerance is stated where
 it is used.
 
 UNet for the DPM sampler: test_torch_port_parity's tiny one (model_channels
@@ -27,11 +27,11 @@ from sleepgen.nn.usleep import USleep as JaxUSleep
 from sleepgen.utils import jit_init
 from sleepgen.utils.torch_import import import_usleep
 from sleepgen_torch.config import Config
-from sleepgen_torch.diffusion import dpm_solver, inferer
+from sleepgen_torch.diffusion import dpm_solver
 from sleepgen_torch.eval import bands, fid, msssim, psd
 from sleepgen_torch.nn.usleep import USleep
 from sleepgen_torch.sample.sample_ldm import sampling_schedule
-from sleepgen_torch.sample.samplers import ddpm_sample_loop, seed_noise
+from sleepgen_torch.sample.samplers import seed_noise
 from sleepgen_torch.utils import weights
 
 from test_torch_port_parity import LATENT, _t, unet_pair  # noqa: F401
@@ -91,32 +91,6 @@ def test_sampler_names_its_loops():
     assert SAMPLERS["dpm++2m"] is dpm_solver.dpm_solver_pp_2m_sample_loop
     with pytest.raises(ValueError, match="unknown sampler"):
         make_ldm_sampler(None, None, _schedules()[1], sampler="euler", device="cpu")
-
-
-def test_inferer_matches_jax():
-    """inferer_call: noise at t, then the model, at 1e-6; inferer_sample is
-    the DDPM loop with the generator's draws."""
-    from sleepgen.diffusion.inferer import inferer_call as jax_inferer_call
-
-    js, ps = _schedules()
-    rng = np.random.default_rng(6)
-    x0, noise = rng.normal(size=(2, 2, 16, 1)).astype(np.float32)
-    t = np.array([3, 700])
-
-    def jax_model(x, tb):
-        return 0.5 * x + tb[:, None, None] / 1000.0
-
-    want = jax.jit(lambda *a: jax_inferer_call(js, jax_model, *a))(x0, noise, t)
-    got = inferer.inferer_call(ps, lambda x, tb: 0.5 * x + tb[:, None, None] / 1000.0,
-                               _t(x0), _t(noise), _t(t))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-
-    sched = type(ps).create("linear_beta", 8)  # a short loop
-    x_T = torch.randn(2, 1, 16, generator=torch.Generator().manual_seed(0))
-    model = lambda x, tb: 0.1 * x  # noqa: E731
-    a = inferer.inferer_sample(sched, model, x_T, torch.Generator().manual_seed(5))
-    b = ddpm_sample_loop(model, sched, x_T, torch.Generator().manual_seed(5))
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("nperseg,noverlap,fmax", [(256, 128, 18.0), (255, 100, None)])
@@ -254,6 +228,22 @@ def test_usleep_fid_features_match_jax(usleep_pair):
                                   batch_size=2, device="cpu")
     assert got.shape == want.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_compute_fid_matches_jax(usleep_pair):
+    """FID of 6 real against 5 synthetic (N, 1, L) windows, against the
+    JAX package's on the same (N, L, 1) windows: rtol 1e-3 (features at
+    the model bound, then covariances of a few windows)."""
+    jm, v, pm, case = usleep_pair
+    rng = np.random.default_rng(15)
+    real = rng.uniform(size=(6, case["length"], 1)).astype(np.float32)
+    synth = rng.uniform(0.2, 0.9, size=(5, case["length"], 1)).astype(np.float32)
+    want = jax_fid.compute_fid(jm, v, real, synth, batch_size=4)
+    got = fid.compute_fid(pm, np.ascontiguousarray(real.transpose(0, 2, 1)),
+                          np.ascontiguousarray(synth.transpose(0, 2, 1)), batch_size=4,
+                          device="cpu")
+    assert np.isfinite(got) and got > 0
+    np.testing.assert_allclose(got, want, rtol=1e-3)
 
 
 def test_frechet_distance_matches_jax():

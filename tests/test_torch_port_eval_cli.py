@@ -9,9 +9,7 @@ both as a JAX run dir (orbax ``best_model/``) and as a port run dir
 (``params.npz``); the UNet (model_channels 16, channel_mult [1, 2], G 8,
 latent 768, so samples are 3000 long) has seeded weights. USleep's weights
 are the port's seeded ones, saved as a torch state dict that both CLIs
-load (``--usleep_torch_params``), with and without a ``module.`` prefix,
-and as the flat npz of the JAX package's variables
-(``--usleep_params_npz``).
+load (``--usleep_torch_params``), with and without a ``module.`` prefix.
 """
 import csv
 import sys
@@ -19,9 +17,7 @@ import sys
 import numpy as np
 import pytest
 import torch
-from flax.traverse_util import flatten_dict
 
-from sleepgen.utils.torch_import import import_usleep
 from sleepgen_torch.config import Config
 from sleepgen_torch.data.synthetic import write_ids_csv, write_synthetic_npy_tree
 from sleepgen_torch.utils import weights
@@ -51,7 +47,7 @@ def _umbrella(monkeypatch, *argv):
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory, aekl_pair):
     """The test split, the AEKL as a JAX and a port run dir, the LDM as a
-    port run dir, USleep's weights in three files, and the samples of
+    port run dir, USleep's weights in two files, and the samples of
     ``sample --sampler dpm++2m --device cpu``."""
     from sleepgen.utils import CheckpointManager
     from sleepgen_torch.cli.compute_fid import load_usleep
@@ -79,8 +75,6 @@ def workspace(tmp_path_factory, aekl_pair):
     sd = load_usleep(seed=4).state_dict()
     torch.save(sd, root / "usleep.pt")
     torch.save({f"module.{k}": v for k, v in sd.items()}, root / "usleep_module.pt")
-    variables = import_usleep({k: v.numpy() for k, v in sd.items()})
-    np.savez(root / "usleep.npz", **flatten_dict(variables, sep="/"))
 
     with pytest.MonkeyPatch.context() as mp:
         _umbrella(mp, "sample", "--output_dir", str(root / "samples"),
@@ -104,13 +98,14 @@ def test_sample_dpm_writes_the_artifact_contract(workspace):
         assert psds.shape == (1, len(freqs)) and freqs.max() <= 18.0
 
 
-def test_welch_artifacts(tmp_path):
-    from sleepgen_torch.eval.psd import welch_psd_db
+def test_artifacts_hold_the_multitaper_psd(tmp_path):
+    from sleepgen_torch.eval.psd import multitaper_psd_db
     from sleepgen_torch.sample.sample_ldm import write_sample_artifacts
 
     sig = np.random.default_rng(0).normal(size=(2, 3000, 1)).astype(np.float32)
-    write_sample_artifacts(tmp_path, [5, 6], sig, psd_method="welch")
-    want, want_freqs = welch_psd_db(sig.transpose(0, 2, 1))
+    write_sample_artifacts(tmp_path, [5, 6], sig)
+    np.testing.assert_array_equal(np.load(tmp_path / "sample_6.npy"), sig[1:].transpose(0, 2, 1))
+    want, want_freqs = multitaper_psd_db(sig.transpose(0, 2, 1))
     psds, freqs, mean = np.load(tmp_path / "psd_list_6.npy", allow_pickle=True)
     np.testing.assert_array_equal(freqs, want_freqs)
     np.testing.assert_array_equal(psds, want[1])
@@ -122,8 +117,8 @@ def test_compute_fid_matches_jax(workspace, monkeypatch, capsys, with_samples):
     """The same reference-named USleep state dict in both CLIs: FID within
     rtol 1e-3 (features at the model bound, 302-wide covariances of 4-8
     windows), and the printed line is the JAX CLI's. On the floor, the
-    port's other two ways to load those weights give the same FID
-    exactly, and its seeded weights (no file) a finite one."""
+    same weights under a ``module.`` prefix give the same FID exactly,
+    and the port's seeded weights (no file) a finite one."""
     from sleepgen.cli.compute_fid import main as jax_main
     from sleepgen_torch.cli.compute_fid import main
 
@@ -142,9 +137,8 @@ def test_compute_fid_matches_jax(workspace, monkeypatch, capsys, with_samples):
     assert np.isfinite(got) and got >= -1e-6
     np.testing.assert_allclose(got, want, rtol=1e-3)
     if not with_samples:
-        for other in (["--usleep_torch_params", str(root / "usleep_module.pt")],
-                      ["--usleep_params_npz", str(root / "usleep.npz")]):
-            assert main(args + other + ["--device", "cpu"]) == got
+        assert main(args + ["--usleep_torch_params", str(root / "usleep_module.pt"),
+                            "--device", "cpu"]) == got
         assert np.isfinite(main(args + ["--device", "cpu"]))
 
 
