@@ -2,10 +2,11 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives four paths: LDM
-sampling, stage-2 LDM training, stage-1 AEKL training and the evaluation
-(DPM++2M sampling, ``compute-fid``, ``compute-mmds``). Phases, one line
-each:
+CUDA toolkit: ``python3 chip_smoke.py``. It drives five paths: LDM
+sampling, stage-2 LDM training, stage-1 AEKL training, the evaluation
+(DPM++2M sampling, ``compute-fid``, ``compute-mmds``) and serving
+(``SamplerService``, ``serve``, ``warm-cache``; stage-conditional and
+guided sampling). Phases, one line each:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
@@ -44,6 +45,16 @@ each:
      1e-3; ``ms_ssim_1d`` with the gaussian k 7 and the uniform k 16
      kernels, and ``filter_band`` for each band, within rtol 1e-4 / atol
      1e-5;
+  S1. tiny serving: ``SamplerService`` over port run dirs of a tiny
+     conditional checkpoint (UNet mc 32, [1, 2], attention [2], G 8, 5
+     classes, latent 64; AEKL [2, 2, 4]; fp32, TF32 off; seeded weights),
+     on the card against the same service on the CPU: DPM++2M-4 at batch
+     4, stage 2 plain and guided at 2.0, at the model bound (rtol 2e-3 /
+     atol 2e-4); the guided request's launches equal the plain one's, as
+     derived from the configuration; the sampler cache holds (4, False)
+     and (4, True) after scales 2.0 and 3.0; each invalid request (no
+     stage, stage -1, stage 5, a guidance scale that is not a number)
+     raises with no kernel launched;
   5. full width: ``sample_ldm_trials`` at the flagship configuration
      (UNet mc 128 / [1, 2, 4] / attention [8, 4] / G 32 / latent 768 x 1,
      AEKL [32, 32, 64], bf16), batch 64, 200 DDIM steps, seeded random
@@ -90,6 +101,31 @@ each:
      ``compute-mmds`` in both modes on a seeded full-width AEKL run dir
      (``save_params_npz``): 26 K1 launches per reconstruction batch, one
      TSV row per window (per pair), every score finite, and windows/s;
+  S2. full-width serving: ``SamplerService`` at the flagship
+     configuration made a conditional checkpoint of the 5 sleep stages,
+     DPM++2M-20, bf16, batch 64, seeded weights: ``warmup()``'s seconds;
+     three rounds of a plain request of 64 seeds (stage 2), a guided one
+     (stage 2, scale 2.0) and one of seed 5 alone, each with K1 and K2
+     launches as derived from the configuration (233 and 760: a guided
+     request runs one forward of 128 per step), no K2 weight re-layout,
+     and the seconds ``sample_async`` took to return against
+     ``result()``'s; seed 5 alone against seed 5 in the batch within 2^-6
+     of the batch's largest |value|; ``sample_async`` of a plain and a
+     guided request under torch's sync debug mode "error" (no PyTorch
+     call in it waits for the card), and of a one-step request queued
+     behind 1.5 s of a spin kernel, which must return while the card
+     still spins (the 20-step requests are timed the same way: their
+     launches overflow the card's queue of pending launches);
+     one plain and one guided request under torch.profiler; the guided
+     request's K1 and K2
+     shapes (batch 128) are then checked in fp32 and bf16 like phase 3's;
+  S3. the serving CLIs, each in a process of its own, on port run dirs of
+     S2's configuration: ``warm-cache --targets sampler,dpm --batch_sizes
+     64`` (seconds), then ``serve`` fed four requests of 64 seeds with a
+     stage each and one without, strict and with ``--pipeline``: the
+     error line, the two modes' artifacts equal, the ready line's warm-up
+     seconds and each mode's windows/s from the first request sent to the
+     last response;
   8. timings: each kernel at each shape of its path in bf16 (the
      reconstruction's K1 in fp32, as it runs): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
@@ -110,8 +146,9 @@ each:
 The line before the device line at the end is one JSON object with a row
 per kernel and path: launches in one run of the path (K1: a sampler
 batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
-reconstruction batch; K2: a sampler batch, a DPM++2M-20 batch; K3: a
-stage-2 and a stage-1 training step; B2, B3: on no path), its error and
+reconstruction batch, a guided DPM++2M-20 request; K2: a sampler batch,
+a DPM++2M-20 batch, a guided DPM++2M-20 request; K3: a stage-2 and a
+stage-1 training step; B2, B3: on no path), its error and
 its times (each shape's time times its launches in that run, summed);
 the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
@@ -142,10 +179,12 @@ from __future__ import annotations
 
 import csv
 import json
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -174,12 +213,14 @@ from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models, 
                                               build_unet, sample_ldm_trials,
                                               sampling_schedule)
 from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
+from sleepgen_torch.serve import SamplerService  # noqa: E402
 from sleepgen_torch.train import common as C  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
                                           lecun_normal_state, load_numpy_state,
-                                          load_params_npz, save_params_npz, seeded_state_dict)
+                                          load_params_npz, save_params_npz, seeded_state_dict,
+                                          unet_state_to_jax)
 
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and
 # fp32 CUDA-core operations/s.
@@ -198,6 +239,13 @@ AEKL_CONFIG = ROOT / "sleepgen" / "configs" / "aekl_eeg.yaml"  # read as YAML
 AEKL_BATCH = 2048  # aekl_eeg.yaml
 DPM_STEPS = 20  # the JAX package's fast path, sleepgen/cli/sample_trials.py:22-24
 EVAL_WINDOWS = 1024  # E2's test split, and the samples scored against it
+SERVE_CLASSES = 5  # the sleep stages W, N1, N2, N3, REM
+SERVE_STAGE, SERVE_SCALE = 2, 2.0  # S1 and S2's requests: stage 2, guided at 2.0
+SEED_ALONE = 5  # S2: served alone, against its place in a batch of 64
+# S2: bound on |seed alone - seed in a batch| after 20 bf16 steps and the
+# decode, as a share of the batch's largest |value|: four bf16 roundings
+ALONE_BOUND = 2.0**-6
+SPIN_S = 1.5  # S2: seconds of card work queued ahead of sample_async (a request queues in < 0.5)
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -1368,6 +1416,351 @@ def phase_eval_full(tmp: Path) -> dict:
                           launches=counts, seconds=recon_s_all, windows_per_s=recon_per_s))
 
 
+def serve_config(cfg: Config) -> Config:
+    """``cfg`` made a conditional checkpoint of the sleep stages, sampled
+    with DPM++2M-20."""
+    cfg.unet.num_classes = SERVE_CLASSES
+    cfg.diffusion.sampler = "dpm++2m"
+    cfg.diffusion.num_inference_steps = DPM_STEPS
+    return cfg
+
+
+def write_run_dirs(root: Path, cfg: Config, unet_sd, ae_sd, scale_factor: float) -> tuple:
+    """Port run dirs of the AEKL and the LDM, as ``serve`` and ``sample``
+    read them: config.yaml, params.npz, and the LDM's scale_factor.txt."""
+    for name, tree in (("aekl", aekl_state_to_jax(ae_sd)), ("ldm", unet_state_to_jax(unet_sd))):
+        (root / name).mkdir(parents=True)
+        cfg.to_yaml(root / name / "config.yaml")
+        save_params_npz(root / name / "params.npz", {"params": tree})
+    (root / "ldm" / "scale_factor.txt").write_text(repr(scale_factor))
+    return root / "aekl", root / "ldm"
+
+
+def phase_tiny_serve(tmp: Path) -> dict:
+    """S1: ``SamplerService`` over port run dirs of a tiny conditional
+    checkpoint (UNet mc 32, [1, 2], attention [2], G 8, 5 classes, latent
+    64; AEKL [2, 2, 4]; fp32, TF32 off; seeded weights, so the label
+    embedding and the output convolution are non-zero), on the card
+    against the same service on the CPU: DPM++2M-4 at batch 4, stage 2
+    plain and guided at 2.0, held at the model bound (rtol 2e-3 / atol
+    2e-4). The guided request's launches equal the plain one's, as derived
+    from the configuration (one forward of 2B per step); the sampler cache
+    holds (4, False) and (4, True) after scales 2.0 and 3.0; each
+    validation error raises with no kernel launched."""
+    cfg = serve_config(tiny_config(steps=4))
+    cfg.aekl.num_channels = [2, 2, 4]
+    cfg.diffusion.num_inference_steps = 4
+    unet_sd, ae_sd = seeded_weights(cfg, SEED + 50)
+    dirs = write_run_dirs(tmp / "tiny_serve", cfg, unet_sd, ae_sd, 1.3)
+    card, cpu = (SamplerService.from_run_dirs(*dirs, batch_size=4, device=dev)
+                 for dev in ("cuda", "cpu"))
+    want = {**expected_launches(cfg, unet_forwards=4, decodes=1), "K3": 0}
+    errs, counts, outs = {}, {}, {}
+    for name, kw in (("plain", dict(stage=SERVE_STAGE)),
+                     ("guided", dict(stage=SERVE_STAGE, guidance_scale=SERVE_SCALE))):
+        reset_counts()
+        outs[name] = card.sample(range(4), **kw)
+        counts[name] = read_counts()
+        if counts[name] != want:
+            raise AssertionError(f"S1 {name} request: launches {counts[name]}, expected {want}")
+        want_out = cpu.sample(range(4), **kw)
+        np.testing.assert_allclose(outs[name], want_out, rtol=2e-3, atol=2e-4,
+                                   err_msg=f"S1 {name} request: card vs CPU")
+        errs[name] = float(np.abs(outs[name] - want_out).max())
+    if np.allclose(outs["plain"], outs["guided"]):
+        raise AssertionError("S1: the guided request equals the plain one")
+    card.sample(range(4), stage=SERVE_STAGE, guidance_scale=3.0)
+    if set(card._samplers) != {(4, False), (4, True)}:
+        raise AssertionError(f"S1: sampler cache {sorted(card._samplers)}")
+    for bad in (dict(), dict(stage=-1), dict(stage=SERVE_CLASSES),
+                dict(stage=SERVE_STAGE, guidance_scale="strong")):
+        reset_counts()
+        try:
+            card.sample_async(range(4), **bad)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"S1: request {bad} did not raise")
+        if any(read_counts().values()):
+            raise AssertionError(f"S1: request {bad} launched {read_counts()}")
+    say("tiny-serve", plain_max_abs_err=f"{errs['plain']:.3e}",
+        guided_max_abs_err=f"{errs['guided']:.3e}", k1_launches=counts["guided"]["K1"],
+        k2_launches=counts["guided"]["K2"], cache=sorted(card._samplers))
+    del card, cpu
+    free_card()
+    return dict(max_abs_err=errs, launches=counts)
+
+
+def timed_request(svc: SamplerService, seeds, **kw) -> dict:
+    """One request on the host clock, the card synchronised before: the
+    seconds ``sample_async`` took to return and to the end of
+    ``result()``, whether the card was still busy at that return, and the
+    request's launch counts, shapes and K2 weight re-layouts."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = svc.sample_async(seeds, **kw)
+    queued = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    out = pending.result()
+    seconds = time.perf_counter() - t0
+    if out.shape != (len(seeds), 3000, 1) or not np.isfinite(out).all():
+        raise AssertionError(f"request {kw}: output {out.shape}")
+    return dict(out=out, queued_s=queued, seconds=seconds, busy_at_return=busy,
+                counts=read_counts(), shapes=read_shapes(), relayouts=fused_resblock.relayouts)
+
+
+def spin_cycles_per_s() -> float:
+    """Clock cycles per second of ``torch.cuda._sleep``'s spin kernel."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10**6)
+    start.record()
+    torch.cuda._sleep(10**8)
+    stop.record()
+    torch.cuda.synchronize()
+    return 10**8 / (start.elapsed_time(stop) / 1e3)
+
+
+def queue_behind_spin(svc: SamplerService, spin_s: float, seeds, **kw) -> dict:
+    """``sample_async`` with ``spin_s`` seconds of a spin kernel queued on
+    the card before it: the seconds it took to return, whether the card
+    was still spinning then, and the seconds to the end of ``result()``.
+    A call that waits for the card returns after the spin; so does one
+    whose kernels overflow the card's queue of pending launches."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(spin_s * spin_cycles_per_s()))
+    t0 = time.perf_counter()
+    pending = svc.sample_async(seeds, **kw)
+    queued = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    pending.result()
+    return dict(spin_s=spin_s, queued_s=queued, busy_at_return=busy,
+                seconds=time.perf_counter() - t0)
+
+
+def queue_without_sync(svc: SamplerService, seeds, **kw) -> None:
+    """``sample_async`` under torch's sync debug mode "error": any PyTorch
+    call in it that waits for the card (a copy from pageable memory, a
+    value read back) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = svc.sample_async(seeds, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pending.result()
+
+
+def phase_serve_full() -> dict:
+    """S2: ``SamplerService`` at the flagship configuration made a
+    conditional checkpoint of the 5 sleep stages (``serve_config``),
+    DPM++2M-20, bf16, batch 64, seeded weights: ``warmup()``'s seconds;
+    three rounds of a plain request of 64 seeds (stage 2), a guided one
+    (stage 2, scale 2.0) and one of seed 5 alone, each with its launches as
+    derived from the configuration (a guided request runs one forward of
+    128 per step, so the plain counts) and no K2 weight re-layout; seed 5
+    alone against seed 5 in the batch within ``ALONE_BOUND``; a plain and
+    a guided request queued without a sync (``queue_without_sync``, and a
+    one-step request behind ``SPIN_S`` of card work); then one plain and
+    one guided request under torch.profiler. Returns the guided request's
+    kernel shapes and counts for the kernel rows."""
+    cfg = serve_config(flagship_config(steps=DPM_STEPS))
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    svc = SamplerService(cfg, cfg, unet_sd, ae_sd, 1.0, batch_size=BATCH, device="cuda")
+    warmup_s = svc.warmup()
+    say("serve", warmup_s=f"{warmup_s:.3f}", cache=sorted(svc._samplers))
+    want = {**expected_launches(cfg, unet_forwards=DPM_STEPS, decodes=1), "K3": 0}
+    requests = {"plain": (range(BATCH), dict(stage=SERVE_STAGE)),
+                "guided": (range(BATCH), dict(stage=SERVE_STAGE, guidance_scale=SERVE_SCALE)),
+                "alone": ([SEED_ALONE], dict(stage=SERVE_STAGE))}
+    runs = {name: [] for name in requests}
+    for i in range(TIMED_BATCHES):
+        for name, (seeds, kw) in requests.items():
+            r = timed_request(svc, seeds, **kw)
+            if r["counts"] != want or r["relayouts"]:
+                raise AssertionError(f"S2 {name} request {i}: launches {r['counts']}, expected "
+                                     f"{want}; K2 weight re-layouts {r['relayouts']}")
+            runs[name].append(r)
+            say("serve", request=name, round=i, seconds=f"{r['seconds']:.4f}",
+                async_return_s=f"{r['queued_s']:.4f}", busy_at_return=r["busy_at_return"],
+                k1_launches=r["counts"]["K1"], k2_launches=r["counts"]["K2"],
+                relayouts=r["relayouts"])
+    batch_out = runs["plain"][0]["out"]
+    alone_err = float(np.abs(runs["alone"][0]["out"][0] - batch_out[SEED_ALONE]).max())
+    bound = ALONE_BOUND * float(np.abs(batch_out).max())
+    if not alone_err <= bound:
+        raise AssertionError(f"S2: seed {SEED_ALONE} alone differs from its place in the batch "
+                             f"by {alone_err}, bound {bound}")
+    guided_diff = float(np.abs(runs["guided"][0]["out"] - batch_out).max())
+    if guided_diff == 0.0:
+        raise AssertionError("S2: the guided request equals the plain one")
+    summary = {}
+    for name, rs in runs.items():
+        sec = [r["seconds"] for r in rs]
+        n = len(requests[name][0])
+        summary[name] = dict(windows=n, seconds=sec, median_seconds=statistics.median(sec),
+                             windows_per_s=n / statistics.median(sec),
+                             async_return_s=[r["queued_s"] for r in rs],
+                             busy_at_return=[r["busy_at_return"] for r in rs])
+        say("serve", request=name, windows=n, median_s=f"{statistics.median(sec):.4f}",
+            min_max_s=f"{min(sec):.4f}-{max(sec):.4f}",
+            windows_per_s=f"{n / statistics.median(sec):.3f}",
+            async_return_median_s=f"{statistics.median(summary[name]['async_return_s']):.4f}")
+    # sample_async queues without waiting: no PyTorch call in it waits for
+    # the card, and a one-step request (fewer launches than the card's
+    # queue holds) returns while 1.5 s of card work is still ahead of it
+    one_step = serve_config(flagship_config(steps=1))
+    one_step.diffusion.num_inference_steps = 1
+    svc1 = SamplerService(one_step, one_step, unet_sd, ae_sd, 1.0, batch_size=BATCH,
+                          device="cuda")
+    svc1.warmup()
+    behind_spin = {}
+    for name in ("plain", "guided"):
+        seeds, kw = requests[name]
+        queue_without_sync(svc, seeds, **kw)
+        short = queue_behind_spin(svc1, SPIN_S, seeds, **kw)
+        if not (short["busy_at_return"] and short["queued_s"] < SPIN_S):
+            raise AssertionError(f"S2 one-step {name} request: sample_async returned after "
+                                 f"{short['queued_s']:.3f} s behind a {SPIN_S} s spin, card "
+                                 f"busy {short['busy_at_return']}: it waited for the card")
+        full = queue_behind_spin(svc, SPIN_S, seeds, **kw)
+        behind_spin[name] = dict(one_step=short, steps_20=full)
+        say("serve-async", request=name, sync_debug="no sync", spin_s=SPIN_S,
+            one_step_return_s=f"{short['queued_s']:.4f}",
+            steps_20_return_s=f"{full['queued_s']:.4f}",
+            steps_20_busy_at_return=full["busy_at_return"])
+    del svc1
+    profiles = {}
+    for name in ("plain", "guided"):
+        seeds, kw = requests[name]
+        wall_ms, device_ms, top, n_kernels = device_profile(lambda: svc.sample(seeds, **kw), 1)
+        profiles[name] = dict(wall_ms=wall_ms, device_ms=device_ms,
+                              busy_share=device_ms / wall_ms, top=top)
+        say("serve-profile", request=name, wall_ms=f"{wall_ms:.2f}",
+            device_ms=f"{device_ms:.2f}", busy_share=f"{device_ms / wall_ms:.3f}",
+            kernels=n_kernels)
+        for row in top[:8]:
+            say("serve-profile-top", request=name, ms=f"{row['ms_per_run']:.3f}",
+                kernel=row["kernel"][:80])
+    say("serve", alone_max_abs_err=f"{alone_err:.3e}", alone_bound=f"{bound:.3e}",
+        guided_vs_plain_max_abs=f"{guided_diff:.4f}")
+    guided = runs["guided"][-1]
+    del svc
+    free_card()
+    return dict(warmup_s=warmup_s, requests=summary, alone_max_abs_err=alone_err,
+                alone_bound=bound, behind_spin=behind_spin, profiles=profiles,
+                guided_counts=guided["counts"],
+                guided_shapes=guided["shapes"])
+
+
+SERVE_REQUESTS = [dict(start=0, stop=BATCH, stage=0), dict(start=BATCH, stop=2 * BATCH, stage=1),
+                  dict(start=0, stop=BATCH),  # no stage: an error line
+                  dict(start=2 * BATCH, stop=3 * BATCH, stage=3),
+                  dict(start=3 * BATCH, stop=4 * BATCH, stage=4)]
+
+
+def serve_cli(dirs: tuple, out: Path, *flags) -> dict:
+    """``python -m sleepgen_torch serve`` in a process of its own, fed
+    SERVE_REQUESTS once it printed ``ready``: the ready line's warm-up
+    seconds, each response line, and the seconds from the first request
+    sent to the last response, which comes after its artifact is written."""
+    cmd = [sys.executable, "-m", "sleepgen_torch", "serve", "--best_model_path", str(dirs[0]),
+           "--diffusion_path", str(dirs[1]), "--output_dir", str(out), "--batch_size",
+           str(BATCH), *flags]
+    with open(out.with_suffix(".stderr"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        watchdog = threading.Timer(300, proc.kill)
+        watchdog.start()
+        try:
+            ready = next((line for line in proc.stdout if line.startswith("ready")), None)
+            if ready is None:
+                raise RuntimeError(f"serve {flags} ended before it was ready (exit "
+                                   f"{proc.wait()}):\n{out.with_suffix('.stderr').read_text()}")
+            t0 = time.perf_counter()
+            proc.stdin.write("".join(json.dumps(r) + "\n" for r in SERVE_REQUESTS))
+            proc.stdin.close()
+            lines, seconds = [], float("nan")
+            for line in proc.stdout:
+                if line.startswith("{"):
+                    lines.append(json.loads(line))
+                    seconds = time.perf_counter() - t0
+            code = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if code != 0:
+        raise RuntimeError(f"serve {flags} exited {code}:\n"
+                           f"{out.with_suffix('.stderr').read_text()}")
+    return dict(warmup_s=float(re.search(r"warm-up ([0-9.]+)s", ready).group(1)), lines=lines,
+                seconds=seconds)
+
+
+def phase_serve_cli(tmp: Path) -> dict:
+    """S3: the serving CLIs on the card, each in a process of its own, on
+    port run dirs of S2's configuration and weights: ``warm-cache
+    --targets sampler,dpm --batch_sizes 64`` (its seconds, the build
+    already on disk), then ``serve`` fed four requests of 64 seeds with a
+    stage each and one without, in strict mode and with ``--pipeline``:
+    the error line, 64 windows per answered request, the two modes'
+    artifacts equal, and each mode's windows/s from the first request
+    sent to the last response."""
+    cfg = serve_config(flagship_config(steps=DPM_STEPS))
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    dirs = write_run_dirs(tmp / "serve_runs", cfg, unet_sd, ae_sd, 1.0)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sleepgen_torch", "warm-cache", "--config_file",
+                           str(dirs[1] / "config.yaml"), "--targets", "sampler,dpm",
+                           "--batch_sizes", str(BATCH)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    warm_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"warm-cache exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    warmed = [line for line in proc.stdout.splitlines() if line.startswith("warmed")]
+    say("warm-cache", seconds=f"{warm_s:.2f}", calls=len(warmed))
+    for line in warmed:
+        say("warm-cache", line=line.replace(" ", "_"))
+    modes, windows = {}, BATCH * sum("stage" in r for r in SERVE_REQUESTS)
+    for mode, flags in (("strict", ()), ("pipeline", ("--pipeline",))):
+        out = tmp / f"serve_{mode}"
+        run = serve_cli(dirs, out, *flags)
+        answered = {r["request"]: r for r in run["lines"]}
+        errors = sorted(i for i, r in answered.items() if "error" in r)
+        ns = [r["n"] for i, r in sorted(answered.items()) if "n" in r]
+        if errors != [2] or ns != [BATCH] * 4 or "pass stage" not in answered[2]["error"]:
+            raise AssertionError(f"serve {mode}: responses {run['lines']}")
+        run["windows_per_s"] = windows / run["seconds"]
+        modes[mode] = run
+        say("serve-cli", mode=mode, ready_warmup_s=run["warmup_s"],
+            seconds=f"{run['seconds']:.3f}", windows=windows,
+            windows_per_s=f"{run['windows_per_s']:.3f}")
+    for i in (0, 1, 3, 4):
+        a, b = (np.load(tmp / f"serve_{m}" / f"signals_{i}.npy") for m in modes)
+        if a.shape != (BATCH, 3000, 1) or not np.isfinite(a).all():
+            raise AssertionError(f"serve request {i}: artifact {a.shape}")
+        np.testing.assert_array_equal(a, b, err_msg=f"serve request {i}: strict vs --pipeline")
+    say("serve-cli", artifacts_equal=True, error_line=modes["strict"]["lines"][2]["error"][:60])
+    return dict(warm_cache_s=warm_s, warmed=warmed,
+                **{m: {k: v for k, v in r.items() if k != "lines"} for m, r in modes.items()})
+
+
+def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
+    """Hold each kernel to its plain version at the shapes of ``shapes``
+    ({kernel id: {shape: launches}}) not checked yet."""
+    for kid, keys in shapes.items():
+        new = [key for key in keys if key not in checks[kid]]
+        for key in new:
+            checks[kid][key] = check_kernel(kid, key)
+        free_card()
+        errs = [checks[kid][key] for key in keys]
+        say("check", kernel=KERNELS[kid]["name"], path=path, shapes=len(keys),
+            new_shapes=len(new),
+            fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in errs):.3e}",
+            bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in errs):.3e}")
+
+
 def phase_timings(paths: dict, checks: dict) -> tuple:
     """Each kernel at each shape of its path, bf16: ms of one launch, times
     its launches in one run of the path, summed. ``ms``, ``plain_ms`` and
@@ -1654,6 +2047,7 @@ def main(only: str | None = None) -> int:
         shapes, checks = phase_checks(tmp)
         phase_tiny(tmp)
         tiny_eval = phase_tiny_eval(tmp)
+        tiny_serve = phase_tiny_serve(tmp)
         full = phase_full(tmp)
         cold = phase_cold(tmp)
         tiny_train = phase_tiny_train(tmp)
@@ -1661,6 +2055,10 @@ def main(only: str | None = None) -> int:
         tiny_stage1 = phase_tiny_stage1(tmp)
         stage1 = phase_stage1_full(tmp)
         evals = phase_eval_full(tmp)
+        serve = phase_serve_full()
+        serve_cli_run = phase_serve_cli(tmp)
+    guided_path = "guided DPM++2M-20 request"
+    check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     dpm = evals["dpm"]
     paths = {"K1 sample": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
              "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
@@ -1668,6 +2066,10 @@ def main(only: str | None = None) -> int:
              "K1 dpm": ("K1", "DPM++2M-20 batch", dpm["shapes"]["K1"], dpm["launches"]["K1"]),
              "K2 dpm": ("K2", "DPM++2M-20 batch", dpm["shapes"]["K2"], dpm["launches"]["K2"]),
              **recon_path(shapes),
+             "K1 guided": ("K1", guided_path, serve["guided_shapes"]["K1"],
+                           serve["guided_counts"]["K1"]),
+             "K2 guided": ("K2", guided_path, serve["guided_shapes"]["K2"],
+                           serve["guided_counts"]["K2"]),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -1682,6 +2084,8 @@ def main(only: str | None = None) -> int:
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
                   stage1=stage1, tiny_stage1=tiny_stage1, eval_relayouts=shapes["evals"],
                   tiny_eval=tiny_eval, eval_full={k: v for k, v in evals.items() if k != "dpm"},
+                  tiny_serve=tiny_serve, serve_cli=serve_cli_run,
+                  serve={k: v for k, v in serve.items() if k != "guided_shapes"},
                   dpm={k: v for k, v in dpm.items() if k != "shapes"},
                   kernels=rows, per_shape=per_shape, strided_dy=strided,
                   strided_dy_stage1=strided_stage1, profile=prof, train_profile=train_prof,

@@ -9,6 +9,8 @@ COMMANDS = {
     "compute-mmds": "sleepgen_torch.cli.compute_mmds",
     "train-aekl": "sleepgen_torch.cli.train_autoencoderkl",
     "train-ldm": "sleepgen_torch.cli.train_ldm",
+    "serve": "sleepgen_torch.cli.serve",
+    "warm-cache": "sleepgen_torch.cli.warm_cache",
 }
 
 

@@ -10,7 +10,8 @@ step does. It works with any prediction type through
 The loop is a Python loop like ``samplers.ddim_sample_loop``: x stays fp32
 and the model output is cast to fp32. The per-step coefficients are
 scalars, computed once on the host from the schedule's fp32 tables, so a
-step launches no work but the model call and two tensor updates.
+step launches no work but the model call and two tensor updates, and the
+loop never waits for the card.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from sleepgen_torch.diffusion.schedules import NoiseSchedule
 def dpm_timesteps(sched: NoiseSchedule, num_inference_steps: int) -> np.ndarray:
     """Descending int32 timesteps, uniform in log-SNR, strictly decreasing,
     ending at t = 0. Integers identical to the JAX package's for the same
-    schedule: both start from the same fp32 ``alphas_cumprod``."""
-    acp = sched.alphas_cumprod.detach().cpu().numpy().astype(np.float64)
+    schedule: both start from the same fp32 ``alphas_cumprod``, read here
+    from the host copy so that no call waits for the card."""
+    acp = sched.alphas_cumprod_host.astype(np.float64)
     lam = 0.5 * np.log(acp) - 0.5 * np.log(1.0 - acp)  # decreasing in t
     targets = np.linspace(lam[-1], lam[0], num_inference_steps)
     # inverse-interpolate lambda -> fractional t (np.interp needs ascending x)
@@ -51,7 +53,7 @@ def dpm_solver_pp_2m_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor]
     x0 in fp32. ``model_fn(x, t_batch)`` is the network, read under
     ``sched.prediction_type``."""
     ts = dpm_timesteps(sched, num_inference_steps).tolist()
-    acp = sched.alphas_cumprod.detach().cpu().numpy().astype(np.float64)
+    acp = sched.alphas_cumprod_host.astype(np.float64)
     alphas = np.sqrt(acp)  # x_t = alpha_t x0 + sigma_t eps
     sigmas = np.sqrt(1.0 - acp)
     lambdas = np.log(alphas) - np.log(sigmas)  # log-SNR

@@ -53,8 +53,11 @@ class NoiseSchedule:
         self.num_timesteps = int(len(betas))
         self.prediction_type = prediction_type
         self.betas = torch.as_tensor(betas, dtype=torch.float32, device=device)
-        self.alphas_cumprod = torch.as_tensor(np.cumprod(1.0 - betas),
-                                              dtype=torch.float32, device=device)
+        acp = np.cumprod(1.0 - betas).astype(np.float32)
+        self.alphas_cumprod = torch.as_tensor(acp, device=device)
+        # The same fp32 table on the host, for loops that compute per-step
+        # scalars: reading the device table back would wait for the card.
+        self.alphas_cumprod_host = acp
 
     @classmethod
     def create(cls, schedule: str = "linear_beta", num_timesteps: int = 1000,

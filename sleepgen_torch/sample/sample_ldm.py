@@ -1,8 +1,9 @@
 """LDM sampling with the reference's artifact contract.
 
-Counterpart of ``sleepgen/sample/sample_ldm.py`` (unconditional). Per batch
-of seeds: per-seed x_T -> DDIM or DPM-Solver++(2M) over the UNet -> AEKL
-decode of z / scale_factor -> crop of the border pad. Artifacts:
+Counterpart of ``sleepgen/sample/sample_ldm.py``. Per batch of seeds:
+per-seed x_T -> DDIM or DPM-Solver++(2M) over the UNet (plain, stage
+conditional, or with classifier-free guidance) -> AEKL decode of
+z / scale_factor -> crop of the border pad. Artifacts:
 
   * ``sample_{i}.npy``   (1, 1, 3000) cropped signal, reference layout;
   * ``psd_list_{i}.npy`` [psds (1, F), freqs (F,), psds_mean (F,)], the dB
@@ -27,9 +28,11 @@ from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d
-from sleepgen_torch.sample.samplers import ddim_sample_loop, seed_noise
+from sleepgen_torch.sample.samplers import (cond_model_fn, ddim_sample_loop, seed_noise,
+                                             validate_stage)
 from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.weights import load_numpy_state
+from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,
+                                          load_params_npz, unet_state_from_jax)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SAMPLERS = {"ddim": ddim_sample_loop, "dpm++2m": dpm_solver_pp_2m_sample_loop}
@@ -83,22 +86,40 @@ def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
 def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                      latent_len: int = 768, latent_channels: int = 1,
                      num_inference_steps: int = 200, border_pad: int = BORDER_PAD,
-                     sampler: str = "ddim", device: torch.device | str = "cuda"
-                     ) -> Callable[[float, Sequence[int]], torch.Tensor]:
-    """Returns ``sample(scale_factor, seeds) -> (B, L - 2 * border_pad, C)``
-    fp32 on ``device``. ``unet``, ``ae`` and ``sched`` must already live on
-    ``device``. ``sampler``: "ddim" (the reference's) or "dpm++2m"
-    (DPM-Solver++(2M), about DDIM-200's quality in 20 steps); either makes
-    ``num_inference_steps`` UNet calls."""
+                     sampler: str = "ddim", device: torch.device | str = "cuda",
+                     conditional: bool = False, guided: bool = False
+                     ) -> Callable[..., torch.Tensor]:
+    """Returns ``sample(scale_factor, seeds, labels=None, guidance_scale=None)
+    -> (B, L - 2 * border_pad, C)`` fp32 on ``device``. ``unet``, ``ae`` and
+    ``sched`` must already live on ``device``. ``sampler``: "ddim" (the
+    reference's) or "dpm++2m" (DPM-Solver++(2M), about DDIM-200's quality
+    in 20 steps); either makes ``num_inference_steps`` UNet calls.
+
+    ``conditional``: each call takes ``labels``, (B,) int64 class labels on
+    ``device``, for the UNet's class embedding (``unet.num_classes`` > 0).
+    ``guided``: classifier-free guidance, with the null branch in the same
+    2B-batch UNet forward per step (``samplers.cond_model_fn``); each call
+    takes its ``guidance_scale``, so one sampler serves every scale. The
+    call returns once the work is queued on the card; it reads nothing
+    back."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler '{sampler}'; one of {sorted(SAMPLERS)}")
+    if guided and not conditional:
+        raise ValueError("guided sampling requires a conditional sampler")
     loop = SAMPLERS[sampler]
     dev = resolve_device(device)
 
-    def sample(scale_factor: float, seeds: Sequence[int]) -> torch.Tensor:
+    def sample(scale_factor: float, seeds: Sequence[int], labels: torch.Tensor | None = None,
+               guidance_scale: float | None = None) -> torch.Tensor:
+        if conditional and labels is None:
+            raise ValueError("a conditional sampler needs labels")
+        if guided and guidance_scale is None:
+            raise ValueError("a guided sampler needs guidance_scale")
         with torch.inference_mode():
             x_T = seed_noise(seeds, (latent_len, latent_channels), dev)
-            z = loop(unet, sched, x_T.transpose(1, 2), num_inference_steps)
+            model_fn = cond_model_fn(unet, labels if conditional else None, guidance_scale,
+                                     guided=guided)
+            z = loop(model_fn, sched, x_T.transpose(1, 2), num_inference_steps)
             signal = ae.decode_stage_2_outputs(z / scale_factor).float()
             return signal[:, :, border_pad:-border_pad].transpose(1, 2)
 
@@ -129,31 +150,65 @@ def write_sample_artifacts(output_dir: str | Path, seeds: Sequence[int],
                 allow_pickle=True)
 
 
+def stage_labels(stage: int, batch: int, device: torch.device) -> torch.Tensor:
+    """(batch,) int64 labels of one stage, made on ``device`` (no copy)."""
+    return torch.full((batch,), int(stage), dtype=torch.int64, device=device)
+
+
+def padded_chunks(seeds: Sequence[int], batch_size: int):
+    """``seeds`` in chunks of ``batch_size``, a last partial chunk padded
+    with copies of its last seed: yields (padded chunk, real length). Every
+    chunk then runs the kernels at the shapes a full batch gives them."""
+    seeds = list(seeds)
+    for i in range(0, len(seeds), batch_size):
+        chunk = seeds[i:i + batch_size]
+        yield chunk + [chunk[-1]] * (batch_size - len(chunk)), len(chunk)
+
+
 def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
                       ae_state: Mapping[str, np.ndarray], scale_factor: float,
                       output_dir: str | Path, start_seed: int = 0, stop_seed: int = 1000,
                       batch_size: int = 64, aekl_cfg: Optional[Config] = None,
                       compute_psd: bool = True, border_pad: int = BORDER_PAD,
-                      device: torch.device | str = "cuda") -> np.ndarray:
+                      device: torch.device | str = "cuda", stage: Optional[int] = None,
+                      guidance_scale: float = 1.0) -> np.ndarray:
     """Sample seeds [start_seed, stop_seed) in batches of ``batch_size`` and
     write their artifacts. ``unet_state``/``ae_state`` are the port's state
-    dicts (``utils.weights``); the models run in ``cfg.dtype``. Returns all
+    dicts (``utils.weights``); the models run in ``cfg.dtype``. ``stage``:
+    the class label of a conditional checkpoint (``cfg.unet.num_classes`` >
+    0); ``guidance_scale`` other than 1 adds classifier-free guidance. A
+    last partial batch is padded to ``batch_size`` and trimmed. Returns all
     cropped signals, (N, 3000, 1) fp32."""
+    validate_stage(cfg.unet.num_classes, stage, guidance_scale)
     dev = resolve_device(device)
-    if cfg.unet.num_classes:
-        raise NotImplementedError("conditional sampling is not ported yet")
+    conditional = cfg.unet.num_classes > 0
+    guided = conditional and guidance_scale != 1.0
     unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg)
     sampler = make_ldm_sampler(unet, ae, sampling_schedule(cfg, dev),
                                latent_len=cfg.unet.image_size,
                                latent_channels=(aekl_cfg or cfg).aekl.latent_channels,
                                num_inference_steps=cfg.diffusion.num_inference_steps,
                                border_pad=border_pad, sampler=cfg.diffusion.sampler,
-                               device=dev)
-    all_seeds = list(range(start_seed, stop_seed))
+                               device=dev, conditional=conditional, guided=guided)
+    labels = stage_labels(stage, batch_size, dev) if conditional else None
     outs = []
-    for i in range(0, len(all_seeds), batch_size):
-        seeds = all_seeds[i:i + batch_size]
-        sig = sampler(scale_factor, seeds).cpu().numpy()
-        write_sample_artifacts(output_dir, seeds, sig, compute_psd)
+    for seeds, n in padded_chunks(range(start_seed, stop_seed), batch_size):
+        sig = sampler(scale_factor, seeds, labels, guidance_scale).cpu().numpy()[:n]
+        write_sample_artifacts(output_dir, seeds[:n], sig, compute_psd)
         outs.append(sig)
     return np.concatenate(outs, axis=0)
+
+
+def read_run_dirs(aekl_run_dir: str | Path, ldm_run_dir: str | Path):
+    """A port AEKL run dir (``config.yaml``, ``params.npz``) and LDM run dir
+    (the same plus ``scale_factor.txt``) -> (LDM config, AEKL config, UNet
+    state dict, AEKL state dict, scale factor). ``params.npz`` is a flat
+    '/'-keyed parameter tree; the README shows how to export one from a JAX
+    run dir."""
+    ae_dir, ldm_dir = Path(aekl_run_dir), Path(ldm_run_dir)
+    aekl_cfg = Config.from_yaml(ae_dir / "config.yaml")
+    cfg = Config.from_yaml(ldm_dir / "config.yaml")
+    ae_state = aekl_state_from_jax(load_params_npz(ae_dir / "params.npz"))
+    unet_state = unet_state_from_jax(load_params_npz(ldm_dir / "params.npz"))
+    scale_factor = float((ldm_dir / "scale_factor.txt").read_text())
+    return cfg, aekl_cfg, unet_state, ae_state, scale_factor

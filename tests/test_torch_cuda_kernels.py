@@ -130,6 +130,44 @@ def test_gn_silu_conv3_kernel_bf16(b, cin, cout, l, g):
     assert bool((err <= tol).all()), err.max()
 
 
+# A guided sampler runs the UNet on the conditional and the null batch in
+# one forward: batch 128 at the service's batch 64. K1 at every UNet
+# GroupNorm shape, K2 at every sampler shape, fp32 and bf16.
+GUIDED_BATCH = 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l", STAGE2_GN_SHAPES)
+def test_group_norm_silu_kernel_at_the_guided_batch(c, l, dtype):
+    x, scale, bias = _inputs(21, GUIDED_BATCH, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, 32)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, 32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+    else:
+        err = (got.float() - want).abs()
+        assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout,l", SAMPLER_K2_SHAPES)
+def test_gn_silu_conv3_kernel_at_the_guided_batch(cin, cout, l, dtype):
+    x, scale, bias, w, bb = _inputs(22, GUIDED_BATCH, cin, l, cout)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(),
+                                                  bb.float(), 32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        err = (got.float() - want).abs()
+        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+        assert bool((err <= tol).all()), err.max()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_gn_silu_conv3_is_deterministic(dtype):
     x, scale, bias, w, bb = _inputs(13, 4, 512, 192, 512)

@@ -40,6 +40,12 @@ def test_port_imports_no_jax_and_no_sleepgen(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_import_walk_covers_the_serving_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"sleepgen_torch/serve.py", "sleepgen_torch/cli/serve.py",
+            "sleepgen_torch/cli/warm_cache.py", "chip_smoke.py"} <= names
+
+
 def test_import_walk_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom sleepgen.config import Config\n"
@@ -47,14 +53,14 @@ def test_import_walk_sees_forbidden_imports(tmp_path):
     assert set(_imported_roots(src)) & FORBIDDEN == {"jax", "sleepgen", "flax"}
 
 
-def _tiny_models():
+def _tiny_models(num_classes: int = 0):
     from sleepgen_torch.nn.aekl import AutoencoderKL
     from sleepgen_torch.nn.unet1d import UNet1d
     from sleepgen_torch.sample.sample_ldm import sampling_schedule
     from sleepgen_torch.config import Config
 
     unet = UNet1d(model_channels=16, channel_mult=(1, 2), attention_resolutions=(2,),
-                  num_groups=8).eval()
+                  num_groups=8, num_classes=num_classes).eval()
     ae = AutoencoderKL(num_channels=(2, 2, 4)).eval()
     return unet, ae, sampling_schedule(Config())
 
@@ -96,6 +102,46 @@ def test_entry_points_default_to_the_gpu(tmp_path):
         compute_fid(usleep, windows, windows)
     feats = usleep_fid_features(usleep, windows, device="cpu")
     assert feats.shape == (2, usleep.bottom[0].out_channels)
+
+    from sleepgen_torch.cli import sample_trials, serve, warm_cache
+    from sleepgen_torch.serve import SamplerService
+
+    aekl_dir, ldm_dir = _tiny_run_dirs(tmp_path / "runs", num_classes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SamplerService.from_run_dirs(aekl_dir, ldm_dir)
+    dirs = ["--best_model_path", str(aekl_dir), "--diffusion_path", str(ldm_dir)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([*dirs, "--output_dir", str(tmp_path / "serve")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        warm_cache.main(["--config_file", str(ldm_dir / "config.yaml"),
+                         "--targets", "sampler"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_trials.main([*dirs, "--output_dir", str(tmp_path / "sample"), "--stage", "1"])
+    assert not (tmp_path / "sample").exists()
+    assert SamplerService.from_run_dirs(aekl_dir, ldm_dir, batch_size=2, device="cpu").sample(
+        [0], stage=1).shape == (1, 4 * 32 - 72, 1)
+
+
+def _tiny_run_dirs(root: Path, num_classes: int):
+    """Port run dirs of _tiny_models' widths with seeded weights, latent 32,
+    one sampling step."""
+    from sleepgen_torch.config import Config
+    from sleepgen_torch.utils import weights
+
+    unet, ae, _ = _tiny_models(num_classes)
+    cfg = Config()
+    cfg.aekl.num_channels = [2, 2, 4]
+    cfg.unet.model_channels, cfg.unet.channel_mult = 16, [1, 2]
+    cfg.unet.attention_resolutions, cfg.unet.norm_num_groups = [2], 8
+    cfg.unet.num_classes, cfg.unet.image_size = num_classes, 32
+    cfg.diffusion.num_inference_steps = 1
+    for name, tree in (("aekl", weights.aekl_state_to_jax(weights.seeded_state_dict(ae, 0))),
+                       ("ldm", weights.unet_state_to_jax(weights.seeded_state_dict(unet, 1)))):
+        (root / name).mkdir(parents=True)
+        cfg.to_yaml(root / name / "config.yaml")
+        weights.save_params_npz(root / name / "params.npz", {"params": tree})
+    (root / "ldm" / "scale_factor.txt").write_text("1.0")
+    return root / "aekl", root / "ldm"
 
 
 def test_cpu_device_runs_the_plain_versions():
