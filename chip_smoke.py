@@ -2,11 +2,12 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives five paths: LDM
+CUDA toolkit: ``python3 chip_smoke.py``. It drives six paths: LDM
 sampling, stage-2 LDM training, stage-1 AEKL training, the evaluation
-(DPM++2M sampling, ``compute-fid``, ``compute-mmds``) and serving
+(DPM++2M sampling, ``compute-fid``, ``compute-mmds``), serving
 (``SamplerService``, ``serve``, ``warm-cache``; stage-conditional and
-guided sampling). Phases, one line each:
+guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
+``impute`` in signal and latent space). Phases, one line each:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
@@ -22,7 +23,13 @@ guided sampling). Phases, one line each:
      from the configuration, K2 none, with the strided dy copies K3's
      wrapper made; one ``compute-mmds`` reconstruction batch of 64
      windows, fp32, whose 26 K1 launches must equal those derived from the
-     configuration); at every one of
+     configuration; one DDIM step of the full-width DM (``dm.yaml``) at
+     batch 64 through ``sample_dm_trials``, and one full-width DM training
+     step at ``dm.yaml``'s batch 512, bf16, each with its launch counts
+     equal to those derived from the configuration (the step: K1 and K3
+     49 each, K2 none; its groups of exactly 12,288 elements run K1 and K3
+     on chip, those of 18,432-36,864 on K1's streaming path and K3's
+     three-pass form at G 32)); at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
      off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
      the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
@@ -126,6 +133,30 @@ guided sampling). Phases, one line each:
      error line, the two modes' artifacts equal, the ready line's warm-up
      seconds and each mode's windows/s from the first request sent to the
      last response;
+  D1. tiny DM, card against CPU, same seeds and weights, fp32 with TF32
+     off: ``sample_dm_trials`` with 4 DDIM steps at UNet mc 32, [1, 2],
+     attention [2], G 8 on windows of 4096 (groups of 16,384-49,152
+     elements: K1's streaming path at G 8), at the model bound, launch
+     counts as derived; two DM training steps, and one conditional step
+     (5 classes, two labels dropped to the null label, the spectral term
+     on), each held by ``hold_tiny_stage1`` (metrics, each step's
+     gradients, what the steps changed); RePaint over an 8-step schedule
+     with ``num_resample`` 2 on the same injected noise, in signal space
+     (``impute_dm``) and in latent space (``impute_ldm``, the tiny LDM and
+     AEKL [4, 4, 8]), at the model bound, the observed region equal to
+     x_known bitwise on the card, launch counts as derived;
+  D2. full-width DM (``dm.yaml``, bf16, seeded weights in port run dirs):
+     ``python -m sleepgen_torch sample-dm`` (64 seeds, DDIM-200 over the
+     1000-entry table, artifacts; the warm-up), then three timed batches of
+     64 through ``sample_dm_trials`` with their launch counts (median
+     windows/s, min-max); ``train-dm`` on a synthetic npy tree of 512 + 64
+     recordings, seven one-step epochs at batch 512 (median ms per step
+     after the first, windows/s, peak memory, K1 and K3 launches as
+     derived); ``impute`` in signal mode (16 windows, one batch, 1000
+     RePaint steps) and in latent mode over the flagship LDM and AEKL:
+     seconds per batch, windows/s, launch counts, observed samples
+     unchanged; ``warm-cache --targets ldm`` on S2's conditional config
+     (one labelled training step at batch 1024) in a process of its own;
   8. timings: each kernel at each shape of its path in bf16 (the
      reconstruction's K1 in fp32, as it runs): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
@@ -141,14 +172,19 @@ guided sampling). Phases, one line each:
      scipy import (fresh process) and DPSS taper solve; five full-width
      DDIM steps on the host clock, then again under torch.profiler: device
      time per step by kernel, and the device's busy share of the wall time;
-     one full-width training step of each stage the same way.
+     one full-width training step of each stage the same way; five
+     full-width DM DDIM steps at batch 64, ``impute``'s RePaint steps at
+     batch 16 in signal and in latent mode (``repaint_profile``: twenty on
+     the host clock, five under the profiler) and one DM training step at
+     batch 512 the same way.
 
 The line before the device line at the end is one JSON object with a row
 per kernel and path: launches in one run of the path (K1: a sampler
 batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
-reconstruction batch, a guided DPM++2M-20 request; K2: a sampler batch,
-a DPM++2M-20 batch, a guided DPM++2M-20 request; K3: a stage-2 and a
-stage-1 training step; B2, B3: on no path), its error and
+reconstruction batch, a guided DPM++2M-20 request, a DM DDIM-200 batch
+and a DM training step; K2: a sampler batch, a DPM++2M-20 batch, a
+guided DPM++2M-20 request, a DM DDIM-200 batch; K3: a stage-2, a
+stage-1 and a DM training step; B2, B3: on no path), its error and
 its times (each shape's time times its launches in that run, summed);
 the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
@@ -156,27 +192,28 @@ chiprun_out/chip_smoke_report.json. Any failure raises and the script
 exits non-zero without the last line.
 
 ``python3 chip_smoke.py --only K2`` is the quick loop for K2 alone:
-phases 1 and 2, the DDIM step at batch 64 that records K2's shapes and
-launches (the count checked against the configuration), K2's fp32 and
-bf16 checks at those shapes and at B3's, and the phase-8 timings of K2
-(path "DDIM step": each shape's time times the step's measured launches
-at it) and B3. It prints the kernels' JSON line and writes
+phases 1 and 2, the DDIM steps at batch 64 of the LDM and of the DM
+that record K2's shapes and launches (the counts checked against the
+configuration), K2's fp32 and bf16 checks at those shapes and at B3's,
+and the phase-8 timings of K2 (paths "DDIM step" and "DM DDIM step":
+each shape's time times the step's measured launches at it) and B3. It prints the kernels' JSON line and writes
 chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
 and exits non-zero on any failure.
 
 ``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2:
 phases 1 and 2, the sampler's warm-up call (one DDIM step and the
-decode), one full-width training step of each stage and one
-reconstruction batch, whose K1 and K3 launches are checked against the
-configuration; K1's, K3's and B2's fp32
+decode), one full-width training step of each stage and of the DM, one
+DDIM step of the DM and one reconstruction batch, whose K1 and K3
+launches are checked against the configuration; K1's, K3's and B2's fp32
 and bf16 checks at those shapes and at B2's; the phase-8 timings of K1
-(paths "DDIM step", "train step", "stage-1 step" and "reconstruction
-batch"), K3 ("train step",
-"stage-1 step") and B2, and of K3's strided-dy copies. Report in
+(paths "DDIM step", "train step", "stage-1 step", "reconstruction
+batch" and "DM train step"), K3 ("train step", "stage-1 step", "DM train
+step") and B2, and of K3's strided-dy copies. Report in
 chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import re
@@ -198,24 +235,29 @@ sys.path.insert(0, str(ROOT))
 from sleepgen_torch.__main__ import main as sleepgen_torch_main  # noqa: E402
 from sleepgen_torch.cli.compute_fid import load_usleep  # noqa: E402
 from sleepgen_torch.cli.compute_mmds import reconstruction_scores  # noqa: E402
+from sleepgen_torch.diffusion.schedules import NoiseSchedule  # noqa: E402
 from sleepgen_torch.config import Config  # noqa: E402
 from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
 from sleepgen_torch.data.synthetic import (make_synthetic_dataset, write_ids_csv,  # noqa: E402
                                            write_synthetic_npy_tree)
-from sleepgen_torch.data.transforms import center_crop_valid, to_bcl  # noqa: E402
+from sleepgen_torch.data.transforms import BORDER_PAD, center_crop_valid, to_bcl  # noqa: E402
 from sleepgen_torch.eval.bands import EEG_BANDS, filter_band  # noqa: E402
 from sleepgen_torch.eval.fid import frechet_distance, usleep_fid_features  # noqa: E402
 from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
 from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
 from sleepgen_torch.nn.usleep import USleep  # noqa: E402
-from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_models,  # noqa: E402
-                                              build_unet, sample_ldm_trials,
+from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_dm,  # noqa: E402
+                                              build_models, build_unet, dm_sampling_schedule,
+                                              sample_dm_trials, sample_ldm_trials,
                                               sampling_schedule)
-from sleepgen_torch.sample.samplers import ddim_sample_loop  # noqa: E402
+from sleepgen_torch.sample.samplers import (cond_model_fn, ddim_sample_loop,  # noqa: E402
+                                             ddpm_inpaint_loop, impute_dm, impute_ldm,
+                                             latent_observed_mask)
 from sleepgen_torch.serve import SamplerService  # noqa: E402
 from sleepgen_torch.train import common as C  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
+from sleepgen_torch.train import train_dm as D  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
                                           lecun_normal_state, load_numpy_state,
@@ -246,6 +288,10 @@ SEED_ALONE = 5  # S2: served alone, against its place in a batch of 64
 # decode, as a share of the batch's largest |value|: four bf16 roundings
 ALONE_BOUND = 2.0**-6
 SPIN_S = 1.5  # S2: seconds of card work queued ahead of sample_async (a request queues in < 0.5)
+DM_CONFIG = ROOT / "sleepgen" / "configs" / "dm.yaml"  # read as YAML
+DM_TRAIN_BATCH = 512  # dm.yaml; train-dm peaks at 69.90 GiB at it on an H100 80GB
+DM_TABLE = 1000  # sample-dm's default --num_inference_steps: the sampling table's length
+IMPUTE_BATCH, IMPUTE_MASK = 16, (1200, 600)  # impute's default batch; (mask_start, mask_len)
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -787,6 +833,27 @@ def phase_recon_batch() -> tuple:
     return counts, shapes
 
 
+def say_dm_checks(results: dict, sample_shapes: dict, train_shapes: dict) -> None:
+    """The DM's share of phase 3's checks: its shapes of each kernel, how
+    many of K1's and K3's groups hold exactly ON_CHIP_MAX elements (the
+    largest on-chip case) and how many stream at G > 1, and their largest
+    errors. Raises if the DM's training step gave neither kind."""
+    keys = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]}, "K2": sample_shapes["K2"],
+            "K3": train_shapes["K3"]}
+    keys = {kid: ks for kid, ks in keys.items() if kid in results}
+    sizes = [k[1] // k[3] * k[2] for kid in ("K1", "K3") for k in keys.get(kid, ())
+             if k[3] > 1]
+    at_max = sum(n == group_norm.ON_CHIP_MAX for n in sizes)
+    streaming = sum(n > group_norm.ON_CHIP_MAX for n in sizes)
+    if train_shapes["K3"] and not (at_max and streaming):
+        raise AssertionError(f"DM shapes: {at_max} groups of ON_CHIP_MAX, {streaming} streaming")
+    errs = [results[kid][k] for kid, ks in keys.items() for k in ks]
+    say("check-dm", **{f"{kid.lower()}_shapes": len(ks) for kid, ks in keys.items()},
+        groups_at_on_chip_max=at_max, streaming_groups_g_gt_1=streaming,
+        fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in errs):.3e}",
+        bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in errs):.3e}")
+
+
 def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     """The sampler's warm-up DDIM step, one training step of each stage and
     one reconstruction batch record the shapes each kernel gets on each
@@ -812,18 +879,21 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
         if sample_counts[kid] != want:
             raise AssertionError(f"DDIM step: {kid} launches {sample_counts[kid]}, "
                                  f"expected {want}")
+    dm_sample_counts, dm_sample_shapes = phase_dm_sample_step(tmp)
     if only == "K2":
         train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
         stage1_counts, stage1_shapes = {}, {"K1": {}, "K3": {}}
         recon_counts, recon_shapes = {}, {"K1": {}}
+        dm_train_counts, dm_train_shapes = {}, {"K1": {}, "K3": {}}
     else:
         train_counts, train_shapes, evals = phase_train_step()
         stage1_counts, stage1_shapes = phase_stage1_step()
         recon_counts, recon_shapes = phase_recon_batch()
+        dm_train_counts, dm_train_shapes = phase_dm_train_step()
     to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **stage1_shapes["K1"],
-                       **recon_shapes["K1"]},
-                "K2": sample_shapes["K2"],
-                "K3": {**train_shapes["K3"], **stage1_shapes["K3"]},
+                       **recon_shapes["K1"], **dm_sample_shapes["K1"], **dm_train_shapes["K1"]},
+                "K2": {**sample_shapes["K2"], **dm_sample_shapes["K2"]},
+                "K3": {**train_shapes["K3"], **stage1_shapes["K3"], **dm_train_shapes["K3"]},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
     if only:
         keep = {"K2": ("K2", "B3"), "GN": ("K1", "K3", "B2")}[only]
@@ -835,11 +905,15 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
         say("check", kernel=KERNELS[kid]["name"], shapes=len(keys),
             fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in results[kid].values()):.3e}",
             bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in results[kid].values()):.3e}")
+    if "K1" in results:
+        say_dm_checks(results, dm_sample_shapes, dm_train_shapes)
     reset_counts()
     return dict(sample=sample_shapes, sample_counts=sample_counts, train=train_shapes,
                 train_counts=train_counts, evals=evals, stage1=stage1_shapes,
                 stage1_counts=stage1_counts, recon=recon_shapes,
-                recon_counts=recon_counts), results
+                recon_counts=recon_counts, dm_sample=dm_sample_shapes,
+                dm_sample_counts=dm_sample_counts, dm_train=dm_train_shapes,
+                dm_train_counts=dm_train_counts), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -1061,7 +1135,8 @@ def tiny_stage1_run(cfg: Config, dev: str, x: np.ndarray, eps: list) -> dict:
     return dict(metrics=metrics, grads=grads, before=before, after=stage1_state(ae, disc))
 
 
-def hold_tiny_stage1(got: dict, want: dict) -> dict:
+def hold_tiny_stage1(got: dict, want: dict, metrics=A.METRICS,
+                     what: str = "tiny stage-1 trainer") -> dict:
     """Hold one ``tiny_stage1_run`` (``got``) to another (``want``), from
     the same weights, batch and eps; raise listing every disagreement.
 
@@ -1078,7 +1153,7 @@ def hold_tiny_stage1(got: dict, want: dict) -> dict:
     Returns the worst ratios and the entries left out."""
     faults = []
     for i, (gm, wm) in enumerate(zip(got["metrics"], want["metrics"])):
-        for k in A.METRICS:
+        for k in metrics:
             if not abs(gm[k] - wm[k]) <= 2e-4 + 2e-3 * abs(wm[k]):
                 faults.append(f"step {i} {k}: {gm[k]:.6g}, expected {wm[k]:.6g}")
     grad_ratio = 0.0
@@ -1103,7 +1178,7 @@ def hold_tiny_stage1(got: dict, want: dict) -> dict:
             faults.append(f"change of {k}: |err| {err:.3e}, leaf's largest change {top:.3e}")
         update_ratio = max(update_ratio, err / top if top > 0 else np.inf)
     if faults:
-        raise AssertionError(f"tiny stage-1 trainer, {len(faults)} disagreements:\n"
+        raise AssertionError(f"{what}, {len(faults)} disagreements:\n"
                              + "\n".join(faults))
     return dict(grad_err_ratio=grad_ratio, update_err_ratio=update_ratio, left_out=left_out,
                 entries=entries)
@@ -1230,7 +1305,7 @@ def usleep_state(seed: int) -> dict:
 def hold(name: str, got, want, rtol: float, atol: float) -> float:
     """Max abs error of got (card) against want (CPU), raising past the bound."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=f"E1 {name}: card vs CPU")
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=f"{name}: card vs CPU")
     return float(np.abs(got - want).max())
 
 
@@ -1746,6 +1821,468 @@ def phase_serve_cli(tmp: Path) -> dict:
                 **{m: {k: v for k, v in r.items() if k != "lines"} for m, r in modes.items()})
 
 
+# -- the signal-space DM (phase 3's DM steps, D1, D2) ---------------------------
+
+def dm_config() -> Config:
+    """``dm.yaml`` as it stands: UNet mc 128 / [1, 2, 4] / attention [8, 4] /
+    G 32 on (B, 1, 3072) windows, batch 512, bf16."""
+    cfg = Config.from_yaml(DM_CONFIG)
+    got = (cfg.train.batch_size, cfg.dtype, cfg.unet.image_size, cfg.unet.norm_num_groups)
+    if got != (DM_TRAIN_BATCH, "bfloat16", 3072, 32):
+        raise AssertionError(f"{DM_CONFIG}: batch, dtype, length, G {got}")
+    return cfg
+
+
+def tiny_dm_config(num_classes: int = 0) -> Config:
+    """The tiny UNet (mc 32, [1, 2], attention [2], G 8, fp32) on windows of
+    4096: the first level's groups hold 16,384 elements and the skip
+    concatenations' up to 49,152, so K1's streaming path and K3's
+    three-pass form run at G 8."""
+    cfg = tiny_config(steps=4)
+    cfg.unet.image_size, cfg.unet.num_classes = 4096, num_classes
+    return cfg
+
+
+def dm_state(cfg: Config, seed: int) -> dict:
+    with torch.device("meta"):
+        return seeded_state_dict(build_unet(cfg, 1, 1), seed)
+
+
+def expected_dm_launches(cfg: Config, forwards: int, train_steps: int = 0) -> dict:
+    """Kernel launches of the DM, derived from the configuration: a forward
+    without autograd runs the sampler's K1 and K2 (no decode); a training
+    step K1 and K3 at every UNet GroupNorm and no K2."""
+    per, n = expected_launches(cfg, 1, 0), gn_counts(cfg)["unet_gn"]
+    return {"K1": forwards * per["K1"] + train_steps * n, "K2": forwards * per["K2"],
+            "K3": train_steps * n}
+
+
+def phase_dm_sample_step(tmp: Path) -> tuple:
+    """One DDIM step of the full-width DM through ``sample_dm_trials`` at
+    batch 64 (bf16, the 1000-entry table), with the counts set to 0 before
+    and read after: they must equal those derived from the configuration."""
+    cfg = dm_config()
+    reset_counts()
+    out = sample_dm_trials(cfg, dm_state(cfg, SEED), tmp / "dm_warmup", 0, BATCH, BATCH,
+                           DM_TABLE, 1, compute_psd=False)
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    want = expected_dm_launches(cfg, forwards=1)
+    if counts != want or out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
+        raise AssertionError(f"DM DDIM step: launches {counts}, expected {want}, "
+                             f"output {out.shape}")
+    say("dm-step", batch=BATCH, k1_launches=counts["K1"], k2_launches=counts["K2"],
+        k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]))
+    free_card()
+    return counts, shapes
+
+
+def phase_dm_train_step() -> tuple:
+    """One full-width DM training step (dm.yaml, batch 512, bf16) with the
+    counts set to 0 before and read after: K1 and K3 at every UNet
+    GroupNorm, as derived from the configuration, K2 none; its peak
+    memory."""
+    cfg = dm_config()
+    unet, sched, opt = D.build_dm_trainer(cfg, "cuda")
+    step = D.make_dm_train_step(unet, sched, opt, cfg.spectral, DTYPES[cfg.dtype])
+    x = train_windows(DM_TRAIN_BATCH, SEED).to(DTYPES[cfg.dtype]).float()
+    gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
+    t, noise, _ = D.draw_dm_step_inputs(gen, DM_TRAIN_BATCH, (1, x.shape[-1]),
+                                        sched.num_timesteps)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = step(x, t, noise)
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_dm_launches(cfg, forwards=0, train_steps=1)
+    if counts != want or not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"DM training step: launches {counts}, expected {want}, "
+                             f"loss {float(metrics['loss'])}")
+    say("dm-train-step", batch=DM_TRAIN_BATCH, loss=f"{float(metrics['loss']):.5f}",
+        k1_launches=counts["K1"], k3_launches=counts["K3"], k2_launches=counts["K2"],
+        k1_shapes=len(shapes["K1"]), peak_gib=f"{peak / 2**30:.2f}")
+    del unet, opt, step, x, t, noise, metrics
+    free_card()
+    return counts, shapes
+
+
+def tiny_dm_run(cfg: Config, dev: str, x: np.ndarray, draws: list) -> dict:
+    """Steps of the DM trainer on ``dev`` from seeded weights (the
+    trainer's own initialisation zeroes the output convolution, and with it
+    every other gradient of a first step), one per draw (t, noise, labels,
+    drop): each step's metrics and gradients, and the parameters before and
+    after."""
+    unet, sched, opt = D.build_dm_trainer(cfg, dev)
+    load_numpy_state(unet, dm_state(cfg, SEED + 65))  # no zero-initialised layer
+    before = {k: host_copy(v) for k, v in unet.state_dict().items()}
+    step = D.make_dm_train_step(unet, sched, opt, cfg.spectral)
+    metrics, grads = [], []
+    for draw in draws:
+        m = step(torch.from_numpy(x).to(dev),
+                 *(None if a is None else torch.from_numpy(a).to(dev) for a in draw))
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({k: host_copy(p.grad) for k, p in unet.named_parameters()})
+    return dict(metrics=metrics, grads=grads, before=before,
+                after={k: host_copy(v) for k, v in unet.state_dict().items()})
+
+
+def repaint_noises(shape: tuple, steps: int, num_resample: int, seed: int) -> list:
+    """Every draw of one RePaint run, made with numpy on the host."""
+    rng = np.random.default_rng(seed)
+    n = 1 + steps * (3 * num_resample - 1)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(n)]
+
+
+def phase_tiny_dm(tmp: Path) -> dict:
+    """D1: the DM path at tiny widths on the card against the CPU, same
+    seeds and weights, fp32 with TF32 off: ``sample_dm_trials`` with 4 DDIM
+    steps on windows of 4096 (K1's streaming path at G 8), launch counts as
+    derived; two DM training steps, and one conditional step with label
+    dropout and the spectral term, each held by ``hold_tiny_stage1``
+    (metrics at the model bound, gradients within 2e-3 of each leaf's
+    largest, what the steps changed within 1e-2); RePaint in signal space
+    (``impute_dm``) and in latent space (``impute_ldm``, the tiny LDM and
+    AEKL [4, 4, 8]) over an 8-step schedule with ``num_resample`` 2 on the
+    same injected noise, at the model bound, the observed region equal to
+    x_known bitwise on the card."""
+    errs, held = {}, {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            cfg = tiny_dm_config()
+            sd = dm_state(cfg, SEED + 60)
+            kw = dict(start_seed=0, stop_seed=4, batch_size=4, num_train_timesteps=DM_TABLE,
+                      num_ddim_steps=4, compute_psd=False)
+            reset_counts()
+            card = sample_dm_trials(cfg, sd, tmp / "d1_card", device="cuda", **kw)
+            counts, shapes = read_counts(), read_shapes()
+            cpu = sample_dm_trials(cfg, sd, tmp / "d1_cpu", device="cpu", **kw)
+            want = expected_dm_launches(cfg, forwards=4)
+            streaming = [k for k in shapes["K1"] if k[1] // k[3] * k[2] > group_norm.ON_CHIP_MAX]
+            if counts != want or not streaming:
+                raise AssertionError(f"tiny DM sampler: launches {counts}, expected {want}; "
+                                     f"K1 shapes {sorted(shapes['K1'])}")
+            errs["sample"] = hold("DM DDIM-4", card, cpu, 2e-3, 2e-4)
+
+            rng = np.random.default_rng(SEED + 61)
+            b, length = 4, cfg.unet.image_size
+            x = rng.uniform(size=(b, 1, length)).astype(np.float32)
+            draws = [(rng.integers(0, 1000, b), rng.standard_normal((b, 1, length)).astype(
+                np.float32), None, None) for _ in range(2)]
+            runs = {dev: tiny_dm_run(cfg, dev, x, draws) for dev in ("cuda", "cpu")}
+            held["train"] = hold_tiny_stage1(runs["cuda"], runs["cpu"], D.METRICS, "tiny DM")
+            cond = tiny_dm_config(SERVE_CLASSES)
+            cond.spectral = True
+            drop = np.array([True, False, False, True])
+            cond_draw = [(draws[0][0], draws[0][1], np.arange(b), drop)]
+            runs = {dev: tiny_dm_run(cond, dev, x, cond_draw) for dev in ("cuda", "cpu")}
+            held["conditional"] = hold_tiny_stage1(runs["cuda"], runs["cpu"], D.METRICS,
+                                                   "tiny conditional DM")
+
+            sched = {dev: NoiseSchedule.create("linear_beta", 8, cfg.diffusion.linear_start,
+                                               cfg.diffusion.linear_end, device=dev)
+                     for dev in ("cuda", "cpu")}
+            mask = np.ones((1, 1, length), np.float32)
+            mask[..., 1000:2500] = 0.0
+            noises = repaint_noises((b, 1, length), 8, 2, SEED + 62)
+            lcfg = tiny_config(steps=4)
+            unet_sd, ae_sd = seeded_weights(lcfg, SEED + 63)
+            lmask = np.ones((1, 1, 256), np.float32)
+            lmask[..., 60:140] = 0.0
+            lnoises = repaint_noises((b, 1, 64), 8, 2, SEED + 64)
+            lx = np.ascontiguousarray(x[..., :256])
+            out, repaint_counts = {}, {}
+            for dev in ("cuda", "cpu"):
+                reset_counts()
+                unet = build_dm(cfg, sd, torch.device(dev))
+                lunet, ae = build_models(lcfg, unet_sd, ae_sd, torch.device(dev))
+                with torch.inference_mode():
+                    out[dev] = (
+                        impute_dm(unet, sched[dev], torch.from_numpy(x).to(dev),
+                                  torch.from_numpy(mask).to(dev), iter(noises),
+                                  num_resample=2).cpu().numpy(),
+                        impute_ldm(lunet, ae, 1.3, sched[dev], torch.from_numpy(lx).to(dev),
+                                   torch.from_numpy(lmask).to(dev), iter(lnoises), num_resample=2,
+                                   latent_erode=2).cpu().numpy())
+                repaint_counts[dev] = read_counts()
+            sig = expected_dm_launches(cfg, forwards=16)
+            lat = expected_launches(lcfg, unet_forwards=16, decodes=1)
+            want = {"K1": sig["K1"] + lat["K1"] + gn_counts(lcfg)["coder_gn"],
+                    "K2": sig["K2"] + lat["K2"], "K3": 0}
+            if repaint_counts["cuda"] != want:
+                raise AssertionError(f"tiny RePaint: launches {repaint_counts['cuda']}, "
+                                     f"expected {want}")
+            for i, (name, m, known) in enumerate((("signal", mask, x), ("latent", lmask, lx))):
+                errs[f"repaint_{name}"] = hold(f"RePaint {name}", out["cuda"][i], out["cpu"][i],
+                                               2e-3, 2e-4)
+                obs = np.broadcast_to(m, known.shape) == 1.0
+                if not np.array_equal(out["cuda"][i][obs], known[obs]):
+                    raise AssertionError(f"RePaint {name} on the card: the observed region "
+                                         "differs from x_known")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    say("tiny-dm", k1_launches=counts["K1"], k2_launches=counts["K2"],
+        streaming_k1_shapes=len(streaming),
+        train_grad_err_ratio=f"{held['train']['grad_err_ratio']:.3e}",
+        cond_grad_err_ratio=f"{held['conditional']['grad_err_ratio']:.3e}",
+        repaint_k1_launches=repaint_counts["cuda"]["K1"],
+        **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()})
+    free_card()
+    return dict(max_abs_err=errs, held=held, launches=counts,
+                repaint_launches=repaint_counts["cuda"])
+
+
+def write_dm_run_dir(root: Path, cfg: Config, state: dict) -> Path:
+    """A train-dm run dir as ``sample-dm`` and ``impute`` read it:
+    config.yaml, best_model/ and final_model/, each a port run dir."""
+    for name in ("best_model", "final_model"):
+        (root / name).mkdir(parents=True)
+        cfg.to_yaml(root / name / "config.yaml")
+        save_params_npz(root / name / "params.npz", {"params": unet_state_to_jax(state)})
+    cfg.to_yaml(root / "config.yaml")
+    return root
+
+
+def impute_cli(tmp: Path, name: str, windows: np.ndarray, *flags) -> dict:
+    """``impute`` in this process on ``windows`` (one batch of 16), with
+    the counts set to 0 before and read after: its seconds, the counts, and
+    the output, whose observed samples must equal the input's."""
+    inp, out = tmp / f"{name}_in.npy", tmp / f"{name}_out"
+    np.save(inp, windows)
+    reset_counts()
+    _, seconds = timed(run_cli, "impute", "--input", str(inp), "--output_dir", str(out),
+                       "--mask_start", str(IMPUTE_MASK[0]), "--mask_len", str(IMPUTE_MASK[1]),
+                       "--batch_size", str(IMPUTE_BATCH), *flags)
+    counts = read_counts()
+    imputed, mask = np.load(out / "imputed.npy"), np.load(out / "mask.npy")
+    if imputed.shape != (len(windows), 1, 3000) or not np.isfinite(imputed).all():
+        raise AssertionError(f"impute {name}: output {imputed.shape}")
+    if not np.array_equal(imputed[:, 0, mask], windows[:, mask]) or mask.sum() != 3000 - IMPUTE_MASK[1]:
+        raise AssertionError(f"impute {name}: the observed samples changed")
+    return dict(seconds=seconds, windows_per_s=len(windows) / seconds, launches=counts,
+                masked_std=float(imputed[:, 0, ~mask].std()))
+
+
+def phase_dm_full(tmp: Path) -> dict:
+    """D2: the DM path at full width (dm.yaml, bf16) on seeded weights in
+    port run dirs. ``sample-dm`` (the CLI, as the warm-up: 64 seeds,
+    DDIM-200 over the 1000-entry table, artifacts), then three timed
+    batches of 64 through ``sample_dm_trials`` with their launch counts
+    (median windows/s); ``train-dm`` (the CLI) on a synthetic npy tree of
+    512 + 64 recordings, seven one-step epochs at batch 512 (median ms per
+    step after the first, windows/s, peak memory, launch counts); ``impute``
+    in signal mode (16 windows, 1000 RePaint steps) and in latent mode over
+    the flagship LDM and AEKL, each one batch: seconds per batch, windows/s,
+    launch counts, observed samples unchanged; ``warm-cache --targets ldm``
+    on the serving phase's conditional config, in a process of its own."""
+    cfg = dm_config()
+    state = dm_state(cfg, SEED)
+    run = write_dm_run_dir(tmp / "dm_run", cfg, state)
+    warm_out = tmp / "dm_cli"
+    reset_counts()
+    _, cli_s = timed(run_cli, "sample-dm", "--output_dir", str(warm_out), "--diffusion_path",
+                     str(run), "--stop_seed", str(BATCH), "--batch_size", str(BATCH))
+    want = expected_dm_launches(cfg, forwards=STEPS)
+    out_dir = warm_out / "samples_ddpm_no-spectral_edfx"
+    files = [len(list(out_dir.glob(f"{k}_*.npy"))) for k in ("sample", "psd_list")]
+    if read_counts() != want or files != [BATCH, BATCH] or not (out_dir / "psd_list.npy").exists():
+        raise AssertionError(f"sample-dm CLI: launches {read_counts()}, expected {want}; "
+                             f"sample and PSD files {files}")
+    say("dm-sample", cli_seconds=f"{cli_s:.3f}", k1_launches=want["K1"], k2_launches=want["K2"])
+    seconds = []
+    for i in range(TIMED_BATCHES):
+        reset_counts()
+        out, sec = timed(sample_dm_trials, cfg, state, tmp / "dm_timed", i * BATCH,
+                         (i + 1) * BATCH, BATCH, DM_TABLE, STEPS)
+        seconds.append(sec)
+        launches, shapes = read_counts(), read_shapes()
+        if out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all() or launches != want:
+            raise AssertionError(f"DM batch {i}: output {out.shape}, launches {launches}")
+        say("dm-sample", batch=i, seconds=f"{sec:.3f}", out_std=f"{out.std():.4f}")
+    median = statistics.median(seconds)
+    say("dm-sample", steps=STEPS, batches=TIMED_BATCHES, median_seconds=f"{median:.3f}",
+        min_seconds=f"{min(seconds):.3f}", max_seconds=f"{max(seconds):.3f}",
+        windows_per_s=f"{BATCH / median:.3f}")
+    sample = dict(seconds=seconds, median_seconds=median, windows_per_s=BATCH / median,
+                  cli_seconds=cli_s, launches=launches, shapes=shapes)
+
+    tcfg = dm_config()
+    tcfg.train.n_epochs, tcfg.train.val_interval = TRAIN_EPOCHS, 10 * TRAIN_EPOCHS
+    tcfg.train.output_dir = str(tmp / "dm_train")
+    tcfg.to_yaml(tmp / "dm_train.yaml")
+    write_split(tmp, "dm_npy", DM_TRAIN_BATCH, VALID_WINDOWS, SEED + 7)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result, wall = timed(run_cli, "train-dm", "--config_file", str(tmp / "dm_train.yaml"),
+                         "--path_train_ids", str(tmp / "dm_npy_train.csv"),
+                         "--path_valid_ids", str(tmp / "dm_npy_valid.csv"),
+                         "--path_pre_processed", str(tmp / "dm_npy"))
+    counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+    want = expected_dm_launches(cfg, forwards=0, train_steps=TRAIN_EPOCHS)
+    log = [json.loads(line) for line in
+           (Path(result.run_dir) / "metrics_train.jsonl").read_text().splitlines()]
+    losses, ms = [r["loss"] for r in log], [r["seconds"] * 1e3 for r in log[1:]]
+    if counts != want or len(log) != TRAIN_EPOCHS or not np.isfinite(losses).all() or not (
+            Path(result.run_dir) / "final_model" / "params.npz").exists():
+        raise AssertionError(f"train-dm: launches {counts}, expected {want}; losses {losses}")
+    step_ms = statistics.median(ms)
+    train = dict(batch=DM_TRAIN_BATCH, losses=losses, step_ms=ms, median_step_ms=step_ms,
+                 windows_per_s=DM_TRAIN_BATCH / step_ms * 1e3, peak_bytes=peak, wall_s=wall,
+                 launches=counts)
+    say("dm-train", batch=DM_TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+        losses=[f"{v:.4f}" for v in losses])
+    say("dm-train", median_ms_per_step=f"{step_ms:.2f}", min_ms=f"{min(ms):.2f}",
+        max_ms=f"{max(ms):.2f}", windows_per_s=f"{train['windows_per_s']:.2f}",
+        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts)
+    free_card()
+
+    ds = WindowDataset.from_raw(make_synthetic_dataset(IMPUTE_BATCH, 35.0, SEED + 8))
+    windows = center_crop_valid(ds.epoch_windows(np.random.default_rng(SEED)))[..., 0]
+    imputes = {"signal": impute_cli(tmp, "impute_signal", windows, "--diffusion_path",
+                                    str(run))}
+    want = expected_dm_launches(cfg, forwards=cfg.diffusion.timesteps)
+    if imputes["signal"]["launches"] != want:
+        raise AssertionError(f"impute signal: launches {imputes['signal']['launches']}, "
+                             f"expected {want}")
+    lcfg = flagship_config(steps=STEPS)
+    unet_sd, ae_sd = seeded_weights(lcfg, SEED)
+    aekl_dir, ldm_dir = write_run_dirs(tmp / "impute_ldm_runs", lcfg, unet_sd, ae_sd, 1.0)
+    imputes["latent"] = impute_cli(tmp, "impute_latent", windows, "--diffusion_path",
+                                   str(ldm_dir), "--best_model_path", str(aekl_dir))
+    lat = expected_launches(lcfg, unet_forwards=lcfg.diffusion.timesteps, decodes=1)
+    want = {"K1": lat["K1"] + gn_counts(lcfg)["coder_gn"], "K2": lat["K2"], "K3": 0}
+    if imputes["latent"]["launches"] != want:
+        raise AssertionError(f"impute latent: launches {imputes['latent']['launches']}, "
+                             f"expected {want}")
+    for mode, r in imputes.items():
+        say("dm-impute", mode=mode, batch=IMPUTE_BATCH, steps=cfg.diffusion.timesteps,
+            seconds_per_batch=f"{r['seconds']:.3f}", windows_per_s=f"{r['windows_per_s']:.3f}",
+            k1_launches=r["launches"]["K1"], k2_launches=r["launches"]["K2"],
+            masked_std=f"{r['masked_std']:.4f}")
+    free_card()
+
+    scfg = serve_config(flagship_config(steps=DPM_STEPS))
+    scfg.to_yaml(tmp / "serve_ldm.yaml")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sleepgen_torch", "warm-cache", "--config_file",
+                           str(tmp / "serve_ldm.yaml"), "--targets", "ldm"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    warm_s = time.perf_counter() - t0
+    warmed = [line for line in proc.stdout.splitlines() if line.startswith("warmed ldm")]
+    if proc.returncode != 0 or len(warmed) != 1:
+        raise RuntimeError(f"warm-cache --targets ldm exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    say("dm-warm-cache", seconds=f"{warm_s:.2f}", line=warmed[0].replace(" ", "_"))
+    return dict(sample=sample, train=train, impute=imputes,
+                warm_cache=dict(seconds=warm_s, line=warmed[0]))
+
+
+def dm_paths(shapes: dict, sample: dict | None = None) -> dict:
+    """phase_timings' rows of the DM: K1 and K3 on one training step (phase
+    3's), and K1 and K2 on a DDIM-200 batch of 64 (D2's) when given."""
+    rows = {"K1 dm train": ("K1", "DM train step", shapes["dm_train"]["K1"],
+                            shapes["dm_train_counts"]["K1"]),
+            "K3 dm train": ("K3", "DM train step", shapes["dm_train"]["K3"],
+                            shapes["dm_train_counts"]["K3"])}
+    if sample is not None:
+        rows.update({kid_row: (kid, "DM DDIM-200 batch", sample["shapes"][kid],
+                               sample["launches"][kid])
+                     for kid_row, kid in (("K1 dm", "K1"), ("K2 dm", "K2"))})
+    return rows
+
+
+def repaint_profile(tag: str, unet, cfg: Config, length: int, clip_sample: bool) -> dict:
+    """RePaint steps as ``impute`` runs them: batch IMPUTE_BATCH, one pass
+    per step, D2's masked span (in latent mode through its latent mask),
+    the training schedule's betas. A step's work does not depend on t, so
+    a schedule of a few entries stands for the 1000: twenty steps on the
+    host clock, then five under torch.profiler (device time per step by
+    kernel, busy share against each wall time)."""
+    mask = torch.ones((1, 1, 3072), device="cuda")
+    start = BORDER_PAD + IMPUTE_MASK[0]
+    mask[..., start:start + IMPUTE_MASK[1]] = 0.0
+    if length != 3072:
+        mask = latent_observed_mask(mask, length)
+    x = torch.randn((IMPUTE_BATCH, 1, length), device="cuda")
+    model_fn = cond_model_fn(unet, None, 1.0)
+
+    def steps(n: int):
+        short = copy.deepcopy(cfg)
+        short.diffusion.timesteps = n
+        sched = T.make_schedule(short, "cuda")
+        gen = C.make_generator(SEED, "cuda", 0)
+        return lambda: ddpm_inpaint_loop(model_fn, sched, x, mask, gen, clip_sample=clip_sample)
+
+    with torch.inference_mode():
+        steps(2)()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(20)()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        n = 5
+        wall_ms, device_ms, top, n_kernels = device_profile(steps(n), 1)
+    top = [dict(row, ms_per_run=row["ms_per_run"] / n) for row in top]  # per step
+    out = dict(host_ms_per_step=host_ms, step_ms=wall_ms / n, device_ms_per_step=device_ms / n,
+               busy_share=device_ms / wall_ms, busy_share_host_clock=device_ms / n / host_ms,
+               top=top)
+    say(tag, batch=IMPUTE_BATCH, length=length, host_ms_per_step=f"{host_ms:.3f}",
+        profiled_ms_per_step=f"{out['step_ms']:.3f}",
+        device_ms_per_step=f"{out['device_ms_per_step']:.3f}",
+        busy_share=f"{out['busy_share']:.3f}",
+        busy_share_host_clock=f"{out['busy_share_host_clock']:.3f}", kernels=n_kernels)
+    for row in top[:6]:
+        say(f"{tag}-top", ms_per_step=f"{row['ms_per_run']:.3f}", kernel=row["kernel"][:80])
+    return out
+
+
+def phase_dm_profile() -> dict:
+    """Where a DM batch's, a RePaint step's and a DM training step's time
+    goes: five full-width DDIM steps at batch 64 under torch.profiler
+    (device time per step by kernel, busy share), RePaint steps of
+    ``impute`` at batch 16 in signal mode and in latent mode (the flagship
+    LDM at latent 768), and one training step at batch 512."""
+    cfg = dm_config()
+    unet = build_dm(cfg, dm_state(cfg, SEED), torch.device("cuda"))
+    sched = dm_sampling_schedule(cfg, DM_TABLE, "cuda")
+    x = torch.randn((BATCH, 1, 3072), device="cuda")
+    n = 5
+    with torch.inference_mode():
+        ddim_sample_loop(unet, sched, x, 2)
+        wall_ms, device_ms, top, n_kernels = device_profile(
+            lambda: ddim_sample_loop(unet, sched, x, n), 1)
+    top = [dict(row, ms_per_run=row["ms_per_run"] / n) for row in top]  # per step
+    step = dict(step_ms=wall_ms / n, device_ms_per_step=device_ms / n,
+                busy_share=device_ms / wall_ms, top=top)
+    say("profile-dm", step_ms=f"{step['step_ms']:.3f}",
+        device_ms_per_step=f"{step['device_ms_per_step']:.3f}",
+        busy_share=f"{step['busy_share']:.3f}", kernels=n_kernels)
+    for row in top[:8]:
+        say("profile-dm-top", ms_per_step=f"{row['ms_per_run']:.3f}",
+            kernel=row["kernel"][:80])
+    repaint = {"signal": repaint_profile("profile-repaint-signal", unet, cfg, 3072, True)}
+    del unet, x
+    free_card()
+    lcfg = flagship_config(steps=STEPS)
+    lunet, _ = build_models(lcfg, *seeded_weights(lcfg, SEED), torch.device("cuda"))
+    repaint["latent"] = repaint_profile("profile-repaint-latent", lunet, lcfg,
+                                        lcfg.unet.image_size, False)
+    del lunet
+    free_card()
+    unet, sched, opt = D.build_dm_trainer(cfg, "cuda")
+    train_step = D.make_dm_train_step(unet, sched, opt, cfg.spectral, DTYPES[cfg.dtype])
+    x = train_windows(DM_TRAIN_BATCH, SEED)
+    gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
+    t, noise, _ = D.draw_dm_step_inputs(gen, DM_TRAIN_BATCH, (1, 3072), sched.num_timesteps)
+    train = profile_step("profile-dm-train", train_step, (x, t, noise))
+    del unet, opt, train_step, x
+    free_card()
+    return dict(ddim_step=step, repaint_step=repaint, train_step=train)
+
+
 def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
     """Hold each kernel to its plain version at the shapes of ``shapes``
     ({kernel id: {shape: launches}}) not checked yet."""
@@ -1786,8 +2323,10 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         bound_kinds = set()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, dtype, seed=3)
-            # fewer calls at the stage-1 step's groups of 50-200 M elements
-            reps = 20 if kid in ("K2", "B3") else 10 if path == "stage-1 step" else 50
+            # fewer calls at the training steps' tensors of 25-400 M elements,
+            # where the plain versions take milliseconds a call
+            reps = (20 if kid in ("K2", "B3") else
+                    10 if path in ("train step", "stage-1 step", "DM train step") else 50)
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                          library_ms=(spec["library"](*args), ()) if kid == "K3"
                          else (spec["library"], args))
@@ -1978,6 +2517,8 @@ def k2_only(smi: str, build_logs: dict) -> int:
         shapes, checks = phase_checks(Path(td), only="K2")
     rows, per_shape = phase_timings(
         {"K2": ("K2", "DDIM step", shapes["sample"]["K2"], shapes["sample_counts"]["K2"]),
+         "K2 dm": ("K2", "DM DDIM step", shapes["dm_sample"]["K2"],
+                   shapes["dm_sample_counts"]["K2"]),
          "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
     return write_only_report("k2", smi, build_logs, rows, per_shape, checks)
 
@@ -1996,7 +2537,7 @@ def gn_only(smi: str, build_logs: dict) -> int:
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
     rows, per_shape = phase_timings(
         {"K1 sample": ("K1", "DDIM step", shapes["sample"]["K1"], shapes["sample_counts"]["K1"]),
-         **training_paths(shapes), **recon_path(shapes),
+         **training_paths(shapes), **recon_path(shapes), **dm_paths(shapes),
          "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
     strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
     strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"], stage1["K3"])
@@ -2057,8 +2598,12 @@ def main(only: str | None = None) -> int:
         evals = phase_eval_full(tmp)
         serve = phase_serve_full()
         serve_cli_run = phase_serve_cli(tmp)
+        tiny_dm = phase_tiny_dm(tmp)
+        dm = phase_dm_full(tmp)
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
+    check_new_shapes(checks, "DM DDIM-200 batch",
+                     {kid: dm["sample"]["shapes"][kid] for kid in ("K1", "K2")})
     dpm = evals["dpm"]
     paths = {"K1 sample": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
              "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
@@ -2070,6 +2615,7 @@ def main(only: str | None = None) -> int:
                            serve["guided_counts"]["K1"]),
              "K2 guided": ("K2", guided_path, serve["guided_shapes"]["K2"],
                            serve["guided_counts"]["K2"]),
+             **dm_paths(shapes, dm["sample"]),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -2079,6 +2625,7 @@ def main(only: str | None = None) -> int:
     prof = phase_profile()
     train_prof = phase_train_profile()
     stage1_prof = phase_stage1_profile()
+    dm_prof = phase_dm_profile()
     report = dict(card=smi, windows_per_s=full["windows_per_s"],
                   full_seconds=full["seconds"], full_median_seconds=full["median_seconds"],
                   cold=cold, batch=BATCH, steps=STEPS, train=train, tiny_train=tiny_train,
@@ -2089,7 +2636,9 @@ def main(only: str | None = None) -> int:
                   dpm={k: v for k, v in dpm.items() if k != "shapes"},
                   kernels=rows, per_shape=per_shape, strided_dy=strided,
                   strided_dy_stage1=strided_stage1, profile=prof, train_profile=train_prof,
-                  stage1_profile=stage1_prof, build_logs=build_logs,
+                  stage1_profile=stage1_prof, tiny_dm=tiny_dm,
+                  dm={**dm, "sample": {k: v for k, v in dm["sample"].items() if k != "shapes"}},
+                  dm_profile=dm_prof, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"

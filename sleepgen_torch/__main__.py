@@ -9,8 +9,11 @@ COMMANDS = {
     "compute-mmds": "sleepgen_torch.cli.compute_mmds",
     "train-aekl": "sleepgen_torch.cli.train_autoencoderkl",
     "train-ldm": "sleepgen_torch.cli.train_ldm",
+    "train-dm": "sleepgen_torch.cli.train_pure_ldm",
+    "sample-dm": "sleepgen_torch.cli.sample_trials_ddpm",
     "serve": "sleepgen_torch.cli.serve",
     "warm-cache": "sleepgen_torch.cli.warm_cache",
+    "impute": "sleepgen_torch.cli.impute",
 }
 
 

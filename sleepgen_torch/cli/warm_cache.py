@@ -18,8 +18,8 @@ Targets, each at each ``--batch_sizes`` (samplers) or ``--train_batch``
 (train steps), with one ``warmed <label>: <s>`` line per call:
 
 - ``aekl``: one stage-1 train step (AEKL and discriminator, both Adams);
-- ``ldm``: one stage-2 train step (not for a conditional config: the
-  port does not train one yet);
+- ``ldm``: one stage-2 train step (with labels, and the label dropout of
+  ``train.cond_dropout_prob``, for a conditional config);
 - ``sampler``: the DDIM sampler at the config's step count, plus decode;
 - ``dpm``: DPM++2M at the config's step count if it samples with it,
   else at 20 steps.
@@ -72,10 +72,6 @@ def main(argv=None) -> None:
     if unknown:
         raise SystemExit(f"unknown targets {sorted(unknown)}; use aekl,ldm,sampler,dpm")
     conditional = cfg.unet.num_classes > 0
-    if "ldm" in targets and conditional:
-        raise NotImplementedError("the ldm target: conditional training (unet.num_classes > 0) "
-                                  "is not ported yet; warm the samplers with "
-                                  "--targets sampler,dpm")
     batches = [int(b) for b in args.batch_sizes.split(",")]
     dev = resolve_device(args.device)
     dtype = DTYPES[cfg.dtype]
@@ -119,6 +115,9 @@ def main(argv=None) -> None:
         x = windows(train_batch)
         inputs = T.draw_step_inputs(gen, train_batch, (lc, C.latent_length(cfg, window)),
                                     sched.num_timesteps)
+        if conditional:
+            labels = torch.arange(train_batch, device=dev) % cfg.unet.num_classes
+            inputs += (labels, C.draw_label_drop(gen, train_batch, cfg.train.cond_dropout_prob))
         clock(f"ldm train step batch {train_batch}", lambda: step(x, *inputs))
         del unet, ae, sched, opt, step, x, inputs
 

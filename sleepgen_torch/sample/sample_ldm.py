@@ -1,9 +1,11 @@
-"""LDM sampling with the reference's artifact contract.
+"""LDM and signal-space DM sampling with the reference's artifact contract.
 
-Counterpart of ``sleepgen/sample/sample_ldm.py``. Per batch of seeds:
-per-seed x_T -> DDIM or DPM-Solver++(2M) over the UNet (plain, stage
-conditional, or with classifier-free guidance) -> AEKL decode of
-z / scale_factor -> crop of the border pad. Artifacts:
+Counterpart of ``sleepgen/sample/sample_ldm.py`` and of the DM half of
+``sleepgen/cli/sample_trials_ddpm.py``. Per batch of seeds: per-seed x_T
+-> DDIM or DPM-Solver++(2M) over the UNet (plain, stage conditional, or
+with classifier-free guidance) -> AEKL decode of z / scale_factor -> crop
+of the border pad; the DM skips the decode (``sample_dm_trials``, and
+``make_dm_sampler``'s ancestral DDPM). Artifacts:
 
   * ``sample_{i}.npy``   (1, 1, 3000) cropped signal, reference layout;
   * ``psd_list_{i}.npy`` [psds (1, F), freqs (F,), psds_mean (F,)], the dB
@@ -28,8 +30,9 @@ from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d
-from sleepgen_torch.sample.samplers import (cond_model_fn, ddim_sample_loop, seed_noise,
-                                             validate_stage)
+from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_loop,
+                                             ddpm_sample_loop, sample_dm_conditional,
+                                             seed_noise, validate_stage)
 from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,
                                           load_params_npz, unet_state_from_jax)
@@ -41,6 +44,18 @@ SAMPLERS = {"ddim": ddim_sample_loop, "dpm++2m": dpm_solver_pp_2m_sample_loop}
 def sampling_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSchedule:
     d = cfg.diffusion
     return NoiseSchedule.create(d.sample_schedule, d.timesteps, d.sample_beta_start,
+                                d.sample_beta_end, prediction_type=d.sample_prediction_type,
+                                device=device)
+
+
+def dm_sampling_schedule(cfg: Config, num_train_timesteps: int,
+                         device: torch.device | str = "cpu") -> NoiseSchedule:
+    """The DM's sampling schedule: the LDM sampler's scaled-linear betas and
+    v-prediction, with a table of ``num_train_timesteps`` entries. The
+    reference's ``sample_trials_ddpm.py`` passes its
+    ``--num_inference_steps`` as this table length, not as the loop's."""
+    d = cfg.diffusion
+    return NoiseSchedule.create(d.sample_schedule, num_train_timesteps, d.sample_beta_start,
                                 d.sample_beta_end, prediction_type=d.sample_prediction_type,
                                 device=device)
 
@@ -124,6 +139,68 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
             return signal[:, :, border_pad:-border_pad].transpose(1, 2)
 
     return sample
+
+
+def build_dm(cfg: Config, unet_state: Mapping[str, np.ndarray],
+             device: torch.device) -> UNet1d:
+    """The signal-space DM's UNet (one channel in and out) on ``device`` with
+    the given state dict, in eval mode and cast to ``cfg.dtype``."""
+    with torch.device(device):
+        unet = load_numpy_state(build_unet(cfg, 1, 1), unet_state)
+    return cast_compute_dtype(unet.eval(), DTYPES[cfg.dtype])
+
+
+def make_dm_sampler(unet: UNet1d, sched: NoiseSchedule, signal_len: int = 3072,
+                    device: torch.device | str = "cuda") -> Callable[..., torch.Tensor]:
+    """Returns ``sample(seeds, noise) -> (B, signal_len - 2 * BORDER_PAD, 1)``
+    fp32: per-seed x_T (``seed_noise``), then the ancestral DDPM loop over
+    every timestep of ``sched`` with ``clip_sample=True``, its step noise
+    drawn from ``noise`` (a ``samplers.Noise``). ``unet`` and ``sched`` must
+    already live on ``device``."""
+    dev = resolve_device(device)
+
+    def sample(seeds: Sequence[int], noise: Noise) -> torch.Tensor:
+        with torch.inference_mode():
+            x_T = seed_noise(seeds, (signal_len, 1), dev).transpose(1, 2)
+            x = ddpm_sample_loop(unet, sched, x_T, noise, clip_sample=True)
+            return x[:, :, BORDER_PAD:-BORDER_PAD].transpose(1, 2)
+
+    return sample
+
+
+def sample_dm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
+                     output_dir: str | Path, start_seed: int = 0, stop_seed: int = 1000,
+                     batch_size: int = 64, num_train_timesteps: int = 1000,
+                     num_ddim_steps: int = 200, compute_psd: bool = True,
+                     device: torch.device | str = "cuda", stage: Optional[int] = None,
+                     guidance_scale: float = 1.0) -> np.ndarray:
+    """Sample the signal-space DM for seeds [start_seed, stop_seed) in
+    batches of ``batch_size`` and write their artifacts: per-seed x_T of
+    ``cfg.unet.image_size`` samples, DDIM over ``min(num_ddim_steps,
+    num_train_timesteps)`` steps of ``dm_sampling_schedule``'s table of
+    ``num_train_timesteps`` entries, crop of the border pad. ``stage`` and
+    ``guidance_scale`` as in ``sample_ldm_trials``. Returns all cropped
+    signals, (N, 3000, 1) fp32."""
+    validate_stage(cfg.unet.num_classes, stage, guidance_scale)
+    dev = resolve_device(device)
+    steps = min(num_ddim_steps, num_train_timesteps)
+    window = cfg.unet.image_size
+    unet = build_dm(cfg, unet_state, dev)
+    sched = dm_sampling_schedule(cfg, num_train_timesteps, dev)
+    labels = stage_labels(stage, batch_size, dev) if cfg.unet.num_classes > 0 else None
+    outs = []
+    for seeds, n in padded_chunks(range(start_seed, stop_seed), batch_size):
+        with torch.inference_mode():
+            if labels is None:
+                x_T = seed_noise(seeds, (window, 1), dev).transpose(1, 2)
+                x = ddim_sample_loop(unet, sched, x_T, steps)
+            else:
+                x = sample_dm_conditional(unet, sched, labels, seeds, window, steps,
+                                          guidance_scale)
+        sig = x[:, :, BORDER_PAD:-BORDER_PAD].transpose(1, 2).cpu().numpy()[:n]
+        write_sample_artifacts(output_dir, seeds[:n], sig, compute_psd)
+        outs.append(sig)
+    return np.concatenate(outs, axis=0)
 
 
 def write_sample_artifacts(output_dir: str | Path, seeds: Sequence[int],
@@ -212,3 +289,18 @@ def read_run_dirs(aekl_run_dir: str | Path, ldm_run_dir: str | Path):
     unet_state = unet_state_from_jax(load_params_npz(ldm_dir / "params.npz"))
     scale_factor = float((ldm_dir / "scale_factor.txt").read_text())
     return cfg, aekl_cfg, unet_state, ae_state, scale_factor
+
+
+def model_dir(path: str | Path, name: str) -> Path:
+    """``path`` if it is a port run dir (it holds ``params.npz``), else a
+    training run dir's ``name/`` subdirectory (``best_model`` or
+    ``final_model``)."""
+    d = Path(path)
+    return d if (d / "params.npz").exists() else d / name
+
+
+def read_model_dir(path: str | Path, name: str):
+    """(config, UNet state dict) of ``model_dir(path, name)``."""
+    d = model_dir(path, name)
+    return (Config.from_yaml(d / "config.yaml"),
+            unet_state_from_jax(load_params_npz(d / "params.npz")))

@@ -1,19 +1,36 @@
-"""Per-seed initial noise, the DDIM and DDPM reverse loops, and the model
-closure of conditional and guided sampling.
+"""Per-seed initial noise, the DDIM and DDPM reverse loops, the model
+closure of conditional and guided sampling, and RePaint imputation in
+signal and latent space.
 
 Counterpart of ``sleepgen/sample/samplers.py``. The loops are Python loops
 over the timesteps; x stays fp32 and the model output is cast to fp32
 before each step, whatever the model's compute dtype. Nothing in them reads
 a value back from the card, so a caller's sample runs behind the host.
+
+Noise of the ancestral loops (``Noise``): a ``torch.Generator`` on x's
+device, from which each draw is one standard normal of x's shape in the
+order the loop documents, or an iterator of tensors given in that same
+order (the parity tests feed it the JAX package's threefry draws, which
+torch cannot reproduce).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_step, ddim_timesteps,
                                                 ddpm_step)
+
+Noise = Union[torch.Generator, Iterator[torch.Tensor]]
+
+
+def draw_noise(noise: Noise, like: torch.Tensor) -> torch.Tensor:
+    """The next standard normal draw of ``like``'s shape, fp32 on its device."""
+    if isinstance(noise, torch.Generator):
+        return torch.randn(like.shape, generator=noise, device=like.device)
+    return next(noise).to(device=like.device, dtype=torch.float32)
 
 
 def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...],
@@ -111,17 +128,117 @@ def ddim_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tens
 
 
 def ddpm_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-                     sched: NoiseSchedule, x_T: torch.Tensor, generator: torch.Generator,
+                     sched: NoiseSchedule, x_T: torch.Tensor, generator: Noise,
                      clip_sample: bool = True) -> torch.Tensor:
     """Full ancestral DDPM loop over every training timestep, from x_T;
-    each step's noise is drawn from ``generator`` (on x_T's device), one
-    standard normal of x's shape per step, t = 0 included. Returns x_0 in
-    fp32. JAX splits a threefry key instead, so the two packages draw
-    different noise; parity tests inject it step by step."""
+    each step draws one noise of x's shape from ``generator`` (a
+    ``Noise``), t = 0 included. Returns x_0 in fp32. JAX splits a threefry
+    key instead, so the two packages draw different noise; parity tests
+    inject it step by step."""
     x = x_T.float()
     for t in range(sched.num_timesteps - 1, -1, -1):
         t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
         out = model_fn(x, t_b)
-        noise = torch.randn(x.shape, generator=generator, device=x.device)
-        x, _ = ddpm_step(sched, out.float(), t, x, noise, clip_sample=clip_sample)
+        x, _ = ddpm_step(sched, out.float(), t, x, draw_noise(generator, x),
+                         clip_sample=clip_sample)
     return x
+
+
+def ddpm_inpaint_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                      sched: NoiseSchedule, x_known: torch.Tensor, mask: torch.Tensor,
+                      noise: Noise, num_resample: int = 1,
+                      clip_sample: bool = True) -> torch.Tensor:
+    """Masked ancestral sampling (RePaint, Lugmayr et al. 2022): fills the
+    region of ``x_known`` where ``mask`` (broadcastable to it) is 0.
+
+    At every reverse step t the observed region (mask 1) is renoised onto
+    q(x_t | x_known) and spliced in, the model denoises the whole window,
+    and with ``num_resample`` > 1 every pass but the last jumps back one
+    forward step with betas[t] and denoises again. The result is spliced
+    exactly: ``mask * x_known + (1 - mask) * x``.
+
+    Draws from ``noise``, in order: x_T; then per step, from t = T - 1 down
+    to 0, and per pass u: the forward noise of the splice, the reverse
+    step's noise, and, for u < num_resample - 1 only, the jump's noise.
+    That is the JAX loop's order of use of its keys (x_T from k_init; per
+    pass ``key, k_f, k_r, k_j = split(key, 4)``, k_j drawn only on a jump)."""
+    x_known = x_known.float()
+    mask = mask.to(device=x_known.device, dtype=torch.float32)
+    x = draw_noise(noise, x_known)
+    for t in range(sched.num_timesteps - 1, -1, -1):
+        t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+        for u in range(num_resample):
+            x_known_t = sched.add_noise(x_known, draw_noise(noise, x), t)
+            x = mask * x_known_t + (1.0 - mask) * x
+            out = model_fn(x, t_b)
+            x_prev, _ = ddpm_step(sched, out.float(), t, x, draw_noise(noise, x),
+                                  clip_sample=clip_sample)
+            if u < num_resample - 1:  # jump back: one forward step x_{t-1} -> x_t
+                beta = sched.betas[t]
+                x = torch.sqrt(1.0 - beta) * x_prev + torch.sqrt(beta) * draw_noise(noise, x)
+            else:
+                x = x_prev
+    return mask * x_known + (1.0 - mask) * x
+
+
+def impute_dm(unet: Callable[..., torch.Tensor], sched: NoiseSchedule, x_known: torch.Tensor,
+              mask: torch.Tensor, noise: Noise, labels: Optional[torch.Tensor] = None,
+              num_resample: int = 1, guidance_scale: float = 1.0) -> torch.Tensor:
+    """Fill the masked region of windows ``x_known`` (B, C, L) with a
+    signal-space DM: ``ddpm_inpaint_loop`` over ``cond_model_fn`` (plain,
+    stage-conditional with ``labels``, or guided when ``guidance_scale`` is
+    not 1), with clipping to [-1, 1]."""
+    model_fn = cond_model_fn(unet, labels, guidance_scale)
+    return ddpm_inpaint_loop(model_fn, sched, x_known, mask, noise, num_resample=num_resample)
+
+
+def latent_observed_mask(mask: torch.Tensor, latent_len: int, erode: int = 4) -> torch.Tensor:
+    """Signal-space observed mask (B, 1, L) -> latent anchor mask
+    (B, 1, latent_len), conservatively, as the JAX package's.
+
+    A latent position is observed only if every signal sample it covers is
+    (the min over each group of L / latent_len samples); the observed region
+    is then eroded by ``erode`` latent positions on each side, as the
+    encoder's receptive field reaches past its stride into the masked span.
+    The window's ends count as observed (JAX's ``reduce_window(min)`` under
+    SAME padding with init 1.0), so they are not eroded."""
+    m = mask.float()
+    length = m.shape[-1]
+    if length % latent_len:
+        raise ValueError(f"signal length {length} is not a multiple of {latent_len}")
+    m = m.reshape(*m.shape[:-1], latent_len, length // latent_len).amin(dim=-1)
+    if erode > 0:  # max pooling pads with -inf: the min pads with +inf, i.e. observed
+        m = -F.max_pool1d(-m, 2 * erode + 1, stride=1, padding=erode)
+    return m
+
+
+def impute_ldm(unet: Callable[..., torch.Tensor], ae: torch.nn.Module, scale_factor: float,
+               sched: NoiseSchedule, x_known: torch.Tensor, mask: torch.Tensor, noise: Noise,
+               labels: Optional[torch.Tensor] = None, num_resample: int = 1,
+               latent_erode: int = 4, guidance_scale: float = 1.0) -> torch.Tensor:
+    """RePaint in the LDM's latent space: encode ``x_known`` (B, 1, L) with
+    the posterior mean, times ``scale_factor``; run ``ddpm_inpaint_loop``
+    on the latents without clipping (latents are unbounded), anchored by
+    ``latent_observed_mask``; decode with ``decode_stage_2_outputs`` and
+    splice the observed samples back exactly in signal space."""
+    x_known = x_known.float()
+    mask = mask.to(device=x_known.device, dtype=torch.float32)
+    z_known = ae.encode(x_known)[0].float() * scale_factor
+    m_lat = latent_observed_mask(mask, z_known.shape[-1], latent_erode)
+    model_fn = cond_model_fn(unet, labels, guidance_scale)
+    z = ddpm_inpaint_loop(model_fn, sched, z_known, m_lat, noise,
+                          num_resample=num_resample, clip_sample=False)
+    x_dec = ae.decode_stage_2_outputs(z / scale_factor).float()
+    return mask * x_known + (1.0 - mask) * x_dec
+
+
+def sample_dm_conditional(unet: Callable[..., torch.Tensor], sched: NoiseSchedule,
+                          labels: torch.Tensor, seeds: Sequence[int], window: int,
+                          num_steps: int = 200, guidance_scale: float = 1.0) -> torch.Tensor:
+    """Stage-conditional signal-space sampling: per-seed x_T
+    (``seed_noise`` of (window, 1), as the LDM sampler draws its latents),
+    then DDIM over ``num_steps`` with the labels (B,) on their device closed
+    over the model (guided when ``guidance_scale`` is not 1). Returns
+    (B, 1, window) fp32."""
+    x_T = seed_noise(seeds, (window, 1), labels.device).transpose(1, 2)
+    return ddim_sample_loop(cond_model_fn(unet, labels, guidance_scale), sched, x_T, num_steps)

@@ -6,13 +6,17 @@ reproduce. The port's map is its own: every draw comes from a
 ``torch.Generator`` on the training device, seeded from
 ``(cfg.train.seed, stream, ...)`` through numpy's ``SeedSequence``
 (``make_generator``). Stage 2 (``train_ldm``): stream 0 is a training step
-(by step number; draws the encoder's eps, then t, then the noise), 1 an
-eval batch (by epoch and batch), 2 the in-training sample (by epoch; z_T,
-then one noise per step), 3 the scale factor's encoder eps. Stage 1
-(``train_aekl``): stream 4 is a training step's encoder eps (by step
-number).
+(by step number; draws the encoder's eps, then t, then the noise, then a
+conditional model's label dropout), 1 an eval batch (by epoch and batch),
+2 the in-training sample (by epoch; z_T, then one noise per step), 3 the
+scale factor's encoder eps. Stage 1 (``train_aekl``): stream 4 is a
+training step's encoder eps (by step number). The signal-space DM
+(``train_dm``) uses streams 0-2 in the same roles, without the encoder's
+eps.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,3 +43,21 @@ def latent_length(aekl_cfg: Config, length: int) -> int:
 def windows_to_device(batch: np.ndarray, dev: torch.device) -> torch.Tensor:
     """(B, L, 1) numpy windows -> (B, 1, L) fp32 on ``dev``."""
     return torch.from_numpy(batch).to(dev).transpose(1, 2).contiguous()
+
+
+def batch_to_device(batch, dev: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A loader's batch -> (windows (B, 1, L) fp32, labels (B,) int64 or
+    None) on ``dev``: a ``WindowDataset`` yields windows, a
+    ``LabeledEpochDataset`` (windows, labels)."""
+    if isinstance(batch, tuple):
+        x, y = batch
+        return windows_to_device(x, dev), torch.from_numpy(y).long().to(dev)
+    return windows_to_device(batch, dev), None
+
+
+def draw_label_drop(gen: torch.Generator, batch: int, prob: float) -> Optional[torch.Tensor]:
+    """(B,) bool, set where a label is dropped to the null label (with
+    probability ``prob``), drawn from ``gen``; None when ``prob`` is 0."""
+    if prob <= 0:
+        return None
+    return torch.rand((batch,), generator=gen, device=gen.device) < prob

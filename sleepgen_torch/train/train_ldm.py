@@ -9,7 +9,13 @@ first, then every ``val_interval`` epochs, with an in-training DDPM
 sample every ``2 * val_interval``; the best model is chosen before the
 periodic checkpoint is written; a run dir with checkpoints resumes; a
 non-finite epoch loss stops training and the final model comes from the
-last finite checkpoint. Unconditional only.
+last finite checkpoint.
+
+Conditional training (``unet.num_classes`` > 0): the loader is a
+``data.staging.LabeledEpochDataset`` of ``(x, y)`` batches; each label is
+dropped to the null label -1 with probability ``train.cond_dropout_prob``
+(classifier-free guidance), the eval feeds the labels, and the in-training
+sample draws one window per class (``sample_conditional_{epoch}.npy``).
 
 Precision: the UNet keeps fp32 master weights and fp32 Adam state, as
 the JAX state does, and computes in ``cfg.dtype`` under
@@ -18,7 +24,8 @@ softmax and the loss in fp32). The frozen AEKL is cast to ``cfg.dtype``
 and runs without autograd.
 
 Random draws come from ``train/common.py``'s streams 0-3 (a training
-step, an eval batch, the in-training sample, the scale factor). Crop
+step, with the label dropout drawn last; an eval batch; the in-training
+sample; the scale factor). Crop
 offsets come from ``numpy.random.default_rng(cfg.train.seed)`` in the JAX
 package's order, so both packages train on the same windows.
 """
@@ -33,16 +40,15 @@ import numpy as np
 import torch
 
 from sleepgen_torch.config import Config
-from sleepgen_torch.data.dataset import WindowDataset
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl, build_unet
-from sleepgen_torch.sample.samplers import ddpm_sample_loop
+from sleepgen_torch.sample.samplers import cond_model_fn, ddpm_sample_loop
 from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM,
-                                         TRAIN_STREAM, latent_length, make_generator,
-                                         windows_to_device)
+                                         TRAIN_STREAM, batch_to_device, draw_label_drop,
+                                         latent_length, make_generator)
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.device import resolve_device
@@ -85,16 +91,18 @@ def compute_scale_factor(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tens
 
 def ldm_losses(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule, scale_factor: float,
                x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, enc_eps: torch.Tensor,
-               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               compute_dtype: torch.dtype = torch.float32,
+               y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample diffusion losses (B,) of windows x (B, C, L) at timesteps
     t (B,), with the latent noise and the encoder's eps given (the tests
-    inject them; ``draw_step_inputs`` draws them in training)."""
+    inject them; ``draw_step_inputs`` draws them in training); ``y`` (B,)
+    the labels of a conditional UNet."""
     z = posterior_sample(ae, x, enc_eps) * scale_factor
     noisy = sched.add_noise(z, noise, t)
     target = sched.velocity(z, noise, t) if sched.prediction_type == "v_prediction" else noise
     with torch.autocast(x.device.type, dtype=compute_dtype,
                         enabled=compute_dtype != torch.float32):
-        pred = unet(noisy, t)
+        pred = unet(noisy, t, y)
     return (pred.float() - target).square().mean(dim=(1, 2))
 
 
@@ -112,15 +120,19 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                         opt: torch.optim.Optimizer, scale_factor: float,
                         compute_dtype: torch.dtype = torch.float32,
                         ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0):
-    """``step(x, t, noise, enc_eps) -> loss``: one Adam step on the mean
-    loss, then the EMA update ``e = decay * e + (1 - decay) * p`` when
-    ``ema`` (fp32 copies of the parameters, by name) is given."""
+    """``step(x, t, noise, enc_eps, y=None, drop=None) -> loss``: one Adam
+    step on the mean loss, then the EMA update ``e = decay * e + (1 -
+    decay) * p`` when ``ema`` (fp32 copies of the parameters, by name) is
+    given. ``y`` (B,) labels of a conditional UNet; where ``drop`` (B,)
+    bool is set, the label becomes the null label -1."""
     named = dict(unet.named_parameters())
 
-    def train_step(x, t, noise, enc_eps) -> torch.Tensor:
+    def train_step(x, t, noise, enc_eps, y=None, drop=None) -> torch.Tensor:
+        if drop is not None:
+            y = torch.where(drop, torch.full_like(y, -1), y)
         opt.zero_grad(set_to_none=True)
         loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
-                          compute_dtype).mean()
+                          compute_dtype, y).mean()
         loss.backward()
         opt.step()
         if ema is not None:
@@ -134,13 +146,13 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 
 def make_ldm_eval_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                        compute_dtype: torch.dtype = torch.float32):
-    """``eval_step(x, scale_factor, t, noise, enc_eps) -> (B,)`` per-sample
-    losses, without autograd (the UNet's chains then run K2)."""
+    """``eval_step(x, scale_factor, t, noise, enc_eps, y=None) -> (B,)``
+    per-sample losses, without autograd (the UNet's chains then run K2)."""
 
-    def eval_step(x, scale_factor, t, noise, enc_eps) -> torch.Tensor:
+    def eval_step(x, scale_factor, t, noise, enc_eps, y=None) -> torch.Tensor:
         with torch.no_grad():
             return ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
-                              compute_dtype)
+                              compute_dtype, y)
 
     return eval_step
 
@@ -169,22 +181,21 @@ class DiffusionTrainResult:
     stopped_on_nan: bool = False
 
 
-def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
-              ae_state: Mapping[str, np.ndarray], aekl_cfg: Optional[Config] = None,
-              run_name: Optional[str] = None,
+def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray],
+              aekl_cfg: Optional[Config] = None, run_name: Optional[str] = None,
               device: torch.device | str = "cuda") -> DiffusionTrainResult:
-    """Train the LDM's UNet on ``train_ds`` against the frozen AEKL whose
-    port state dict is ``ae_state``; writes the run dir under
-    ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl, checkpoints/,
-    best_model/, final_model/, in-training samples)."""
-    if cfg.unet.num_classes:
-        raise NotImplementedError("conditional training (unet.num_classes > 0) is not "
-                                  "ported yet")
+    """Train the LDM's UNet on ``train_ds`` (a ``WindowDataset``, or a
+    ``LabeledEpochDataset`` when ``cfg.unet.num_classes`` > 0) against the
+    frozen AEKL whose port state dict is ``ae_state``; writes the run dir
+    under ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl,
+    checkpoints/, best_model/, final_model/, in-training samples)."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     seed = cfg.train.seed
+    conditional = cfg.unet.num_classes > 0
+    drop_prob = cfg.train.cond_dropout_prob if conditional else 0.0
 
     spe = "spectral" if cfg.spectral else "no-spectral"
     run_name = run_name or f"ldm_eeg_{spe}_{cfg.dataset}"
@@ -196,7 +207,7 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
     unet, ae, sched, opt = build_trainer(cfg, ae_state, aekl_cfg, dev)
 
     np_rng = np.random.default_rng(seed)
-    first = windows_to_device(next(train_ds.epoch_batches(cfg.train.batch_size, np_rng)), dev)
+    first = batch_to_device(next(train_ds.epoch_batches(cfg.train.batch_size, np_rng)), dev)[0]
     latent_shape = (lc, latent_length(aekl_cfg, first.shape[-1]))
     scale_eps = torch.randn((first.shape[0], *latent_shape),
                             generator=make_generator(seed, dev, SCALE_STREAM), device=dev)
@@ -227,10 +238,10 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
 
     def run_eval(epoch: int, sample: bool = False) -> float:
         def losses(bi, batch):
-            x = windows_to_device(batch, dev)
+            x, y = batch_to_device(batch, dev)
             gen = make_generator(seed, dev, EVAL_STREAM, epoch, bi)
             return eval_step(x, scale_factor, *draw_step_inputs(
-                gen, x.shape[0], latent_shape, sched.num_timesteps))
+                gen, x.shape[0], latent_shape, sched.num_timesteps), y)
 
         val = masked_epoch_mean(len(valid_ds), valid_ds.epoch_batches(
             cfg.train.batch_size, np_rng, shuffle=True), losses)
@@ -240,15 +251,19 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
         return val
 
     def log_sample(epoch: int) -> None:
-        """One unconditional DDPM sample, decoded with and without the
-        scale factor, saved in the (B, C, L) layout."""
+        """One DDPM sample per class (conditional) or one, decoded with and
+        without the scale factor, saved in the (B, C, L) layout."""
+        n = cfg.unet.num_classes if conditional else 1
+        y = torch.arange(n, device=dev) if conditional else None
+        tag = "conditional" if conditional else "unconditioned"
         gen = make_generator(seed, dev, SAMPLE_STREAM, epoch)
         with torch.inference_mode(), torch.autocast(dev.type, dtype=dtype,
                                                     enabled=dtype != torch.float32):
-            z_T = torch.randn((1, *latent_shape), generator=gen, device=dev)
-            z = ddpm_sample_loop(unet, sched, z_T, gen, clip_sample=False)
-            for name, zz in (("sample_unconditioned", z / scale_factor),
-                             ("sample_noscale_unconditioned", z)):
+            z_T = torch.randn((n, *latent_shape), generator=gen, device=dev)
+            z = ddpm_sample_loop(cond_model_fn(unet, y, 1.0), sched, z_T, gen,
+                                 clip_sample=False)
+            for name, zz in ((f"sample_{tag}", z / scale_factor),
+                             (f"sample_noscale_{tag}", z)):
                 np.save(run_dir / f"{name}_{epoch}.npy", ae.decode(zz).float().cpu().numpy())
 
     steps_per_epoch = max(1, math.ceil(len(train_ds) / cfg.train.batch_size))
@@ -260,10 +275,11 @@ def train_ldm(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
         t0 = time.perf_counter()
         losses: List[torch.Tensor] = []
         for batch in train_ds.epoch_batches(cfg.train.batch_size, np_rng):
-            x = windows_to_device(batch, dev)
+            x, y = batch_to_device(batch, dev)
             gen = make_generator(seed, dev, TRAIN_STREAM, step)
-            losses.append(train_step(x, *draw_step_inputs(gen, x.shape[0], latent_shape,
-                                                          sched.num_timesteps)))
+            inputs = draw_step_inputs(gen, x.shape[0], latent_shape, sched.num_timesteps)
+            losses.append(train_step(x, *inputs, y, draw_label_drop(gen, x.shape[0],
+                                                                    drop_prob)))
             step += 1
         mean_loss = float(torch.stack(losses).mean())
         logger_t.log(epoch, {"loss": mean_loss, "seconds": time.perf_counter() - t0})

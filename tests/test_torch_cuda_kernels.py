@@ -374,3 +374,36 @@ def test_group_norm_tiled_long_window():
     torch.cuda.synchronize()
     want = group_norm.group_norm_silu_reference(x, scale, bias, 1)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# The signal-space DM's GroupNorm groups (sleepgen/configs/dm.yaml: mc 128,
+# channel_mult [1, 2, 4], L 3072; G 32): the encoder's are exactly
+# ON_CHIP_MAX (12,288) elements, the largest on-chip case; the decoder's
+# skip concatenations give G 32 groups of 18,432-36,864, on the streaming
+# path (K1) and the three-pass form (K3)
+DM_ON_CHIP = [(128, 3072), (256, 1536), (512, 768)]
+DM_STREAMING = [(256, 3072), (384, 3072), (384, 1536), (768, 1536)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l", DM_ON_CHIP + DM_STREAMING)
+def test_group_norm_kernels_at_the_dm_groups(c, l, dtype):
+    """K1 and K3 at batch 4 against their plain versions, each group on the
+    path its size picks: no scratch at 12,288 elements, scratch above."""
+    b, g = 4, 32
+    scratch = _build.load().sg_group_norm_silu_scratch_floats(b, c, l, g)
+    assert (scratch == 0) == ((c, l) in DM_ON_CHIP)
+    assert (c // g * l == group_norm.ON_CHIP_MAX) == ((c, l) in DM_ON_CHIP)
+    x, scale, bias = _inputs(18, b, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, g)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, g)
+    dx, dx_want = _backward_case(19, b, c, l, g, True, dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+        torch.testing.assert_close(dx, dx_want, rtol=1e-4, atol=1e-5)
+    else:
+        for out, ref in ((got, want), (dx, dx_want)):
+            err = (out.float() - ref).abs()
+            assert bool((err <= BF16_RTOL * ref.abs() + 1e-5).all()), err.max()

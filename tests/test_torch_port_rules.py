@@ -187,3 +187,53 @@ def test_kernel_build_names_the_missing_compiler(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "_build").exists()
+
+
+def test_import_walk_covers_the_dm_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"sleepgen_torch/train/train_dm.py", "sleepgen_torch/data/staging.py",
+            "sleepgen_torch/cli/train_pure_ldm.py", "sleepgen_torch/cli/sample_trials_ddpm.py",
+            "sleepgen_torch/cli/impute.py"} <= names
+
+
+def test_dm_entry_points_default_to_the_gpu(tmp_path):
+    """train_dm, sample_dm_trials, make_dm_sampler and the train-dm,
+    sample-dm and impute CLIs (both modes) raise with no GPU unless told
+    device="cpu", before they write anything."""
+    from sleepgen_torch.cli import impute, sample_trials_ddpm, train_pure_ldm
+    from sleepgen_torch.config import Config
+    from sleepgen_torch.data.synthetic import write_ids_csv, write_synthetic_npy_tree
+    from sleepgen_torch.sample.sample_ldm import make_dm_sampler, sample_dm_trials
+    from sleepgen_torch.train.train_dm import train_dm
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    unet, _, sched = _tiny_models()
+    cfg = Config()
+    cfg.train.output_dir = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_dm_sampler(unet, sched, signal_len=128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_dm_trials(cfg, {}, tmp_path / "unused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_dm(cfg, None, None)
+    cfg.to_yaml(tmp_path / "dm.yaml")
+    rows = write_synthetic_npy_tree(tmp_path / "npy", n_subjects=1, duration_s=31.0)
+    write_ids_csv(tmp_path / "ids.csv", rows)
+    data = ["--path_train_ids", str(tmp_path / "ids.csv"), "--path_valid_ids",
+            str(tmp_path / "ids.csv"), "--path_pre_processed", str(tmp_path / "npy")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_pure_ldm.main(["--config_file", str(tmp_path / "dm.yaml"), *data])
+    assert not (tmp_path / "out").exists()
+
+    aekl_dir, ldm_dir = _tiny_run_dirs(tmp_path / "runs", num_classes=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_trials_ddpm.main(["--diffusion_path", str(ldm_dir), "--output_dir",
+                                 str(tmp_path / "samples")])
+    np.save(tmp_path / "w.npy", np.zeros((1, 3000), np.float32))
+    flags = ["--input", str(tmp_path / "w.npy"), "--output_dir", str(tmp_path / "fixed"),
+             "--mask_start", "0", "--mask_len", "10", "--diffusion_path", str(ldm_dir)]
+    for extra in ([], ["--best_model_path", str(aekl_dir)]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            impute.main([*flags, *extra])
+    assert not (tmp_path / "samples").exists() and not (tmp_path / "fixed").exists()
