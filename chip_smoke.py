@@ -2,14 +2,17 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives six paths: LDM
+CUDA toolkit: ``python3 chip_smoke.py``. It drives eight paths: LDM
 sampling, stage-2 LDM training, stage-1 AEKL training, the evaluation
 (DPM++2M sampling, ``compute-fid``, ``compute-mmds``), serving
 (``SamplerService``, ``serve``, ``warm-cache``; stage-conditional and
-guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
-``impute`` in signal and latent space). Phases, one line each:
+guided sampling), the signal-space DM (``sample-dm``, ``train-dm``,
+``impute`` in signal and latent space), downstream sleep-stage decoding
+(EDF files, ``convert-edfx``, ``decode``) and the evaluation tail
+(``sample-ae``, ``band-eval``). Phases, one line each:
 
-  1. device: the card's name and power limit (nvidia-smi);
+  1. device: the card's name and power limit (nvidia-smi); then whether
+     matplotlib and pandas can be imported here (the port needs neither);
   2. build: compile the kernels from sleepgen_torch/csrc, one nvcc per
      source, in parallel;
   3. kernel checks: one-step runs of the paths record the shapes they
@@ -133,7 +136,7 @@ guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
      error line, the two modes' artifacts equal, the ready line's warm-up
      seconds and each mode's windows/s from the first request sent to the
      last response;
-  D1. tiny DM, card against CPU, same seeds and weights, fp32 with TF32
+  M1. tiny DM, card against CPU, same seeds and weights, fp32 with TF32
      off: ``sample_dm_trials`` with 4 DDIM steps at UNet mc 32, [1, 2],
      attention [2], G 8 on windows of 4096 (groups of 16,384-49,152
      elements: K1's streaming path at G 8), at the model bound, launch
@@ -145,7 +148,7 @@ guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
      (``impute_dm``) and in latent space (``impute_ldm``, the tiny LDM and
      AEKL [4, 4, 8]), at the model bound, the observed region equal to
      x_known bitwise on the card, launch counts as derived;
-  D2. full-width DM (``dm.yaml``, bf16, seeded weights in port run dirs):
+  M2. full-width DM (``dm.yaml``, bf16, seeded weights in port run dirs):
      ``python -m sleepgen_torch sample-dm`` (64 seeds, DDIM-200 over the
      1000-entry table, artifacts; the warm-up), then three timed batches of
      64 through ``sample_dm_trials`` with their launch counts (median
@@ -157,6 +160,34 @@ guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
      seconds per batch, windows/s, launch counts, observed samples
      unchanged; ``warm-cache --targets ldm`` on S2's conditional config
      (one labelled training step at batch 1024) in a process of its own;
+  D1. decoders, card against CPU: the decode CLI's three decoders (a: the
+     3-window Chambon stager, b: the single-window one, c: DeepSleepNet)
+     at their published widths, batch 8, fp32 with TF32 off, dropout 0,
+     from the same weights (random BatchNorm statistics): a forward in
+     eval mode at the model bound, then two training steps (AdamW at 1e-4
+     on the cosine schedule) held by ``hold_decoder_run``: losses, each
+     step's gradients within 2e-3 of each leaf's largest, the BatchNorm
+     running statistics within 1e-5 (the means after the second step
+     also 0.2 lr: the noise-driven biases before them);
+  D2. the decode path at a realistic size: 40 synthetic staged nights of
+     1,000 scored 30 s epochs (``make_synthetic_staged``; 40 x 3.0 M
+     samples) written as PSG and hypnogram EDFs (``write_edf``),
+     ``convert-edfx`` (seconds per recording), then ``decode`` in each
+     variant for 2 epochs at the CLI's batch 64: training steps/s and
+     windows/s, seconds per epoch with both prediction passes, prediction
+     windows/s, peak memory, the card's busy share over 20 profiled steps
+     of the trainer's loop (gather, copy, step), the final balanced
+     accuracy (in [0, 1]) and the confusion matrix's sum (the valid set's
+     size);
+  D3. the evaluation tail on E2's test split: ``sample-ae`` on
+     aekl_eeg.yaml's AEKL (seeded weights) at batch 64, 26 K1 launches a
+     batch, reconstruction windows/s; K1 held to its plain version at
+     ``band-eval``'s batch-512 reconstruction shapes (fp32 and bf16),
+     then ``band-eval`` in each of its four modes with MS-SSIM (26 K1
+     launches in the reconstruction mode) and once with both metrics (FID
+     on seeded USleep weights), each's seconds; where matplotlib is
+     present, the figures ``sample-ae`` and the tiny ``train_aekl`` run
+     wrote, else ``sample-ae --no_figures``;
   8. timings: each kernel at each shape of its path in bf16 (the
      reconstruction's K1 in fp32, as it runs): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
@@ -181,8 +212,9 @@ guided sampling) and the signal-space DM (``sample-dm``, ``train-dm``,
 The line before the device line at the end is one JSON object with a row
 per kernel and path: launches in one run of the path (K1: a sampler
 batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
-reconstruction batch, a guided DPM++2M-20 request, a DM DDIM-200 batch
-and a DM training step; K2: a sampler batch, a DPM++2M-20 batch, a
+reconstruction batch, a guided DPM++2M-20 request, a DM DDIM-200 batch,
+a DM training step and band-eval's batch-512 reconstruction; K2: a
+sampler batch, a DPM++2M-20 batch, a
 guided DPM++2M-20 request, a DM DDIM-200 batch; K3: a stage-2, a
 stage-1 and a DM training step; B2, B3: on no path), its error and
 its times (each shape's time times its launches in that run, summed);
@@ -215,6 +247,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import itertools
 import json
 import re
 import statistics
@@ -234,10 +267,14 @@ sys.path.insert(0, str(ROOT))
 
 from sleepgen_torch.__main__ import main as sleepgen_torch_main  # noqa: E402
 from sleepgen_torch.cli.compute_fid import load_usleep  # noqa: E402
-from sleepgen_torch.cli.compute_mmds import reconstruction_scores  # noqa: E402
+from sleepgen_torch.cli.compute_mmds import load_aekl, reconstruction_scores  # noqa: E402
+from sleepgen_torch.cli.run_sleep_decode import load_staged_dataset, split_recordings  # noqa: E402
 from sleepgen_torch.diffusion.schedules import NoiseSchedule  # noqa: E402
 from sleepgen_torch.config import Config  # noqa: E402
 from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
+from sleepgen_torch.data.edf import write_edf  # noqa: E402
+from sleepgen_torch.data.staging import (STAGE_DESCRIPTIONS, balanced_class_weights,  # noqa: E402
+                                         center_label, make_synthetic_staged, sequence_indices)
 from sleepgen_torch.data.synthetic import (make_synthetic_dataset, write_ids_csv,  # noqa: E402
                                            write_synthetic_npy_tree)
 from sleepgen_torch.data.transforms import BORDER_PAD, center_crop_valid, to_bcl  # noqa: E402
@@ -246,6 +283,8 @@ from sleepgen_torch.eval.fid import frechet_distance, usleep_fid_features  # noq
 from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
 from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.nn.chambon import SleepStagerChambon2018, TimeDistributedStager  # noqa: E402
+from sleepgen_torch.nn.deepsleepnet import DeepSleepNet  # noqa: E402
 from sleepgen_torch.nn.usleep import USleep  # noqa: E402
 from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_dm,  # noqa: E402
                                               build_models, build_unet, dm_sampling_schedule,
@@ -256,11 +295,12 @@ from sleepgen_torch.sample.samplers import (cond_model_fn, ddim_sample_loop,  # 
                                              latent_observed_mask)
 from sleepgen_torch.serve import SamplerService  # noqa: E402
 from sleepgen_torch.train import common as C  # noqa: E402
+from sleepgen_torch.train import decode as DEC  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_dm as D  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
-                                          lecun_normal_state, load_numpy_state,
+                                          flax_init_state, lecun_normal_state, load_numpy_state,
                                           load_params_npz, save_params_npz, seeded_state_dict,
                                           unet_state_to_jax)
 
@@ -292,6 +332,15 @@ DM_CONFIG = ROOT / "sleepgen" / "configs" / "dm.yaml"  # read as YAML
 DM_TRAIN_BATCH = 512  # dm.yaml; train-dm peaks at 69.90 GiB at it on an H100 80GB
 DM_TABLE = 1000  # sample-dm's default --num_inference_steps: the sampling table's length
 IMPUTE_BATCH, IMPUTE_MASK = 16, (1200, 600)  # impute's default batch; (mask_start, mask_len)
+DECODE_BATCH = 64  # the decode CLI's --batch_size
+# D2: 40 nights of 1,000 scored 30 s epochs, as a Sleep-EDFx cassette night
+# holds after the +-30 min crop: 40 x 3.0 M samples at 100 Hz
+DECODE_RECORDINGS, DECODE_NIGHT_EPOCHS = 40, 1000
+DECODE_EPOCHS = 2
+DECODE_HOLD_LR = 1e-4  # D1's AdamW rate: a small first step, as the tiny stage-1 trainer's
+DECODE_PROFILE_STEPS = 20
+BAND_EVAL_WINDOWS = 512  # band-eval's --max_windows, reconstructed in one call
+HAVE = {}  # matplotlib and pandas on this machine (phase_modules)
 
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
@@ -664,6 +713,15 @@ def phase_device() -> str:
     say("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
     return smi
+
+
+def phase_modules() -> None:
+    """Whether matplotlib (the report figures) and pandas can be imported
+    here; the port needs neither."""
+    import importlib.util
+
+    HAVE.update({m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "pandas")})
+    say("modules", **HAVE)
 
 
 def phase_build() -> dict:
@@ -1240,7 +1298,8 @@ def phase_tiny_stage1(tmp: Path) -> dict:
         aekl_best_loss=f"{result.best_loss:.5f}", ldm_seconds=f"{ldm_seconds:.2f}",
         ldm_best_loss=f"{ldm.best_loss:.5f}", scale_factor=f"{ldm.scale_factor:.4f}")
     return dict(metrics=card["metrics"], cpu_metrics=cpu["metrics"], metric_max_abs_err=metric_err,
-                **held, train_aekl_seconds=aekl_seconds, train_ldm_seconds=ldm_seconds)
+                **held, train_aekl_seconds=aekl_seconds, train_ldm_seconds=ldm_seconds,
+                aekl_run_dir=result.run_dir)
 
 
 def phase_stage1_full(tmp: Path) -> dict:
@@ -1821,7 +1880,7 @@ def phase_serve_cli(tmp: Path) -> dict:
                 **{m: {k: v for k, v in r.items() if k != "lines"} for m, r in modes.items()})
 
 
-# -- the signal-space DM (phase 3's DM steps, D1, D2) ---------------------------
+# -- the signal-space DM (phase 3's DM steps, M1, M2) ---------------------------
 
 def dm_config() -> Config:
     """``dm.yaml`` as it stands: UNet mc 128 / [1, 2, 4] / attention [8, 4] /
@@ -1935,7 +1994,7 @@ def repaint_noises(shape: tuple, steps: int, num_resample: int, seed: int) -> li
 
 
 def phase_tiny_dm(tmp: Path) -> dict:
-    """D1: the DM path at tiny widths on the card against the CPU, same
+    """M1: the DM path at tiny widths on the card against the CPU, same
     seeds and weights, fp32 with TF32 off: ``sample_dm_trials`` with 4 DDIM
     steps on windows of 4096 (K1's streaming path at G 8), launch counts as
     derived; two DM training steps, and one conditional step with label
@@ -2066,7 +2125,7 @@ def impute_cli(tmp: Path, name: str, windows: np.ndarray, *flags) -> dict:
 
 
 def phase_dm_full(tmp: Path) -> dict:
-    """D2: the DM path at full width (dm.yaml, bf16) on seeded weights in
+    """M2: the DM path at full width (dm.yaml, bf16) on seeded weights in
     port run dirs. ``sample-dm`` (the CLI, as the warm-up: 64 seeds,
     DDIM-200 over the 1000-entry table, artifacts), then three timed
     batches of 64 through ``sample_dm_trials`` with their launch counts
@@ -2182,7 +2241,7 @@ def phase_dm_full(tmp: Path) -> dict:
 
 def dm_paths(shapes: dict, sample: dict | None = None) -> dict:
     """phase_timings' rows of the DM: K1 and K3 on one training step (phase
-    3's), and K1 and K2 on a DDIM-200 batch of 64 (D2's) when given."""
+    3's), and K1 and K2 on a DDIM-200 batch of 64 (M2's) when given."""
     rows = {"K1 dm train": ("K1", "DM train step", shapes["dm_train"]["K1"],
                             shapes["dm_train_counts"]["K1"]),
             "K3 dm train": ("K3", "DM train step", shapes["dm_train"]["K3"],
@@ -2196,7 +2255,7 @@ def dm_paths(shapes: dict, sample: dict | None = None) -> dict:
 
 def repaint_profile(tag: str, unet, cfg: Config, length: int, clip_sample: bool) -> dict:
     """RePaint steps as ``impute`` runs them: batch IMPUTE_BATCH, one pass
-    per step, D2's masked span (in latent mode through its latent mask),
+    per step, M2's masked span (in latent mode through its latent mask),
     the training schedule's betas. A step's work does not depend on t, so
     a schedule of a few entries stands for the 1000: twenty steps on the
     host clock, then five under torch.profiler (device time per step by
@@ -2281,6 +2340,341 @@ def phase_dm_profile() -> dict:
     del unet, opt, train_step, x
     free_card()
     return dict(ddim_step=step, repaint_step=repaint, train_step=train)
+
+
+# -- downstream decoding, its ingest and the evaluation tail (D1-D3) -----------
+
+def decoders() -> dict:
+    """The decode CLI's three decoders at their published widths, by
+    variant: (a model, one item's shape in (.., C, T))."""
+    return {"a": (lambda: TimeDistributedStager(n_chans=1, sfreq=100), (3, 1, 3000)),
+            "b": (lambda: SleepStagerChambon2018(n_chans=1, sfreq=100, dropout=0.5), (1, 3000)),
+            "c": (lambda: DeepSleepNet(n_outputs=5, sfreq=100), (1, 3000))}
+
+
+def decoder_state(model: torch.nn.Module, seed: int) -> dict:
+    """The trainer's initial weights (``flax_init_state``) with running
+    means N(0, 0.1^2) and variances U(0.5, 1.5), so that no BatchNorm is
+    the identity in eval mode."""
+    sd = flax_init_state(model, seed)
+    rng = np.random.default_rng(seed)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            sd[k] = (0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        elif k.endswith("running_var"):
+            sd[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    return sd
+
+
+def decoder_run(make, state: dict, dev: str, x_eval: np.ndarray, batches: list) -> dict:
+    """A forward in eval mode, then one training step per batch (the
+    trainer's ``make_train_step``, AdamW at DECODE_HOLD_LR on the cosine
+    schedule) from ``state`` on ``dev``: the eval logits, each step's loss
+    and gradients, and the BatchNorm statistics after each step."""
+    model = load_numpy_state(make(), state).to(dev)
+    model.p_dropout = 0.0
+    model.eval()
+    with torch.no_grad():
+        logits = host_copy(model(torch.from_numpy(x_eval).to(dev)))
+    opt, sched = DEC.make_optimizer(model, DECODE_HOLD_LR, 1e-3, 3, len(batches[0][0]),
+                                    len(batches[0][0]))
+    class_w = torch.as_tensor(balanced_class_weights(batches[0][1]), device=dev)
+    step = DEC.make_train_step(model, opt, sched, class_w)
+    out = dict(logits=logits, losses=[], grads=[], stats=[])
+    for x, y in batches:
+        out["losses"].append(float(step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))))
+        out["grads"].append({k: host_copy(p.grad) for k, p in model.named_parameters()
+                             if p.requires_grad})
+        out["stats"].append({k: host_copy(v) for k, v in model.state_dict().items()
+                             if k.endswith(("running_mean", "running_var"))})
+    return out
+
+
+def hold_decoder_run(got: dict, want: dict, what: str) -> dict:
+    """Hold one ``decoder_run`` (card) to another (CPU); raise listing
+    every disagreement. Eval logits and losses at the model bound (rtol
+    2e-3 / atol 2e-4); each step's gradients within 2e-3 of each leaf's
+    largest |g| plus 1e-6 of the model's largest (the rounding floor of a
+    gradient zero in exact arithmetic: a convolution's bias before a
+    BatchNorm in training mode); running variances rtol / atol 1e-5, and
+    running means too, plus, after the first step, 0.2 lr: the noise-driven
+    biases before them each move by lr with a sign of rounding, and the
+    next batch mean with them (momentum 0.1, two sides)."""
+    faults = []
+    err = float(np.abs(got["logits"] - want["logits"]).max())
+    if not np.allclose(got["logits"], want["logits"], rtol=2e-3, atol=2e-4):
+        faults.append(f"eval logits: |err| {err:.3e}")
+    for i, (g, w) in enumerate(zip(got["losses"], want["losses"])):
+        if not abs(g - w) <= 2e-4 + 2e-3 * abs(w):
+            faults.append(f"step {i} loss {g:.6g}, expected {w:.6g}")
+    grad_ratio = 0.0
+    for i, (gg, wg) in enumerate(zip(got["grads"], want["grads"])):
+        top_all = max(float(np.abs(w).max()) for w in wg.values())
+        for k, w in wg.items():
+            top, e = float(np.abs(w).max()), float(np.abs(gg[k] - w).max())
+            if not e <= 2e-3 * top + 1e-6 * top_all:
+                faults.append(f"step {i} gradient {k}: |err| {e:.3e}, leaf's largest {top:.3e}")
+            grad_ratio = max(grad_ratio, e / (top + 1e-6 * top_all / 2e-3))
+    stat_err = 0.0
+    for i, (gs, ws) in enumerate(zip(got["stats"], want["stats"])):
+        for k, w in ws.items():
+            atol = 1e-5 + (0.2 * DECODE_HOLD_LR if i and k.endswith("mean") else 0.0)
+            e = float(np.abs(gs[k] - w).max())
+            if not np.allclose(gs[k], w, rtol=1e-5, atol=atol):
+                faults.append(f"step {i} {k}: |err| {e:.3e}")
+            stat_err = max(stat_err, e)
+    if faults:
+        raise AssertionError(f"{what}, {len(faults)} disagreements:\n" + "\n".join(faults))
+    return dict(logits_err=err, grad_err_ratio=grad_ratio, stat_max_abs_err=stat_err)
+
+
+def phase_tiny_decode() -> dict:
+    """D1: each decoder at its published width, batch 8, fp32 with TF32
+    off, dropout 0, on the card against the CPU from the same weights: a
+    forward in eval mode and two training steps (``hold_decoder_run``)."""
+    rng = np.random.default_rng(SEED + 50)
+    out = {}
+    for variant, (make, item) in decoders().items():
+        with torch.device("meta"):
+            state = decoder_state(make(), SEED + 51)
+        x_eval = rng.standard_normal((8, *item)).astype(np.float32)
+        batches = [(rng.standard_normal((8, *item)).astype(np.float32),
+                    rng.permutation(np.arange(8) % 5)) for _ in range(2)]
+        runs = {dev: decoder_run(make, state, dev, x_eval, batches) for dev in ("cuda", "cpu")}
+        out[variant] = hold_decoder_run(runs["cuda"], runs["cpu"], f"decoder {variant}")
+        say("tiny-decode", variant=variant, losses=[f"{v:.5f}" for v in runs["cuda"]["losses"]],
+            **{k: f"{v:.3e}" for k, v in out[variant].items()})
+    free_card()
+    return out
+
+
+def merged_hypnogram(labels: np.ndarray) -> list:
+    """Stage annotations of consecutive 30 s epochs, runs of one stage
+    merged into one annotation, as a Sleep-EDFx hypnogram holds them."""
+    anns, start = [], 0
+    for i in range(1, len(labels) + 1):
+        if i == len(labels) or labels[i] != labels[start]:
+            anns.append((30.0 * start, 30.0 * (i - start), STAGE_DESCRIPTIONS[labels[start]]))
+            start = i
+    return anns
+
+
+def write_staged_edfs(edf_dir: Path) -> float:
+    """DECODE_RECORDINGS synthetic staged nights of DECODE_NIGHT_EPOCHS 30 s
+    epochs (``make_synthetic_staged``), each a PSG EDF (the windows x 20, in
+    uV) and a hypnogram EDF; returns the seconds the data took."""
+    t0 = time.perf_counter()
+    x, y, rids = make_synthetic_staged(DECODE_RECORDINGS, DECODE_NIGHT_EPOCHS, seed=SEED + 52)
+    edf_dir.mkdir()
+    for rec in range(DECODE_RECORDINGS):
+        m = rids == rec
+        name = f"SC4{rec:02d}1E"
+        write_edf(edf_dir / f"{name}0-PSG.edf", [x[m][..., 0].reshape(-1) * 20.0],
+                  ["EEG Fpz-Cz"], 100)
+        write_edf(edf_dir / f"{name}C-Hypnogram.edf", [np.zeros(100)], ["Marker"], 100,
+                  merged_hypnogram(y[m]))
+    return time.perf_counter() - t0
+
+
+def decode_throughput(variant: str, x: np.ndarray, y: np.ndarray) -> dict:
+    """The card's busy share over a stretch of the trainer's loop: the
+    batch gathered and copied as ``train_decoder`` does it, then the step;
+    DECODE_PROFILE_STEPS under torch.profiler after two warm-up steps."""
+    model = decoders()[variant][0]()
+    model = load_numpy_state(model, flax_init_state(model, SEED)).to("cuda")
+    opt, sched = DEC.make_optimizer(model, 1e-3, 1e-3, DECODE_EPOCHS, len(x), DECODE_BATCH)
+    step = DEC.make_train_step(model, opt, sched,
+                               torch.as_tensor(balanced_class_weights(y), device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(SEED))
+    order = np.random.default_rng(SEED).permutation(len(x))
+    starts = itertools.cycle(range(0, len(x) - DECODE_BATCH + 1, DECODE_BATCH))
+
+    def one():
+        start = next(starts)
+        idx = order[start:start + DECODE_BATCH]
+        step(DEC.to_device(x[idx], torch.device("cuda")), torch.as_tensor(y[idx], device="cuda"))
+
+    one(), one()
+    wall_ms, device_ms, top, _ = device_profile(one, DECODE_PROFILE_STEPS)
+    del model, opt, step
+    free_card()
+    return dict(step_ms=wall_ms, device_ms_per_step=device_ms, busy_share=device_ms / wall_ms,
+                top=top[:6])
+
+
+def phase_decode(tmp: Path) -> dict:
+    """D2: the decode path at a realistic size. DECODE_RECORDINGS nights of
+    DECODE_NIGHT_EPOCHS epochs as PSG + hypnogram EDFs, ``convert-edfx``,
+    then ``decode`` in each variant for DECODE_EPOCHS epochs at the CLI's
+    batch 64, each in this process through the umbrella CLI: steps/s and
+    windows/s of training, seconds per epoch with both prediction passes,
+    prediction windows/s, peak memory, the busy share of a profiled stretch
+    of steps, the final balanced accuracy and the confusion matrix's sum
+    (the valid set's size)."""
+    edf_dir, npy = tmp / "decode_edf", tmp / "decode_npy"
+    data_s = write_staged_edfs(edf_dir)
+    _, convert_s = timed(run_cli, "convert-edfx", "--data_dir", str(edf_dir), "--out_dir", str(npy))
+    t0 = time.perf_counter()
+    x, y, rids = load_staged_dataset(npy, "Fpz-Cz")
+    load_s = time.perf_counter() - t0
+    if len(x) < 0.95 * DECODE_RECORDINGS * DECODE_NIGHT_EPOCHS or x.shape[1:] != (3000, 1):
+        raise AssertionError(f"convert-edfx -> load_staged_dataset: {x.shape}")
+    train_r, valid_r, _ = split_recordings(rids)
+    say("decode-data", recordings=DECODE_RECORDINGS, windows=len(x), data_s=f"{data_s:.2f}",
+        convert_s_per_recording=f"{convert_s / DECODE_RECORDINGS:.3f}", load_s=f"{load_s:.2f}")
+    out = dict(recordings=DECODE_RECORDINGS, windows=len(x), data_s=data_s, convert_s=convert_s,
+               convert_s_per_recording=convert_s / DECODE_RECORDINGS, load_s=load_s, variants={})
+    for variant in decoders():
+        m_tr, m_va = np.isin(rids, train_r), np.isin(rids, valid_r)
+        if variant == "a":
+            s_tr, s_va = sequence_indices(rids[m_tr], 3, 3), sequence_indices(rids[m_va], 3, 3)
+            xtr, ytr = x[m_tr][s_tr], center_label(y[m_tr], s_tr)
+            n_train, n_valid = len(s_tr), len(s_va)
+        else:
+            xtr, ytr = x[m_tr], y[m_tr]
+            n_train, n_valid = int(m_tr.sum()), int(m_va.sum())
+        run_dir = tmp / f"decode_{variant}"
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        res, cli_s = timed(run_cli, "decode", "--data_dir", str(npy), "--variant", variant,
+                           "--n_epochs", str(DECODE_EPOCHS), "--batch_size", str(DECODE_BATCH),
+                           "--output_dir", str(run_dir))
+        peak = torch.cuda.max_memory_allocated()
+        hist = json.loads((run_dir / "history.json").read_text())
+        cm = np.load(run_dir / "confusion_matrix.npy")
+        acc = hist[-1]["valid_bal_acc"]
+        if (len(hist) != DECODE_EPOCHS or cm.sum() != n_valid or not 0.0 <= acc <= 1.0
+                or not all(np.isfinite(h["loss"]) for h in hist)):
+            raise AssertionError(f"decode {variant}: history {hist}, confusion sum {cm.sum()}, "
+                                 f"expected {n_valid}")
+        steps = -(-n_train // DECODE_BATCH)
+        epochs = res.epoch_seconds
+        train_s = statistics.median(e["train_s"] for e in epochs)
+        predict_s = statistics.median(e["predict_s"] for e in epochs)
+        busy = decode_throughput(variant, xtr, ytr)
+        row = dict(n_train=n_train, n_valid=n_valid, cli_s=cli_s, epoch_seconds=epochs,
+                   steps_per_s=steps / train_s, train_windows_per_s=n_train / train_s,
+                   epoch_s=train_s + predict_s,
+                   predict_windows_per_s=(n_train + n_valid) / predict_s, peak_bytes=peak,
+                   final_valid_bal_acc=acc, confusion_sum=int(cm.sum()),
+                   losses=[h["loss"] for h in hist], **busy)
+        out["variants"][variant] = row
+        say("decode", variant=variant, train=n_train, valid=n_valid, cli_s=f"{cli_s:.2f}",
+            steps_per_s=f"{row['steps_per_s']:.2f}",
+            train_windows_per_s=f"{row['train_windows_per_s']:.1f}",
+            epoch_s=f"{row['epoch_s']:.2f}",
+            predict_windows_per_s=f"{row['predict_windows_per_s']:.1f}",
+            peak_gib=f"{peak / 2**30:.3f}", busy_share=f"{busy['busy_share']:.3f}",
+            step_ms=f"{busy['step_ms']:.3f}", device_ms_per_step=f"{busy['device_ms_per_step']:.3f}",
+            valid_bal_acc=f"{acc:.4f}", confusion_sum=int(cm.sum()))
+    return out
+
+
+def band_eval_batch(cfg: Config, run: Path, ids: Path, npy: Path) -> tuple:
+    """One reconstruction of band-eval's BAND_EVAL_WINDOWS test windows in
+    one fp32 call, as the CLI makes it, with the counts set to 0 before and
+    read after: 26 K1 launches. Returns the counts and K1's shapes."""
+    ae = load_aekl(run, cfg, torch.device("cuda"))
+    windows = load_split(ids, npy).epoch_windows(np.random.default_rng(2))[:BAND_EVAL_WINDOWS]
+    x = torch.as_tensor(to_bcl(windows), device="cuda")
+    reset_counts()
+    with torch.inference_mode():
+        recon = ae.reconstruct(x)
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    want = recon_launches(cfg, batches=1)
+    if counts != want or recon.shape != x.shape or not bool(torch.isfinite(recon).all()):
+        raise AssertionError(f"band-eval batch: launches {counts}, expected {want}")
+    del ae, x, recon
+    free_card()
+    return counts, shapes
+
+
+def phase_eval_tail(tmp: Path, checks: dict, stage1_run: Path) -> dict:
+    """D3: ``sample-ae`` on aekl_eeg.yaml's AEKL (seeded weights in a port
+    run dir) over E2's test split at batch 64: its 26 K1 launches per batch,
+    the CLI's seconds and reconstruction windows/s; K1 held to its plain
+    version at band-eval's batch-512 shapes, fp32 and bf16; ``band-eval``
+    in each mode with MS-SSIM (K1's launches in the reconstruction mode)
+    and once with both metrics (FID on seeded USleep weights); the report
+    figures where matplotlib is present."""
+    cfg = stage1_config()
+    run = tmp / "d3_aekl"
+    run.mkdir()
+    cfg.to_yaml(run / "config.yaml")
+    with torch.device("meta"):
+        ae_sd = seeded_state_dict(build_aekl(cfg), SEED + 53)
+    save_params_npz(run / "params.npz", {"params": aekl_state_to_jax(ae_sd)})
+    npy, ids = tmp / "eval_npy", tmp / "eval_test.csv"
+    figures = HAVE["matplotlib"]
+    batches = EVAL_WINDOWS // BATCH
+    reset_counts()
+    out_dir, cli_s = timed(run_cli, "sample-ae", "--output_dir", str(tmp / "sample_ae"),
+                           "--stage1_path", str(run), "--path_train_ids", str(ids),
+                           "--path_pre_processed", str(npy), "--batch_size", str(BATCH),
+                           *([] if figures else ["--no_figures"]))
+    counts = read_counts()
+    files = sorted(out_dir.glob("synthetic_trial_eeg_*.npy"))
+    first = np.load(files[0])
+    if counts != recon_launches(cfg, batches=batches) or len(files) != batches or (
+            first.shape != (BATCH, 1, 3072) or not np.isfinite(first).all()):
+        raise AssertionError(f"sample-ae: launches {counts}, {len(files)} files, {first.shape}")
+    ae = load_aekl(run, cfg, torch.device("cuda"))
+    windows = load_split(ids, npy).epoch_windows(np.random.default_rng(cfg.train.seed))
+
+    def reconstruct_all():
+        with torch.inference_mode():
+            for i in range(0, len(windows), BATCH):
+                ae.reconstruct(torch.as_tensor(to_bcl(windows[i:i + BATCH]), device="cuda"))
+
+    reconstruct_all()
+    recon_s = [timed(reconstruct_all)[1] for _ in range(3)]
+    del ae
+    free_card()
+    say("sample-ae", batches=batches, k1_launches_per_batch=counts["K1"] // batches,
+        cli_s=f"{cli_s:.3f}", windows_per_s=f"{EVAL_WINDOWS / statistics.median(recon_s):.1f}",
+        seconds_min_max=f"{min(recon_s):.4f}-{max(recon_s):.4f}")
+
+    band_counts, band_shapes = band_eval_batch(cfg, run, ids, npy)
+    check_new_shapes(checks, "band-eval reconstruction (batch 512)", {"K1": band_shapes["K1"]})
+    samples = tmp / "dpm_samples"
+    common = ["--path_test_ids", str(ids), "--path_pre_processed", str(npy), "--sample_dir",
+              str(samples), "--best_model_path", str(run), "--max_windows",
+              str(BAND_EVAL_WINDOWS)]
+    modes = {}
+    for mode, metric in (("test_pairs", "ms_ssim"), ("sample_pairs", "ms_ssim"),
+                         ("sample_vs_test", "ms_ssim"), ("reconstruction", "ms_ssim"),
+                         ("test_pairs", "both")):
+        reset_counts()
+        res, secs = timed(run_cli, "band-eval", "--mode", mode, "--metric", metric, *common,
+                          "--output_dir", str(tmp / "band_eval"))
+        launches = read_counts()
+        want = recon_launches(cfg, 1) if mode == "reconstruction" else {"K1": 0, "K2": 0, "K3": 0}
+        values = [v for entry in res.values() for v in entry.values()]
+        if (list(res) != ["all", *EEG_BANDS] or launches != want
+                or not all(np.isfinite(v) for v in values)
+                or not all(-1.0 <= e["ms_ssim_mean"] <= 1.0 for e in res.values())
+                or (metric == "both" and not all(e["fid"] >= -1e-6 for e in res.values()))):
+            raise AssertionError(f"band-eval {mode} {metric}: {res}, launches {launches}")
+        tag = f"{mode}_{metric}"
+        modes[tag] = dict(seconds=secs, results=res, launches=launches)
+        say("band-eval", mode=mode, metric=metric, seconds=f"{secs:.3f}",
+            k1_launches=launches["K1"],
+            ms_ssim_all=f"{res['all']['ms_ssim_mean']:.5f}",
+            **({"fid_all": f"{res['all']['fid']:.5f}"} if metric == "both" else {}))
+    if figures:
+        want_files = [out_dir / "reconstruction_RECONSTRUCTION_0.pdf",
+                      *sorted(stage1_run.glob("reconstruction_RECONSTRUCTION_*.pdf")),
+                      *sorted(stage1_run.glob("compare_SPECTRAL_RECONSTRUCTION_*.pdf"))]
+        if len(want_files) < 3 or not all(f.exists() for f in want_files):
+            raise AssertionError(f"report figures: {want_files}")
+        say("reports", figures=len(want_files))
+    else:
+        say("reports", matplotlib="missing", figures=0, sample_ae="--no_figures")
+    return dict(sample_ae=dict(cli_s=cli_s, launches=counts, seconds=recon_s,
+                               windows_per_s=EVAL_WINDOWS / statistics.median(recon_s)),
+                band_eval=modes, band_counts=band_counts, band_shapes=band_shapes,
+                figures=figures)
 
 
 def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
@@ -2576,6 +2970,7 @@ def write_only_report(tag: str, smi: str, build_logs: dict, rows, per_shape, che
 
 def main(only: str | None = None) -> int:
     smi = phase_device()
+    phase_modules()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_logs = phase_build()
@@ -2600,6 +2995,9 @@ def main(only: str | None = None) -> int:
         serve_cli_run = phase_serve_cli(tmp)
         tiny_dm = phase_tiny_dm(tmp)
         dm = phase_dm_full(tmp)
+        tiny_decode = phase_tiny_decode()
+        decode = phase_decode(tmp)
+        tail = phase_eval_tail(tmp, checks, Path(tiny_stage1["aekl_run_dir"]))
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     check_new_shapes(checks, "DM DDIM-200 batch",
@@ -2616,6 +3014,10 @@ def main(only: str | None = None) -> int:
              "K2 guided": ("K2", guided_path, serve["guided_shapes"]["K2"],
                            serve["guided_counts"]["K2"]),
              **dm_paths(shapes, dm["sample"]),
+             "K1 band-eval": ("K1", "band-eval reconstruction (batch 512)",
+                              tail["band_shapes"]["K1"],
+                              tail["band_eval"]["reconstruction_ms_ssim"]["launches"]["K1"],
+                              torch.float32),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -2638,7 +3040,9 @@ def main(only: str | None = None) -> int:
                   strided_dy_stage1=strided_stage1, profile=prof, train_profile=train_prof,
                   stage1_profile=stage1_prof, tiny_dm=tiny_dm,
                   dm={**dm, "sample": {k: v for k, v in dm["sample"].items() if k != "shapes"}},
-                  dm_profile=dm_prof, build_logs=build_logs,
+                  dm_profile=dm_prof, tiny_decode=tiny_decode, decode=decode,
+                  eval_tail={k: v for k, v in tail.items() if k != "band_shapes"},
+                  modules=HAVE, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
     out_dir = ROOT / "chiprun_out"

@@ -14,6 +14,12 @@ COMMANDS = {
     "serve": "sleepgen_torch.cli.serve",
     "warm-cache": "sleepgen_torch.cli.warm_cache",
     "impute": "sleepgen_torch.cli.impute",
+    "sample-ae": "sleepgen_torch.cli.sample_trials_autoencoder",
+    "band-eval": "sleepgen_torch.cli.band_eval",
+    "decode": "sleepgen_torch.cli.run_sleep_decode",
+    "convert-edfx": "sleepgen_torch.cli.convert_edfx",
+    "convert-shhs": "sleepgen_torch.cli.convert_shhs",
+    "split-ids": "sleepgen_torch.cli.split_ids",
 }
 
 

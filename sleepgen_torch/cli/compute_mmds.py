@@ -46,6 +46,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def load_aekl(run: str | Path, cfg: Config, device: torch.device) -> torch.nn.Module:
+    """The AEKL of a port run dir (``params.npz``) at ``cfg``'s widths, in
+    fp32 and eval mode on ``device``."""
+    with torch.device(device):
+        ae = load_numpy_state(build_aekl(cfg),
+                              aekl_state_from_jax(load_params_npz(Path(run) / "params.npz")))
+    return ae.eval()
+
+
 def reconstruction_scores(ae, windows: np.ndarray, batch_size: int,
                           device: torch.device) -> np.ndarray:
     """MS-SSIM (gaussian, kernel 7) of each (3072, 1) window against the
@@ -83,10 +92,8 @@ def main(argv=None):
     out_dir.mkdir(parents=True, exist_ok=True)
 
     if args.mode == "reconstruction":
-        with torch.device(device):
-            ae = load_numpy_state(build_aekl(cfg),
-                                  aekl_state_from_jax(load_params_npz(run / "params.npz")))
-        scores = reconstruction_scores(ae.eval(), windows, args.batch_size, device)
+        scores = reconstruction_scores(load_aekl(run, cfg, device), windows, args.batch_size,
+                                       device)
         lc = cfg.aekl.latent_channels
         out = out_dir / f"ms_ssim_reconstruction_{args.dataset}_{args.spe}_{lc}.tsv"
         write_tsv(out, ("filename", "ms_ssim"), zip(ds.names, scores))

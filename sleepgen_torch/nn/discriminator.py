@@ -17,13 +17,10 @@ Two of flax's semantics are kept:
 
 * Convolutions pad as flax's ``"SAME"``: for kernel 3 and stride 2 on an
   even length that is (0, 1), not torch's (1, 1).
-* BatchNorm normalises in fp32 with the batch's statistics, as flax's
-  does in training (the only mode the trainer runs), and returns fp32.
-  Its running mean and *biased* variance move only when the caller asks
-  (``update_stats``), as flax's ``mutable=["batch_stats"]`` only counts
-  when the update is kept, and they decay as flax's momentum 0.9:
-  ``r = 0.9 r + 0.1 batch``. (torch's ``BatchNorm1d`` would keep the
-  unbiased variance and move in every training pass.)
+* BatchNorm is flax's (``layers.BatchNorm``): in fp32 with the batch's
+  statistics, as flax's in training (the only mode the trainer runs); its
+  running mean and *biased* variance move only when the caller asks
+  (``update_stats``), at flax's momentum 0.9.
 """
 from __future__ import annotations
 
@@ -32,6 +29,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sleepgen_torch.nn.layers import BatchNorm
 
 
 def same_padding(length: int, kernel: int, stride: int) -> tuple:
@@ -53,30 +52,6 @@ class SameConv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = same_padding(x.shape[-1], self.kernel_size[0], self.stride[0])
         return super().forward(F.pad(x, pad))
-
-
-class BatchNorm(nn.Module):
-    """flax's ``nn.BatchNorm`` over (B, C, L) (statistics over B and L),
-    in fp32: epsilon 1e-5, momentum 0.9, biased running variance."""
-
-    MOMENTUM, EPS = 0.9, 1e-5
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
-        x = x.float()
-        if update_stats:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
-                self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
-                self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
-                            eps=self.EPS)
 
 
 class PatchDiscriminator(nn.Module):

@@ -3,7 +3,9 @@
 Counterparts of ``sleepgen/nn/layers.py``. Parameters of every GroupNorm
 stay fp32; convolutions and linear layers run in the model's compute dtype
 (``cast_compute_dtype``). Normalisation statistics and the attention
-softmax are fp32 in either dtype.
+softmax are fp32 in either dtype. ``BatchNorm`` is flax's, for every port
+model that has one (the discriminator, USleep and the sleep stagers), and
+``dropout`` draws its mask from an explicit generator.
 """
 from __future__ import annotations
 
@@ -40,6 +42,61 @@ class GroupNorm32(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return group_norm_silu(x.contiguous(), self.weight, self.bias, self.num_groups,
                                self.eps, self.fuse_silu)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over (B, C, ...), statistics over every axis
+    but C, in fp32: epsilon 1e-5, momentum 0.9, biased running variance.
+
+    In training mode it normalises with the batch's statistics, as flax's
+    ``use_running_average=False``; its running mean and variance move only
+    when the caller asks (``update_stats``), as flax's
+    ``mutable=["batch_stats"]`` only counts when the update is kept, and
+    decay as flax's momentum 0.9: ``r = 0.9 r + 0.1 batch``. (torch's
+    BatchNorm would keep the unbiased variance and move in every training
+    pass.) In eval mode it normalises with the running statistics. With
+    ``count_batches`` it also holds torch's ``num_batches_tracked``, so a
+    torch BatchNorm's state dict (braindecode's models) loads strictly."""
+
+    MOMENTUM, EPS = 0.9, 1e-5
+
+    def __init__(self, channels: int, count_batches: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        if count_batches:
+            self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        else:
+            self.num_batches_tracked = None
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.EPS)
+        if update_stats:
+            with torch.no_grad():
+                dims = [d for d in range(x.dim()) if d != 1]
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+                self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+                self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+                if self.num_batches_tracked is not None:
+                    self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                            eps=self.EPS)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from ``generator`` (on x's
+    device): kept entries scaled by 1 / (1 - p). The identity when not
+    ``training`` or when p is 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep / (1.0 - p)
 
 
 def cast_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:

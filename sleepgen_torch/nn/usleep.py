@@ -13,8 +13,9 @@ Submodules carry braindecode's ``nn.Sequential`` names
 (``encoder.{i}.block_prepool.{0,2}``, ``bottom.{0,2}``,
 ``decoder.{i}.block_preskip.{1,3}``, ``decoder.{i}.block_postskip.{0,2}``,
 ``clf.{0,3,5}``), so the reference's pretrained state dict loads with
-``strict=True``. BatchNorm runs on its running statistics (eps 1e-5);
-the module is an evaluator and is only used in eval mode, in fp32.
+``strict=True``. BatchNorm is flax's (``layers.BatchNorm``, with torch's
+``num_batches_tracked``); the module is an evaluator, used in eval mode
+(running statistics, eps 1e-5), in fp32.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sleepgen_torch.data.transforms import SFREQ
+from sleepgen_torch.nn.layers import BatchNorm
 
 IN_CHANS = 2
 N_CLASSES = 5
@@ -44,7 +46,7 @@ def usleep_channels(in_chans: int, depth: int, n_time_filters: int = 5,
 
 def _conv_elu_bn(in_ch: int, out_ch: int, kernel: int, padding="same") -> List[nn.Module]:
     return [nn.Conv1d(in_ch, out_ch, kernel, padding=padding), nn.ELU(),
-            nn.BatchNorm1d(out_ch, eps=1e-5)]
+            BatchNorm(out_ch, count_batches=True)]
 
 
 class EncoderBlock(nn.Module):

@@ -22,8 +22,10 @@ model chosen before the periodic checkpoint is written, resume from
 final model taken from the last finite checkpoint. ``best_model/`` and
 ``final_model/`` are port AEKL run dirs (``config.yaml``, ``params.npz``
 in the JAX package's keys) that ``train-ldm --best_model_path`` and
-``sample`` read. The JAX trainer's waveform and PSD figures wait for the
-port of ``eval/reports.py``.
+``sample`` read. Every eval also writes the JAX trainer's figures of the
+first validation batch's sample 0 (``_log_val_figures``: the waveforms and
+the PSD overlay, with their arrays); a figure that fails (matplotlib
+missing) is printed and training goes on.
 
 Precision: fp32 master weights and fp32 Adam state, compute in
 ``cfg.dtype`` under ``torch.autocast``; the batch is cast to that dtype
@@ -149,6 +151,22 @@ def make_eval_step(ae: AutoencoderKL, compute_dtype: torch.dtype = torch.float32
     return eval_step
 
 
+def _log_val_figures(run_dir, epoch: int, pair: dict) -> None:
+    """The reconstruction and PSD-overlay figures of one validation window
+    (the reference's cadence: every val interval,
+    train_autoencoderkl.py:262-283). A failure is printed, never raised:
+    figures must not stop a training run."""
+    if not pair:
+        return
+    try:
+        from sleepgen_torch.eval.reports import save_reconstruction_figure, save_spectral_figure
+
+        save_reconstruction_figure(run_dir, epoch, pair["orig"], pair["recon"])
+        save_spectral_figure(run_dir, epoch, pair["orig"], pair["recon"])
+    except Exception as e:
+        print(f"figure logging failed at epoch {epoch}: {e}", flush=True)
+
+
 @dataclass
 class AEKLTrainResult:
     run_dir: str
@@ -214,10 +232,20 @@ def train_aekl(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
             stopped_on_nan = True
             break
         if (epoch + 1) % cfg.train.val_interval == 0:
+            first_pair = {}
+
+            def losses(bi, batch):
+                x = windows(batch)
+                l1, recon = eval_step(x)
+                if bi == 0:  # the figures plot sample 0 only
+                    first_pair.update(orig=x[:1].float().cpu().numpy(),
+                                      recon=recon[:1].float().cpu().numpy())
+                return l1
+
             val_loss = masked_epoch_mean(
-                len(valid_ds), valid_ds.epoch_batches(bs, np_rng, shuffle=True),
-                lambda _bi, batch: eval_step(windows(batch))[0])
+                len(valid_ds), valid_ds.epoch_batches(bs, np_rng, shuffle=True), losses)
             logger_v.log(epoch, {"recons_loss": val_loss})
+            _log_val_figures(run_dir, epoch, first_pair)
             improved = val_loss <= best_loss  # best before save
             if improved:
                 best_loss = val_loss

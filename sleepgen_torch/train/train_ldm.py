@@ -6,10 +6,11 @@ and draws a posterior sample; ``scale_factor = 1 / std(z)`` of the first
 training batch; t ~ U[0, T), z_t = add_noise(z * scale_factor, eps, t),
 and the UNet is fitted to eps (or to v) by MSE with Adam. Eval comes
 first, then every ``val_interval`` epochs, with an in-training DDPM
-sample every ``2 * val_interval``; the best model is chosen before the
-periodic checkpoint is written; a run dir with checkpoints resumes; a
-non-finite epoch loss stops training and the final model comes from the
-last finite checkpoint.
+sample every ``2 * val_interval`` (its arrays, and the JAX trainer's
+waveform and PSD figures, which never stop training); the best model is
+chosen before the periodic checkpoint is written; a run dir with
+checkpoints resumes; a non-finite epoch loss stops training and the
+final model comes from the last finite checkpoint.
 
 Conditional training (``unet.num_classes`` > 0): the loader is a
 ``data.staging.LabeledEpochDataset`` of ``(x, y)`` batches; each label is
@@ -262,9 +263,20 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
             z_T = torch.randn((n, *latent_shape), generator=gen, device=dev)
             z = ddpm_sample_loop(cond_model_fn(unet, y, 1.0), sched, z_T, gen,
                                  clip_sample=False)
-            for name, zz in ((f"sample_{tag}", z / scale_factor),
-                             (f"sample_noscale_{tag}", z)):
-                np.save(run_dir / f"{name}_{epoch}.npy", ae.decode(zz).float().cpu().numpy())
+            x_scaled, x_raw = (ae.decode(zz).float().cpu().numpy()
+                               for zz in (z / scale_factor, z))
+        np.save(run_dir / f"sample_{tag}_{epoch}.npy", x_scaled)
+        np.save(run_dir / f"sample_noscale_{tag}_{epoch}.npy", x_raw)
+        # the figures of the reference's in-training sampler (util.py:226-258):
+        # the waveforms, and the PSD of the decode with against without the
+        # scale factor; a failure is printed, never raised
+        try:
+            from sleepgen_torch.eval.reports import save_sample_figure, save_spectral_figure
+
+            save_sample_figure(run_dir, epoch, x_scaled)
+            save_spectral_figure(run_dir, epoch, x_scaled, x_raw, name="SAMPLE_VS_NOSCALE")
+        except Exception as e:
+            print(f"sample figure logging failed at epoch {epoch}: {e}", flush=True)
 
     steps_per_epoch = max(1, math.ceil(len(train_ds) / cfg.train.batch_size))
     start_epoch = step // steps_per_epoch

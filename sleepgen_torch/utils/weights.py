@@ -15,10 +15,20 @@ BatchNorm mean/var -> running_mean/running_var; Embed embedding -> weight.
 The tree's structure (levels, resblocks per level, attention) is read
 from its keys, each model's layout by one walk that both directions use.
 
+``chambon_state_from_jax``, ``chambon_sequence_state_from_jax`` and
+``deepsleepnet_state_from_jax`` map the sleep stagers' flax variables
+(``params`` and ``batch_stats``) to the port's decoders: braindecode's
+names for the two Chambon models (which
+``sleepgen.utils.torch_import.import_chambon`` and
+``import_chambon_sequence`` read back), the JAX module's for DeepSleepNet,
+whose four ``OptimizedLSTMCell``s become two bidirectional ``nn.LSTM``s.
+
 ``lecun_normal_state`` draws initial weights with numpy with the JAX
 package's initialisers: the trainers call it for the AEKL, the
 discriminator (BatchNorm buffers included) and, through
 ``init_unet_state`` (``train/train_ldm.py``), the UNet.
+``flax_init_state`` adds flax's orthogonal recurrent kernels, for the
+decoders.
 
 A JAX run dir becomes a port run dir through a flat ``'/'``-keyed
 ``params.npz`` (``save_params_npz`` / ``load_params_npz``); the export
@@ -310,6 +320,86 @@ def usleep_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _bn_counted(sd, prefix, node, stats) -> None:
+    _batch_norm(sd, prefix, node, stats)
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _chambon_features(sd, prefix: str, p: Tree, stats: Tree) -> None:
+    """A ``ChambonFeatureExtractor``'s flax params under braindecode's
+    names: the spatial Dense (C, V) -> Conv2d (V, 1, C, 1), the temporal
+    convs (k, in, F) -> Conv2d (F, in, 1, k), the BatchNorms (if any)."""
+    if "spatial" in p:
+        sd[f"{prefix}spatial_conv.weight"] = np.ascontiguousarray(
+            np.asarray(p["spatial"]["kernel"], np.float32).T[:, None, :, None])
+        sd[f"{prefix}spatial_conv.bias"] = np.asarray(p["spatial"]["bias"], np.float32)
+    for i, name in ((0, "conv1"), (4, "conv2")):
+        k = np.asarray(p[name]["kernel"], np.float32)
+        sd[f"{prefix}feature_extractor.{i}.weight"] = np.ascontiguousarray(
+            k.transpose(2, 1, 0)[:, :, None, :])
+        sd[f"{prefix}feature_extractor.{i}.bias"] = np.asarray(p[name]["bias"], np.float32)
+    for i, name in ((1, "bn1"), (5, "bn2")):
+        if name in p:
+            _bn_counted(sd, f"{prefix}feature_extractor.{i}", p[name], stats[name])
+
+
+def chambon_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``SleepStagerChambon2018`` variables -> the port's state_dict
+    (numpy) in braindecode's names, head at ``final_layer.1``."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, np.ndarray] = {}
+    _chambon_features(sd, "", p["feature_extractor"], stats.get("feature_extractor", {}))
+    _dense(sd, "final_layer.1", p["fc"])
+    return sd
+
+
+def chambon_sequence_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``TimeDistributedStager`` variables -> the port's state_dict in
+    braindecode's names: the features under ``0.module.``, the head at
+    ``1.2``."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    _chambon_features(sd, "0.module.", p["feature_extractor"], stats["feature_extractor"])
+    _dense(sd, "1.2", p["head"])
+    return sd
+
+
+LSTM_GATES = ("i", "f", "g", "o")  # torch's gate order, flax's ii/hi, if/hf, ...
+
+
+def _lstm_direction(sd, prefix: str, suffix: str, cell: Tree) -> None:
+    sd[f"{prefix}.weight_ih_l0{suffix}"] = np.ascontiguousarray(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"], np.float32).T for g in LSTM_GATES]))
+    sd[f"{prefix}.weight_hh_l0{suffix}"] = np.ascontiguousarray(np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"], np.float32).T for g in LSTM_GATES]))
+    sd[f"{prefix}.bias_hh_l0{suffix}"] = np.concatenate(
+        [np.asarray(cell[f"h{g}"]["bias"], np.float32) for g in LSTM_GATES])
+    sd[f"{prefix}.bias_ih_l0{suffix}"] = np.zeros_like(sd[f"{prefix}.bias_hh_l0{suffix}"])
+
+
+def deepsleepnet_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``DeepSleepNet`` variables -> the port's state_dict (numpy). The
+    JAX module's cells are ``OptimizedLSTMCell_{0..3}`` in creation order:
+    layer 0 forward, layer 0 backward, layer 1 forward, layer 1 backward."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    for branch in ("branch_small", "branch_large"):
+        bp, bs = p[branch], stats[branch]
+        _conv(sd, f"{branch}.conv1", bp["conv1"])
+        _batch_norm(sd, f"{branch}.bn1", bp["bn1"], bs["bn1"])
+        for i in range(3):
+            _conv(sd, f"{branch}.conv2_{i}", bp[f"conv2_{i}"])
+            _batch_norm(sd, f"{branch}.bn2_{i}", bp[f"bn2_{i}"], bs[f"bn2_{i}"])
+    if "shortcut" in p:
+        _dense(sd, "shortcut", p["shortcut"])
+        for layer in range(2):
+            for direction, suffix in enumerate(("", "_reverse")):
+                _lstm_direction(sd, f"lstm_{layer}", suffix,
+                                p[f"OptimizedLSTMCell_{2 * layer + direction}"])
+        _dense(sd, "fc", p["fc"])
+    return sd
+
+
 def save_params_npz(path: str | Path, tree: Tree) -> Path:
     """Write a nested parameter tree as a flat '/'-keyed ``.npz``."""
     flat: Dict[str, np.ndarray] = {}
@@ -383,6 +473,30 @@ def lecun_normal_state(module: torch.nn.Module, seed: int | Sequence[int],
                 v[out] = rng.standard_normal(int(out.sum()))
             v *= math.sqrt(1.0 / np.prod(shape[1:])) / TRUNCATED_NORMAL_STD
         sd[name] = v.astype(np.float32)
+    return sd
+
+
+def _orthogonal(rng: np.random.Generator, n: int) -> np.ndarray:
+    """flax's ``orthogonal()`` for an (n, n) kernel: Q of a normal matrix's
+    QR, its columns' signs fixed by R's diagonal."""
+    q, r = np.linalg.qr(rng.standard_normal((n, n)))
+    return q * np.sign(np.diag(r))
+
+
+def flax_init_state(module: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]:
+    """flax's default initial weights for a decoder, drawn with numpy from
+    ``seed`` (``lecun_normal_state``: lecun-normal kernels, zero biases,
+    BatchNorm scale and running variance 1), with each LSTM's recurrent
+    kernel (``weight_hh``) orthogonal per gate, as ``OptimizedLSTMCell``'s.
+    The values are the port's own: JAX draws from a threefry key that
+    numpy cannot reproduce."""
+    sd = lecun_normal_state(module, seed)
+    rng = np.random.default_rng([seed, 2])
+    for name, v in sd.items():
+        if ".weight_hh_" in name:
+            h = v.shape[1]
+            sd[name] = np.concatenate([_orthogonal(rng, h).T for _ in range(v.shape[0] // h)]
+                                      ).astype(np.float32)
     return sd
 
 

@@ -407,3 +407,27 @@ def test_group_norm_kernels_at_the_dm_groups(c, l, dtype):
         for out, ref in ((got, want), (dx, dx_want)):
             err = (out.float() - ref).abs()
             assert bool((err <= BF16_RTOL * ref.abs() + 1e-5).all()), err.max()
+
+
+# band-eval's reconstruction: the AEKL of aekl_eeg.yaml ([32, 32, 64], G 1)
+# reconstructs its --max_windows 512 test windows (L 3072) in one call.
+# Each (C, L, SiLU) K1 gets there, 26 launches in all; groups of 24,576 to
+# 98,304 elements, on the streaming path
+BAND_EVAL_BATCH = 512
+RECON_GN_SHAPES = [(32, 3072, True), (32, 1536, True), (32, 768, True), (64, 768, True),
+                   (64, 768, False), (64, 1536, True), (32, 3072, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l,silu", RECON_GN_SHAPES)
+def test_group_norm_silu_kernel_at_the_band_eval_batch(c, l, silu, dtype):
+    x, scale, bias = _inputs(23, BAND_EVAL_BATCH, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, 1, 1e-6, silu)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, 1, 1e-6, silu)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6)
+    else:
+        err = (got.float() - want).abs()
+        assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()

@@ -151,6 +151,17 @@ USLEEP_CASES = {"depth4_L256": dict(depth=4, length=256, input_size_s=2.555),
                 "depth12_L3000": dict(depth=12, length=3000, input_size_s=30.0)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread in this module: the suite runs several
+    worker processes on the same cores, where each process's spinning
+    thread pool slows every small op of the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=sorted(USLEEP_CASES))
 def usleep_pair(request):
     """The JAX USleep with every parameter and running statistic drawn

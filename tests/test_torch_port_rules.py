@@ -121,6 +121,35 @@ def test_entry_points_default_to_the_gpu(tmp_path):
     assert SamplerService.from_run_dirs(aekl_dir, ldm_dir, batch_size=2, device="cpu").sample(
         [0], stage=1).shape == (1, 4 * 32 - 72, 1)
 
+    from sleepgen_torch.cli import band_eval, run_sleep_decode, sample_trials_autoencoder
+    from sleepgen_torch.data.synthetic import write_ids_csv, write_synthetic_npy_tree
+    from sleepgen_torch.nn.chambon import SleepStagerChambon2018
+    from sleepgen_torch.train.decode import train_decoder
+
+    x = np.zeros((2, 3000, 1), np.float32)
+    y = np.zeros(2, np.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_decoder(SleepStagerChambon2018(), (x, y), (x, y), n_epochs=1)
+    (tmp_path / "staged").mkdir()
+    np.save(tmp_path / "staged" / "r-Fpz-Cz.npy", np.zeros((1, 3000)))
+    np.save(tmp_path / "staged" / "r-annotation.npy",
+            np.array([(0.0, 30.0, "Sleep stage W")], dtype=object), allow_pickle=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sleep_decode.main(["--data_dir", str(tmp_path / "staged"), "--output_dir",
+                               str(tmp_path / "decode")])
+    rows = write_synthetic_npy_tree(tmp_path / "npy", n_subjects=1, duration_s=31.0)
+    write_ids_csv(tmp_path / "ids.csv", rows)
+    data = ["--path_pre_processed", str(tmp_path / "npy")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_trials_autoencoder.main(["--output_dir", str(tmp_path / "sample_ae"),
+                                        "--stage1_path", str(aekl_dir), "--path_train_ids",
+                                        str(tmp_path / "ids.csv"), *data])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        band_eval.main(["--mode", "test_pairs", "--path_test_ids", str(tmp_path / "ids.csv"),
+                        *data, "--output_dir", str(tmp_path / "band_eval")])
+    for d in ("decode", "sample_ae", "band_eval"):
+        assert not (tmp_path / d).exists()
+
 
 def _tiny_run_dirs(root: Path, num_classes: int):
     """Port run dirs of _tiny_models' widths with seeded weights, latent 32,
@@ -237,3 +266,24 @@ def test_dm_entry_points_default_to_the_gpu(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             impute.main([*flags, *extra])
     assert not (tmp_path / "samples").exists() and not (tmp_path / "fixed").exists()
+
+
+def test_import_walk_covers_the_decode_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"sleepgen_torch/{m}.py" for m in (
+        "nn/chambon", "nn/deepsleepnet", "train/decode", "data/edf", "data/ingest",
+        "data/splits", "eval/reports", "cli/run_sleep_decode", "cli/convert_edfx",
+        "cli/convert_shhs", "cli/split_ids", "cli/sample_trials_autoencoder",
+        "cli/band_eval")} <= names
+
+
+def test_both_packages_have_the_same_commands():
+    """``python -m sleepgen_torch`` answers to every command of ``python -m
+    sleepgen``, each a module of the port."""
+    from sleepgen.__main__ import COMMANDS as JAX_COMMANDS
+    from sleepgen_torch.__main__ import COMMANDS
+
+    assert set(COMMANDS) == set(JAX_COMMANDS)
+    for name, module in COMMANDS.items():
+        assert module == JAX_COMMANDS[name].replace("sleepgen.", "sleepgen_torch.", 1)
+        assert (ROOT / (module.replace(".", "/") + ".py")).exists()

@@ -40,6 +40,17 @@ SCALE_FACTOR = 1.3
 STEPS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread in this module: the suite runs several
+    worker processes on the same cores, where each process's spinning
+    thread pool slows every small op of the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cond_pair():
     jm, params = _jax_unet(N_CLASSES)

@@ -54,6 +54,17 @@ def _configs(spectral: bool):
     return jcfg, cfg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread in this module: the suite runs several
+    worker processes on the same cores, where each process's spinning
+    thread pool slows every small op of the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     """JAX state with numpy-drawn weights and BatchNorm statistics, a batch

@@ -40,6 +40,17 @@ def _config(out_dir, n_epochs=2) -> Config:
     return cfg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread in this module: the suite runs several
+    worker processes on the same cores, where each process's spinning
+    thread pool slows every small op of the others."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_ldm")
