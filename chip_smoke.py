@@ -2,14 +2,16 @@
 """Drive sleepgen_torch on one CUDA card and check it end to end.
 
 Run from the repo root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit: ``python3 chip_smoke.py``. It drives eight paths: LDM
+CUDA toolkit: ``python3 chip_smoke.py``. It drives eleven paths: LDM
 sampling, stage-2 LDM training, stage-1 AEKL training, the evaluation
 (DPM++2M sampling, ``compute-fid``, ``compute-mmds``), serving
 (``SamplerService``, ``serve``, ``warm-cache``; stage-conditional and
 guided sampling), the signal-space DM (``sample-dm``, ``train-dm``,
 ``impute`` in signal and latent space), downstream sleep-stage decoding
-(EDF files, ``convert-edfx``, ``decode``) and the evaluation tail
-(``sample-ae``, ``band-eval``). Phases, one line each:
+(EDF files, ``convert-edfx``, ``decode``), the evaluation tail
+(``sample-ae``, ``band-eval``), the first-generation pipeline (the v1 VAE
+against the v1 PatchGAN, DDPM-v1 training, ancestral sampling), int8
+quantized sampling and the long window. Phases, one line each:
 
   1. device: the card's name and power limit (nvidia-smi); then whether
      matplotlib and pandas can be imported here (the port needs neither);
@@ -32,7 +34,16 @@ guided sampling), the signal-space DM (``sample-dm``, ``train-dm``,
      equal to those derived from the configuration (the step: K1 and K3
      49 each, K2 none; its groups of exactly 12,288 elements run K1 and K3
      on chip, those of 18,432-36,864 on K1's streaming path and K3's
-     three-pass form at G 32)); at every one of
+     three-pass form at G 32)); one full-width step of each v1 path at
+     the trainers' batch 16, fp32 (an encoder step: K1 and K3 at each of
+     the VAE's 36 GroupNorms, G 32, groups of 3,072-12,288 elements, on
+     chip; a DDPM step: K1 53, K3 35; an ancestral step: K1 9 and K2 26
+     on K2's fp32 path at C_out 64 and 128; the decode: K1 18); one DDIM
+     step of the long window (``benches/long_window.py``: the default
+     UNet on windows of 12288 at batch 16, bf16, block 512: K1 streaming
+     49,152-element groups at G 32, K2 at L 12288) and one of the flagship
+     int8 sampler at batch 64 (K1 at each of the UNet's 49 GroupNorms and
+     the decoder's 13, no K2), each with its counts as derived; at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
      off; K1 rtol 1e-5 / atol 2e-6, K2 2e-4, K3 rtol 1e-4 / atol 1e-5,
      the bounds of tests/test_pallas_kernels.py, with K3's dscale and dbias
@@ -188,8 +199,40 @@ guided sampling), the signal-space DM (``sample-dm``, ``train-dm``,
      on seeded USleep weights), each's seconds; where matplotlib is
      present, the figures ``sample-ae`` and the tiny ``train_aekl`` run
      wrote, else ``sample-ae --no_figures``;
+  V1. tiny v1 pipeline, card against CPU, same seeded weights and draws,
+     fp32 with TF32 off (VAE n_channels 8, ch_mult (1, 2), G 4; PatchGAN
+     ndf 8, 2 layers; UNet mc 16, [1, 2], attention [2], G 4; L 256): two
+     encoder steps (the trainers' clipped Adams) and one DDPM step, each
+     held by ``hold_tiny_stage1`` with the v1 metrics (the VAE's leaves
+     in the JAX layout, its q, k and v fused); ``p_sample_loop`` over a
+     4-entry table plus the decode at the model bound; launch counts as
+     derived;
+  V2. the v1 pipeline through its trainers at their default widths on
+     3072-sample windows, batch 16, fp32: ``train_v1_encoder`` for five
+     one-step epochs with one validation (best L1, run dir, peak memory),
+     ``train_v1_ddpm`` over its final_model for five one-step epochs, one
+     ``p_sample_loop`` of 1000 steps and ``reconstruct_ldm_outputs``
+     (seconds, windows/s, ms per step), each call's launches as derived;
+     then the encoder, DDPM and ancestral steps each on the host clock
+     (median of five) and under torch.profiler (device ms, busy share);
+  Q1. int8 sampling: tiny, every int8 layer of one UNet forward on the
+     card against the same layer on the CPU on the card's input (int8
+     activations and int32 accumulators equal, outputs at fp32 rounding;
+     whole int8 outputs are not held across devices, as a rounding's
+     difference flips an int8 value and the chain of int8 layers carries
+     it on), and ``sample_ldm_trials(quantized=True)`` at DDIM-4 with its
+     launches; then the flagship configuration at batch 64, DDIM-200: an
+     int8 warm-up batch, then bf16, int8, int8, bf16 batches on the same
+     seeds (seconds, median windows/s, K1 at every GroupNorm and no K2 for
+     int8, the int8 signals' relative L2 to the bf16 ones), and one int8
+     DDIM step profiled (host ms, device ms by kernel, busy share);
+  W1. the long window: a ``kv_block_size`` of 1000 (not a divisor of the
+     3072 attention tokens) refused with JAX's AssertionError and nothing
+     launched; blocks 512 and 0 at DDIM-50, batch 16, bf16 (seconds, ms
+     per step, windows/s, peak memory, launches as derived), their outputs
+     equal;
   8. timings: each kernel at each shape of its path in bf16 (the
-     reconstruction's K1 in fp32, as it runs): kernel,
+     reconstruction's K1 and the v1 paths in fp32, as they run): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
      eager (per call in a loop, host cost included where it exceeds the
      device's) and as device time (the same calls
@@ -213,10 +256,14 @@ The line before the device line at the end is one JSON object with a row
 per kernel and path: launches in one run of the path (K1: a sampler
 batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
 reconstruction batch, a guided DPM++2M-20 request, a DM DDIM-200 batch,
-a DM training step and band-eval's batch-512 reconstruction; K2: a
+a DM training step, band-eval's batch-512 reconstruction, a v1 encoder
+step, a v1 DDPM step, a v1 ancestral batch, an int8 DDIM-200 batch and a
+long-window DDIM-50 batch; K2: a
 sampler batch, a DPM++2M-20 batch, a
-guided DPM++2M-20 request, a DM DDIM-200 batch; K3: a stage-2, a
-stage-1 and a DM training step; B2, B3: on no path), its error and
+guided DPM++2M-20 request, a DM DDIM-200 batch, a v1 ancestral batch
+(fp32) and a long-window DDIM-50 batch; K3: a stage-2, a
+stage-1, a DM, a v1 encoder and a v1 DDPM training step; B2, B3: on no
+path), its error and
 its times (each shape's time times its launches in that run, summed);
 the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
@@ -227,8 +274,9 @@ exits non-zero without the last line.
 phases 1 and 2, the DDIM steps at batch 64 of the LDM and of the DM
 that record K2's shapes and launches (the counts checked against the
 configuration), K2's fp32 and bf16 checks at those shapes and at B3's,
-and the phase-8 timings of K2 (paths "DDIM step" and "DM DDIM step":
-each shape's time times the step's measured launches at it) and B3. It prints the kernels' JSON line and writes
+and the phase-8 timings of K2 (paths "DDIM step", "DM DDIM step", "v1
+ancestral step" in fp32 and "long-window DDIM step": each shape's time
+times the step's measured launches at it) and B3. It prints the kernels' JSON line and writes
 chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
 and exits non-zero on any failure.
 
@@ -237,10 +285,12 @@ phases 1 and 2, the sampler's warm-up call (one DDIM step and the
 decode), one full-width training step of each stage and of the DM, one
 DDIM step of the DM and one reconstruction batch, whose K1 and K3
 launches are checked against the configuration; K1's, K3's and B2's fp32
-and bf16 checks at those shapes and at B2's; the phase-8 timings of K1
+and bf16 checks at those shapes and at B2's (with the v1 steps', the
+long window's and the int8 step's); the phase-8 timings of K1
 (paths "DDIM step", "train step", "stage-1 step", "reconstruction
-batch" and "DM train step"), K3 ("train step", "stage-1 step", "DM train
-step") and B2, and of K3's strided-dy copies. Report in
+batch", "DM train step", the v1 paths, "int8 DDIM step" and
+"long-window DDIM step"), K3 ("train step", "stage-1 step", "DM train
+step", the v1 steps) and B2, and of K3's strided-dy copies. Report in
 chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
 """
 from __future__ import annotations
@@ -270,6 +320,7 @@ from sleepgen_torch.cli.compute_fid import load_usleep  # noqa: E402
 from sleepgen_torch.cli.compute_mmds import load_aekl, reconstruction_scores  # noqa: E402
 from sleepgen_torch.cli.run_sleep_decode import load_staged_dataset, split_recordings  # noqa: E402
 from sleepgen_torch.diffusion.schedules import NoiseSchedule  # noqa: E402
+from sleepgen_torch.diffusion.ddpm_v1 import DDPMTables, p_sample, p_sample_loop  # noqa: E402
 from sleepgen_torch.config import Config  # noqa: E402
 from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
 from sleepgen_torch.data.edf import write_edf  # noqa: E402
@@ -284,7 +335,12 @@ from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
 from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
 from sleepgen_torch.nn.chambon import SleepStagerChambon2018, TimeDistributedStager  # noqa: E402
+from sleepgen_torch.nn.aekl_v1 import AutoencoderKLV1  # noqa: E402
+from sleepgen_torch.nn.discriminator import DiscriminatorV1  # noqa: E402
 from sleepgen_torch.nn.deepsleepnet import DeepSleepNet  # noqa: E402
+from sleepgen_torch.nn.layers import AttentionBlock1d, GroupNorm32  # noqa: E402
+from sleepgen_torch.nn.quant import QuantConv1d, act_quantize, int8_conv_accumulate  # noqa: E402
+from sleepgen_torch.nn.unet1d import TimestepResBlock, UNet1d  # noqa: E402
 from sleepgen_torch.nn.usleep import USleep  # noqa: E402
 from sleepgen_torch.sample.sample_ldm import (DTYPES, build_aekl, build_dm,  # noqa: E402
                                               build_models, build_unet, dm_sampling_schedule,
@@ -299,7 +355,9 @@ from sleepgen_torch.train import decode as DEC  # noqa: E402
 from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_dm as D  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
+from sleepgen_torch.train import train_v1 as V  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
+                                          aekl_v1_state_from_jax, aekl_v1_state_to_jax,
                                           flax_init_state, lecun_normal_state, load_numpy_state,
                                           load_params_npz, save_params_npz, seeded_state_dict,
                                           unet_state_to_jax)
@@ -345,7 +403,7 @@ HAVE = {}  # matplotlib and pandas on this machine (phase_modules)
 K1_SRC = "sleepgen_torch/csrc/group_norm_silu.cu"  # + the shared gn_stats.cu
 K2_SRC = "sleepgen_torch/csrc/gn_silu_conv3.cu"
 K3_SRC = "sleepgen_torch/csrc/group_norm_silu_bwd.cu"
-K1_REPLACES = "sleepgen/pallas_kernels/group_norm.py:125"
+K1_REPLACES = "sleepgen/pallas_kernels/group_norm.py:126"
 K2_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:142"
 K3_REPLACES = "sleepgen/pallas_kernels/group_norm.py:226"
 B2_REPLACES = "sleepgen/pallas_kernels/group_norm.py:159"
@@ -560,13 +618,15 @@ def k1_bound(key, dtype):
 
 
 def k2_bound(key, dtype):
-    """The convolution's products on the tensor cores and the GroupNorm's
+    """The convolution's products (bf16 on the tensor cores; fp32, which
+    K2 computes exactly with FMAs, on the CUDA cores) and the GroupNorm's
     fp32 work on the CUDA cores can overlap, so the least time is the
     largest of the three times, not a sum."""
     b, cin, cout, l, *_ = key
     t_bytes = ((b * cin * l + cout * cin * 3 + cout + b * cout * l) * dtype.itemsize
                + 8 * cin) / HBM_BYTES_PER_S
-    t_ops = max(2 * 3 * b * l * cin * cout / BF16_TC_OPS_PER_S,
+    rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_ops = max(2 * 3 * b * l * cin * cout / rate,
                 GN_OPS_PER_ELEMENT * b * cin * l / FP32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -948,10 +1008,18 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
         stage1_counts, stage1_shapes = phase_stage1_step()
         recon_counts, recon_shapes = phase_recon_batch()
         dm_train_counts, dm_train_shapes = phase_dm_train_step()
+    v1_steps = phase_v1_steps()
+    long_counts, long_shapes = phase_long_window_step()
+    quant_counts, quant_shapes = ({}, {"K1": {}}) if only == "K2" else phase_quant_step(tmp)
+    v1_shapes = {kid: {k: n for _, shp in v1_steps.values() for k, n in shp[kid].items()}
+                 for kid in ("K1", "K2", "K3")}
     to_check = {"K1": {**sample_shapes["K1"], **train_shapes["K1"], **stage1_shapes["K1"],
-                       **recon_shapes["K1"], **dm_sample_shapes["K1"], **dm_train_shapes["K1"]},
-                "K2": {**sample_shapes["K2"], **dm_sample_shapes["K2"]},
-                "K3": {**train_shapes["K3"], **stage1_shapes["K3"], **dm_train_shapes["K3"]},
+                       **recon_shapes["K1"], **dm_sample_shapes["K1"], **dm_train_shapes["K1"],
+                       **v1_shapes["K1"], **long_shapes["K1"], **quant_shapes["K1"]},
+                "K2": {**sample_shapes["K2"], **dm_sample_shapes["K2"], **v1_shapes["K2"],
+                       **long_shapes["K2"]},
+                "K3": {**train_shapes["K3"], **stage1_shapes["K3"], **dm_train_shapes["K3"],
+                       **v1_shapes["K3"]},
                 "B2": dict.fromkeys(B2_SHAPES, 1), "B3": dict.fromkeys(B3_SHAPES, 1)}
     if only:
         keep = {"K2": ("K2", "B3"), "GN": ("K1", "K3", "B2")}[only]
@@ -971,7 +1039,8 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
                 stage1_counts=stage1_counts, recon=recon_shapes,
                 recon_counts=recon_counts, dm_sample=dm_sample_shapes,
                 dm_sample_counts=dm_sample_counts, dm_train=dm_train_shapes,
-                dm_train_counts=dm_train_counts), results
+                dm_train_counts=dm_train_counts, v1=v1_steps, long=(long_counts, long_shapes),
+                quant_step=(quant_counts, quant_shapes)), results
 
 
 def phase_tiny(tmp: Path) -> None:
@@ -2677,6 +2746,682 @@ def phase_eval_tail(tmp: Path, checks: dict, stage1_run: Path) -> dict:
                 figures=figures)
 
 
+# -- the first-generation pipeline, int8 sampling, the long window ------------
+# (phase 3's v1, int8 and long-window steps; V1, V2, Q1, W1)
+
+V1_BATCH = 16  # the v1 trainers' batch_size
+V1_EPOCHS = 5  # V2's trainers: one step an epoch, one validation after the last
+V1_TIMESTEPS = 1000  # train_v1_ddpm's table, and the ancestral chain's length
+V1_LATENT = (3, 768)  # embed_dim 3 at 3072 / 4
+V1_PROFILE_STEPS = 5
+# benches/long_window.py: the default UNet on windows of 12288 (3072 attention
+# tokens), DDIM-50 at batch 16; 1000 does not divide 3072
+LONG_WINDOW, LONG_STEPS, LONG_BATCH, LONG_BLOCK, LONG_BAD_BLOCK = 12288, 50, 16, 512, 1000
+QUANT_REL_L2 = 0.05  # tests/test_quant.py's bound on an int8 output
+
+
+def v1_aekl() -> AutoencoderKLV1:
+    """The v1 VAE at the trainers' defaults (n_channels 64, ch_mult (1, 2, 4),
+    embed_dim 3, z_channels 3, G 32) on 3072-sample windows."""
+    return AutoencoderKLV1(resolution=3072)
+
+
+def v1_unet(ae: AutoencoderKLV1) -> UNet1d:
+    """train_v1_ddpm's UNet: mc 64, channel_mult (1, 2), attention at ds 2,
+    G 32, in and out embed_dim."""
+    return UNet1d(in_channels=ae.embed_dim, out_channels=ae.embed_dim, model_channels=64,
+                  channel_mult=(1, 2), attention_resolutions=(2,))
+
+
+def n_modules(model: torch.nn.Module, kind) -> int:
+    return sum(isinstance(m, kind) for m in model.modules())
+
+
+def unet_launches(unet: UNet1d) -> dict:
+    """Launches of one UNet forward without autograd, derived from its
+    blocks: K2 at both chains of each resblock that does not resample and
+    at chain 2 of each that does, K1 at the chain 1 of those, every
+    attention norm and the output norm; an int8 UNet runs K1 at every
+    GroupNorm and no K2."""
+    if unet.config["quantized"]:
+        return {"K1": n_modules(unet, GroupNorm32), "K2": 0, "K3": 0}
+    blocks = [m for m in unet.modules() if isinstance(m, TimestepResBlock)]
+    resampling = sum(b.up or b.down for b in blocks)
+    return {"K1": resampling + n_modules(unet, AttentionBlock1d) + 1,
+            "K2": 2 * len(blocks) - resampling, "K3": 0}
+
+
+def times(counts: dict, n: int, plus: dict | None = None) -> dict:
+    """n x counts (+ plus), kernel by kernel."""
+    return {k: n * v + (plus or {}).get(k, 0) for k, v in counts.items()}
+
+
+def v1_launches(ae: AutoencoderKLV1, unet: UNet1d) -> dict:
+    """Launches of each v1 path, derived from the models: an encoder step
+    runs K1 at every VAE GroupNorm and K3 at each for its gradient (the
+    discriminator has none); an evaluation batch K1 at each; a DDPM step K1
+    at the encoder's (the frozen encode) and at every UNet GroupNorm, K3 at
+    the UNet's; an ancestral step the UNet forward's K1 and K2; the decode
+    K1 at the decoder's. No K2 in training."""
+    vae, ugn = n_modules(ae, GroupNorm32), n_modules(unet, GroupNorm32)
+    return dict(encoder_step={"K1": vae, "K2": 0, "K3": vae},
+                eval_batch={"K1": vae, "K2": 0, "K3": 0},
+                ddpm_step={"K1": n_modules(ae.encoder, GroupNorm32) + ugn, "K2": 0, "K3": ugn},
+                sample_step=unet_launches(unet),
+                decode={"K1": n_modules(ae.decoder, GroupNorm32), "K2": 0, "K3": 0})
+
+
+def counted(path: str, want: dict, fn):
+    """fn() with the counts set to 0 before and read after, held to
+    ``want``: (its result, counts, shapes)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts, shapes = read_counts(), read_shapes()
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
+    return out, counts, shapes
+
+
+def v1_encoder_inputs(seed: int) -> tuple:
+    """A batch of 16 windows (B, 1, 3072) fp32 and the encoder's eps of step 0."""
+    gen = C.make_generator(seed, "cuda", C.V1_ENCODER_STREAM, 0)
+    return (train_windows(V1_BATCH, seed),
+            torch.randn((V1_BATCH, *V1_LATENT), generator=gen, device="cuda"))
+
+
+def phase_v1_steps() -> dict:
+    """One full-width step of each v1 path on the card, fp32, batch 16, with
+    the counts held to ``v1_launches``: an encoder step from
+    ``init_v1_encoder_state``'s weights, a DDPM step over that VAE, one
+    ancestral step at t 999 and the decode. Returns {path: (counts,
+    shapes)}: the shapes phase 3 checks (K1 and K3 in fp32 at G 32, groups
+    of 3,072-12,288 elements; K2's fp32 path at C_out 64 and 128)."""
+    ae = v1_aekl()
+    state = V.init_v1_encoder_state(ae, DiscriminatorV1(), SEED, device="cuda")
+    unet = v1_unet(ae).cuda()
+    load_numpy_state(unet, T.init_unet_state(unet, SEED))
+    want = v1_launches(ae, unet)
+    x, eps = v1_encoder_inputs(SEED)
+    out = {}
+    metrics, *out["encoder_step"] = counted("v1 encoder step", want["encoder_step"],
+                                            lambda: V.make_v1_encoder_train_step(state)(x, eps))
+    tbl = DDPMTables.create("linear", V1_TIMESTEPS, 0.0015, 0.0195, device="cuda")
+    ddpm = V.make_v1_ddpm_train_step(tbl, unet, ae.eval(), torch.optim.Adam(unet.parameters(),
+                                                                           lr=2.5e-5))
+    gen = C.make_generator(SEED, "cuda", C.V1_DDPM_STREAM, 0)
+    draws = V.draw_v1_ddpm_inputs(gen, V1_BATCH, V1_LATENT, V1_TIMESTEPS)
+    ddpm_metrics, *out["ddpm_step"] = counted("v1 DDPM step", want["ddpm_step"],
+                                              lambda: ddpm(x, *draws))
+    with torch.inference_mode():
+        z = torch.randn((V1_BATCH, *V1_LATENT), device="cuda")
+        t = torch.full((V1_BATCH,), V1_TIMESTEPS - 1, dtype=torch.long, device="cuda")
+        _, *out["sample_step"] = counted("v1 ancestral step", want["sample_step"],
+                                         lambda: p_sample(tbl, unet, z, t, torch.randn_like(z)))
+        _, *out["decode"] = counted("v1 decode", want["decode"],
+                                    lambda: ae.reconstruct_ldm_outputs(z))
+    values = {k: float(v) for k, v in {**metrics, **ddpm_metrics}.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"v1 steps: metrics {values}")
+    say("v1-steps", batch=V1_BATCH, **{f"{p}_{k.lower()}": c[k] for p, (c, _) in out.items()
+                                       for k in ("K1", "K2", "K3") if c[k]},
+        **{f"{p}_shapes": sum(len(s[k]) for k in ("K1", "K2", "K3")) for p, (_, s) in
+           out.items()})
+    del state, unet, ddpm, x, eps
+    free_card()
+    return out
+
+
+def long_window_config(block: int) -> Config:
+    """``benches/long_window.py``'s configuration: the default UNet (mc 128,
+    [1, 2, 4], attention [8, 4], G 32) on windows of 12288, one channel in
+    and out, bf16, the LDM's sampling schedule; ``kv_block_size`` block."""
+    cfg = Config()
+    cfg.unet.image_size, cfg.unet.kv_block_size = LONG_WINDOW, block
+    return cfg
+
+
+def long_window_inputs(cfg: Config) -> tuple:
+    """(UNet from seeded weights, sampling schedule, x_T (16, 1, 12288))."""
+    unet = build_dm(cfg, dm_state(cfg, SEED + 95), torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x_T = torch.randn((LONG_BATCH, 1, LONG_WINDOW), generator=gen, device="cuda")
+    return unet, sampling_schedule(cfg, "cuda"), x_T
+
+
+def phase_long_window_step() -> tuple:
+    """One DDIM step of the long window (batch 16, bf16, block 512) with the
+    counts held to ``unet_launches``: the shapes phase 3 checks (K1
+    streaming groups of 49,152 elements at G 32, K2 at L 12288)."""
+    unet, sched, x_T = long_window_inputs(long_window_config(LONG_BLOCK))
+    with torch.inference_mode():
+        _, counts, shapes = counted("long-window DDIM step", unet_launches(unet),
+                                    lambda: ddim_sample_loop(unet, sched, x_T, 1))
+    say("long-step", batch=LONG_BATCH, window=LONG_WINDOW, k1_launches=counts["K1"],
+        k2_launches=counts["K2"], k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]))
+    del unet, x_T
+    free_card()
+    return counts, shapes
+
+
+def quant_launches(cfg: Config, forwards: int, decodes: int) -> dict:
+    """The int8 sampler's launches: K1 at every UNet GroupNorm per forward
+    (its resblock convolutions are int8, so no K2) and at every decoder
+    GroupNorm per decode."""
+    n = gn_counts(cfg)
+    return {"K1": forwards * n["unet_gn"] + decodes * n["coder_gn"], "K2": 0, "K3": 0}
+
+
+def phase_quant_step(tmp: Path) -> tuple:
+    """One DDIM step of the flagship int8 sampler through
+    ``sample_ldm_trials(quantized=True)`` at batch 64, with the counts held
+    to ``quant_launches``: K1's shapes at every UNet GroupNorm."""
+    cfg = flagship_config(steps=1)
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    _, counts, shapes = counted(
+        "int8 DDIM step", quant_launches(cfg, 1, 1),
+        lambda: sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "q_warmup", 0, BATCH, BATCH,
+                                  compute_psd=False, quantized=True))
+    say("int8-step", batch=BATCH, k1_launches=counts["K1"], k2_launches=counts["K2"],
+        k1_shapes=len(shapes["K1"]))
+    free_card()
+    return counts, shapes
+
+
+def v1_tiny_models(seed: int):
+    """Seeded state dicts (no zero-initialised layer, so that every
+    gradient of a first step is live) of the tiny v1 VAE (n_channels 8,
+    ch_mult (1, 2), one resblock a level, G 4, embed_dim 3, L 256), v1
+    PatchGAN (ndf 8, 2 layers) and UNet (mc 16, [1, 2], attention [2], G 4)."""
+    with torch.device("meta"):
+        ae, disc, unet = (AutoencoderKLV1(**V1_TINY_AE), DiscriminatorV1(ndf=8, n_layers=2),
+                          UNet1d(**V1_TINY_UNET))
+    return (seeded_state_dict(ae, seed), seeded_state_dict(disc, seed + 1),
+            seeded_state_dict(unet, seed + 2))
+
+
+V1_TINY_AE = dict(embed_dim=3, n_channels=8, z_channels=3, ch_mult=(1, 2), num_res_blocks=1,
+                  resolution=256, num_groups=4)
+V1_TINY_UNET = dict(in_channels=3, out_channels=3, model_channels=16, channel_mult=(1, 2),
+                    attention_resolutions=(2,), num_groups=4)
+
+
+def flat(tree, prefix: str) -> dict:
+    """A nested parameter tree as {prefix/path: numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def v1_state(ae: AutoencoderKLV1, disc: DiscriminatorV1) -> dict:
+    """The VAE's parameters in the JAX tree's layout (its q, k and v convs
+    fused into one qkv leaf as JAX holds them: the k bias alone has only a
+    rounding's gradient, softmax ignoring a shift of k) and the
+    discriminator's state dict, BatchNorm statistics included, on the host."""
+    return {**flat(aekl_v1_state_to_jax(ae.state_dict()), "ae"),
+            **{f"disc.{k}": host_copy(v) for k, v in disc.state_dict().items()}}
+
+
+def v1_grads(ae: AutoencoderKLV1, disc: DiscriminatorV1) -> dict:
+    """The gradients, keyed as ``v1_state``."""
+    return {**flat(aekl_v1_state_to_jax({k: p.grad for k, p in ae.named_parameters()}), "ae"),
+            **{f"disc.{k}": host_copy(p.grad) for k, p in disc.named_parameters()}}
+
+
+def tiny_v1_run(dev: str, x: np.ndarray, eps: list, states: tuple) -> dict:
+    """Steps of the v1 encoder trainer on ``dev`` from the seeded states
+    with the trainers' clipped Adams, one per eps: each step's metrics and
+    (clipped) gradients, and the state before and after (``v1_state``)."""
+    ae_sd, disc_sd, _ = states
+    with torch.device(dev):
+        ae = load_numpy_state(AutoencoderKLV1(**V1_TINY_AE), ae_sd)
+        disc = load_numpy_state(DiscriminatorV1(ndf=8, n_layers=2), disc_sd)
+    state = V.V1EncoderState(ae, disc, torch.optim.Adam(ae.parameters(), lr=1e-4),
+                             torch.optim.Adam(disc.parameters(), lr=5e-4))
+    step = V.make_v1_encoder_train_step(state)
+    before, metrics, grads = v1_state(ae, disc), [], []
+    for e in eps:
+        m = step(torch.from_numpy(x).to(dev), torch.from_numpy(e).to(dev))
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append(v1_grads(ae, disc))
+    return dict(metrics=metrics, grads=grads, before=before, after=v1_state(ae, disc))
+
+
+def tiny_v1_ddpm_run(dev: str, x: np.ndarray, draws: tuple, states: tuple) -> dict:
+    """One v1 DDPM step on ``dev`` over the tiny VAE, Adam at 2.5e-5: its
+    metrics and gradients, and the UNet before and after."""
+    ae_sd, _, unet_sd = states
+    with torch.device(dev):
+        ae = load_numpy_state(AutoencoderKLV1(**V1_TINY_AE), ae_sd).eval()
+        unet = load_numpy_state(UNet1d(**V1_TINY_UNET), unet_sd)
+    tbl = DDPMTables.create("linear", V1_TIMESTEPS, 0.0015, 0.0195, device=dev)
+    step = V.make_v1_ddpm_train_step(tbl, unet, ae, torch.optim.Adam(unet.parameters(),
+                                                                    lr=2.5e-5))
+    before = {k: host_copy(v) for k, v in unet.state_dict().items()}
+    m = step(*(torch.from_numpy(a).to(dev) for a in (x, *draws)))
+    return dict(metrics=[{k: float(v) for k, v in m.items()}],
+                grads=[{k: host_copy(p.grad) for k, p in unet.named_parameters()}],
+                before=before, after={k: host_copy(v) for k, v in unet.state_dict().items()})
+
+
+def tiny_v1_sample(dev: str, noise: list, states: tuple) -> np.ndarray:
+    """``p_sample_loop`` over a 4-entry table on the tiny UNet from the
+    given draws (x_T, then one a step), then the VAE's decode, fp32."""
+    ae_sd, _, unet_sd = states
+    with torch.device(dev):
+        ae = load_numpy_state(AutoencoderKLV1(**V1_TINY_AE), ae_sd).eval()
+        unet = load_numpy_state(UNet1d(**V1_TINY_UNET), unet_sd).eval()
+    tbl = DDPMTables.create("linear", 4, 0.0015, 0.0195, device=dev)
+    with torch.inference_mode():
+        z = p_sample_loop(tbl, unet, noise[0].shape, iter(noise), device=dev)
+        return ae.reconstruct_ldm_outputs(z).cpu().numpy()
+
+
+def phase_tiny_v1() -> dict:
+    """V1: the v1 pipeline at tiny widths on the card (K1, K3, K2 in fp32 at
+    G 4) against the CPU (plain versions), fp32 with TF32 off, from the same
+    seeded weights and draws: two encoder steps and one DDPM step, each
+    held by ``hold_tiny_stage1`` with the v1 metrics; ``p_sample_loop``-4
+    plus the decode at the model bound (rtol 2e-3 / atol 2e-4); launch
+    counts as derived."""
+    states = v1_tiny_models(SEED + 100)
+    rng = np.random.default_rng(SEED + 101)
+    b, length, latent = 4, 256, (3, 128)
+    x = rng.uniform(size=(b, 1, length)).astype(np.float32)
+    eps = [rng.standard_normal((b, *latent)).astype(np.float32) for _ in range(2)]
+    draws = (rng.standard_normal((b, *latent)).astype(np.float32),
+             rng.integers(0, V1_TIMESTEPS, b).astype(np.int64),
+             rng.standard_normal((b, *latent)).astype(np.float32))
+    noise = [torch.from_numpy(rng.standard_normal((2, *latent)).astype(np.float32))
+             for _ in range(5)]
+    with torch.device("meta"):
+        ae, unet = AutoencoderKLV1(**V1_TINY_AE), UNet1d(**V1_TINY_UNET)
+    want = v1_launches(ae, unet)
+    card, counts, _ = counted("tiny v1 encoder steps", times(want["encoder_step"], 2),
+                              lambda: tiny_v1_run("cuda", x, eps, states))
+    held = hold_tiny_stage1(card, tiny_v1_run("cpu", x, eps, states), V.ENCODER_METRICS,
+                            "tiny v1 encoder trainer")
+    card_d, _, _ = counted("tiny v1 DDPM step", want["ddpm_step"],
+                           lambda: tiny_v1_ddpm_run("cuda", x, draws, states))
+    held_d = hold_tiny_stage1(card_d, tiny_v1_ddpm_run("cpu", x, draws, states),
+                              V.DDPM_METRICS, "tiny v1 DDPM step")
+    sample, sample_counts, _ = counted(
+        "tiny v1 ancestral loop", times(want["sample_step"], 4, want["decode"]),
+        lambda: tiny_v1_sample("cuda", noise, states))
+    cpu = tiny_v1_sample("cpu", noise, states)
+    np.testing.assert_allclose(sample, cpu, rtol=2e-3, atol=2e-4,
+                               err_msg="tiny v1 p_sample_loop + decode: card vs CPU")
+    err = float(np.abs(sample - cpu).max())
+    say("tiny-v1", losses=[f"{m['loss']:.5f}" for m in card["metrics"]],
+        grad_err_ratio=f"{held['grad_err_ratio']:.3e}",
+        update_err_ratio=f"{held['update_err_ratio']:.3e}",
+        ddpm_loss=f"{card_d['metrics'][0]['loss']:.5f}",
+        ddpm_grad_err_ratio=f"{held_d['grad_err_ratio']:.3e}",
+        sample_max_abs_err=f"{err:.3e}", k1_launches=counts["K1"], k3_launches=counts["K3"],
+        sample_k2_launches=sample_counts["K2"])
+    return dict(metrics=card["metrics"], held=held, ddpm_metrics=card_d["metrics"],
+                ddpm_held=held_d, sample_max_abs_err=err, launches=counts,
+                sample_launches=sample_counts)
+
+
+def host_ms(fn, n: int) -> list:
+    """ms of each of n calls of fn on the host clock, each ended by a
+    synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_timing(tag: str, step, inputs: tuple) -> dict:
+    """A step's ms on the host clock (median of five after the
+    warm-up) and, under torch.profiler, on the device, with the busy share
+    (device ms / wall ms of the profiled step)."""
+    ms = host_ms(lambda: step(*inputs), V1_PROFILE_STEPS)
+    prof = profile_step(f"{tag}-profile", step, inputs)
+    out = dict(host_ms=statistics.median(ms), host_ms_all=ms, **prof)
+    say(tag, host_ms=f"{out['host_ms']:.3f}", device_ms=f"{prof['device_ms_per_step']:.3f}",
+        busy_share=f"{prof['busy_share']:.3f}")
+    return out
+
+
+def phase_v1_full(tmp: Path) -> dict:
+    """V2: the v1 pipeline through its trainers at their default widths on
+    3072-sample windows (batch 16, fp32), counts set to 0 before and read
+    after each call and held to ``v1_launches``: ``train_v1_encoder`` for
+    five one-step epochs with one validation after the last (wall seconds,
+    peak memory, best L1, run dir); ``train_v1_ddpm`` over its final_model
+    for five one-step epochs; one ``p_sample_loop`` of 1000 steps at batch
+    16 and ``reconstruct_ldm_outputs`` (seconds, windows/s, ms per step,
+    peak memory); then each step timed on the host clock and profiled on
+    the device (encoder step, DDPM step, ancestral step)."""
+    train_ds, valid_ds = write_split(tmp, "v1_npy", V1_BATCH, V1_BATCH, SEED + 90)
+    with torch.device("meta"):
+        probe = v1_aekl()
+        want = v1_launches(probe, v1_unet(probe))
+    out = {}
+
+    def run_entry(name: str, expected: dict, fn):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result, counts, _ = counted(name, expected, fn)
+        out[name] = dict(seconds=time.perf_counter() - t0, launches=counts,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        return result
+
+    enc_dir, ddpm_dir = tmp / "v1_encoder", tmp / "v1_ddpm"
+    best, state = run_entry(
+        "train_v1_encoder", times(want["encoder_step"], V1_EPOCHS, want["eval_batch"]),
+        lambda: V.train_v1_encoder(train_ds, valid_ds, enc_dir, n_epochs=V1_EPOCHS,
+                                   batch_size=V1_BATCH, val_interval=V1_EPOCHS, device="cuda"))
+    log = [json.loads(line) for line in (enc_dir / "metrics_train.jsonl").read_text().splitlines()]
+    missing = [n for n in ("best_model/params.npz", "final_model/params.npz",
+                           f"checkpoints/step_{V1_EPOCHS:08d}.pt") if not (enc_dir / n).exists()]
+    if (missing or not np.isfinite(best) or len(log) != V1_EPOCHS
+            or not all(np.isfinite(r[k]) for r in log for k in V.ENCODER_METRICS)):
+        raise AssertionError(f"train_v1_encoder: missing {missing}, best {best}, log {log}")
+    out["train_v1_encoder"].update(best_l1=best, log=log)
+    del state
+    stage1 = aekl_v1_state_from_jax(load_params_npz(enc_dir / "final_model" / "params.npz"))
+    unet = run_entry("train_v1_ddpm", times(want["ddpm_step"], V1_EPOCHS),
+                  lambda: V.train_v1_ddpm(train_ds, stage1, ddpm_dir, v1_aekl(),
+                                          n_epochs=V1_EPOCHS, batch_size=V1_BATCH,
+                                          device="cuda"))
+    log = [json.loads(line) for line in (ddpm_dir / "metrics_train.jsonl").read_text().splitlines()]
+    if (not (ddpm_dir / "final_model" / "params.npz").exists() or len(log) != V1_EPOCHS
+            or not all(np.isfinite(r[k]) for r in log for k in V.DDPM_METRICS)):
+        raise AssertionError(f"train_v1_ddpm: log {log}")
+    out["train_v1_ddpm"].update(log=log)
+
+    with torch.device("cuda"):
+        ae = load_numpy_state(v1_aekl(), stage1).eval()
+    unet.eval()
+    tbl = DDPMTables.create("linear", V1_TIMESTEPS, 0.0015, 0.0195, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def ancestral():
+        with torch.inference_mode():
+            z = p_sample_loop(tbl, unet, (V1_BATCH, *V1_LATENT), gen)
+            return ae.reconstruct_ldm_outputs(z), z
+
+    signal, z = run_entry("ancestral", times(want["sample_step"], V1_TIMESTEPS, want["decode"]),
+                       ancestral)
+    anc = out["ancestral"]
+    if signal.shape != (V1_BATCH, 1, 3072) or not bool(torch.isfinite(signal).all()):
+        raise AssertionError(f"v1 ancestral batch: {tuple(signal.shape)}, finite "
+                             f"{bool(torch.isfinite(signal).all())}")
+    anc.update(windows_per_s=V1_BATCH / anc["seconds"],
+               host_ms_per_step=anc["seconds"] * 1e3 / V1_TIMESTEPS,
+               latent_std=float(z.std()), signal_std=float(signal.std()))
+    say("v2", encoder_seconds=f"{out['train_v1_encoder']['seconds']:.2f}",
+        best_l1=f"{best:.5f}", ddpm_seconds=f"{out['train_v1_ddpm']['seconds']:.2f}",
+        ddpm_loss=f"{log[-1]['loss']:.5f}", ancestral_seconds=f"{anc['seconds']:.2f}",
+        windows_per_s=f"{anc['windows_per_s']:.3f}",
+        host_ms_per_step=f"{anc['host_ms_per_step']:.3f}",
+        peak_gib=",".join(f"{out[k]['peak_bytes'] / 2**30:.2f}" for k in
+                          ("train_v1_encoder", "train_v1_ddpm", "ancestral")),
+        **{f"{k}_launches": out[k]["launches"] for k in out})
+
+    x, eps = v1_encoder_inputs(SEED + 91)
+    enc_state = V.init_v1_encoder_state(v1_aekl(), DiscriminatorV1(), SEED, device="cuda")
+    out["encoder_step"] = step_timing("v2-encoder-step",
+                                      V.make_v1_encoder_train_step(enc_state), (x, eps))
+    opt = torch.optim.Adam(unet.parameters(), lr=2.5e-5)
+    gen = C.make_generator(SEED, "cuda", C.V1_DDPM_STREAM, 0)
+    out["ddpm_step"] = step_timing(
+        "v2-ddpm-step", V.make_v1_ddpm_train_step(tbl, unet, ae, opt),
+        (x, *V.draw_v1_ddpm_inputs(gen, V1_BATCH, V1_LATENT, V1_TIMESTEPS)))
+    unet.eval()
+    zt = torch.randn((V1_BATCH, *V1_LATENT), device="cuda")
+    t = torch.full((V1_BATCH,), 500, dtype=torch.long, device="cuda")
+
+    def sample_step(z, tt):
+        with torch.inference_mode():
+            return p_sample(tbl, unet, z, tt, torch.randn_like(z))
+
+    out["sample_step"] = step_timing("v2-ancestral-step", sample_step, (zt, t))
+    for k in ("encoder_step", "ddpm_step", "sample_step"):
+        out[k]["windows_per_s"] = V1_BATCH / out[k]["host_ms"] * 1e3
+    del ae, unet, opt, enc_state, x, eps
+    free_card()
+    return out
+
+
+def hold_quant_layers(unet: UNet1d, x: torch.Tensor, t: torch.Tensor) -> dict:
+    """Every ``QuantConv1d`` of one forward of the int8 ``unet`` on the card
+    against a CPU copy of the same layer on the card's own input: the int8
+    activations and the int32 accumulators equal, the output within fp32
+    rounding (rtol 1e-6 / atol 1e-6). Returns the layers held and the
+    largest output error."""
+    seen = []
+
+    def record(mod, args, out):
+        seen.append((mod, args[0].clone(), out.clone()))
+
+    hooks = [m.register_forward_hook(record) for m in unet.modules()
+             if isinstance(m, QuantConv1d)]
+    with torch.inference_mode():
+        unet(x, t)
+    for h in hooks:
+        h.remove()
+    worst = 0.0
+    with torch.inference_mode():
+        for mod, inp, out in seen:
+            cpu = copy.deepcopy(mod).cpu()
+            (xq, _), (xq_cpu, _) = act_quantize(inp), act_quantize(inp.cpu())
+            acc = int8_conv_accumulate(xq, mod.matrix(), mod.kernel, mod.out_channels)
+            acc_cpu = int8_conv_accumulate(xq_cpu, cpu.matrix(), cpu.kernel, cpu.out_channels)
+            if not (torch.equal(xq.cpu(), xq_cpu) and torch.equal(acc.cpu(), acc_cpu)):
+                raise AssertionError(f"int8 layer {tuple(mod.weight_q.shape)}: int8 inputs or "
+                                     "int32 accumulators differ from the CPU's")
+            want = cpu(inp.cpu())
+            torch.testing.assert_close(out.cpu(), want, rtol=1e-6, atol=1e-6)
+            worst = max(worst, float((out.cpu() - want).abs().max()))
+    if not seen:
+        raise AssertionError("the int8 UNet ran no QuantConv1d")
+    return dict(layers=len(seen), max_abs_err=worst)
+
+
+def rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def quant_batch(cfg: Config, unet_sd, ae_sd, tmp: Path, i: int, quantized: bool) -> dict:
+    """One batch of 64 seeds through ``sample_ldm_trials`` (the entry point,
+    model build and artifacts included), bf16 or int8: seconds, counts,
+    shapes and the signals."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / f"q_{quantized}_{i}", i * BATCH,
+                            (i + 1) * BATCH, BATCH, compute_psd=False, quantized=quantized)
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, counts=read_counts(), shapes=read_shapes(),
+                signals=sig)
+
+
+def phase_quant(tmp: Path) -> dict:
+    """Q1: the int8 sampler. Tiny (the tiny sampler's widths, fp32): every
+    ``QuantConv1d`` of one int8 UNet forward on the card against the same
+    layer on the CPU, on the card's own input (``hold_quant_layers``); then
+    ``sample_ldm_trials(quantized=True)`` at DDIM-4 on the card, K1
+    launches as derived and none of K2, finite. The card's and the CPU's
+    int8 outputs are not held to each other: a rounding's difference in
+    one activation moves its int8 value by a whole step, and the UNet's
+    chain of quantized layers carries that on, at times about as far as
+    int8 itself moves the output; their distances are reported. Then the
+    flagship configuration (ldm.yaml's UNet and aekl_eeg.yaml's AEKL, bf16,
+    seeded weights) at batch 64, DDIM-200: one int8 warm-up batch, then bf16, int8, int8, bf16
+    batches on the same seeds, each one call of the entry point: seconds,
+    windows/s, K1 and K2 launches (int8: K1 at every GroupNorm, no K2), and
+    the int8 signals against the bf16 ones (relative L2); then one int8 DDIM
+    step on the host clock (median of five) and under torch.profiler
+    (device ms by kernel, busy share)."""
+    cfg = tiny_config(steps=4)
+    unet_sd, ae_sd = seeded_weights(cfg, SEED + 110)
+    x = torch.from_numpy(np.random.default_rng(SEED + 111).standard_normal(
+        (4, 1, cfg.unet.image_size)).astype(np.float32))
+    unet, _ = build_models(cfg, unet_sd, ae_sd, torch.device("cuda"), quantized=True)
+    layers = hold_quant_layers(unet, x.cuda(), torch.tensor([10, 200, 500, 900], device="cuda"))
+    kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
+    card, counts, _ = counted("tiny int8 sampler", quant_launches(cfg, 4, 1),
+                              lambda: sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3,
+                                                        tmp / "q_tiny_card", device="cuda",
+                                                        quantized=True, **kw))
+    if card.shape != (4, 4 * cfg.unet.image_size - 72, 1) or not np.isfinite(card).all():
+        raise AssertionError(f"tiny int8 sampler: output {card.shape}")
+    cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "q_tiny_cpu", device="cpu",
+                            quantized=True, **kw)
+    cpu_fp = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "q_tiny_fp", device="cpu", **kw)
+    out = dict(tiny_layers=layers, tiny_rel_l2_to_cpu_int8=rel_l2(card, cpu),
+               tiny_rel_l2_to_cpu_fp32=rel_l2(card, cpu_fp),
+               cpu_int8_rel_l2_to_fp32=rel_l2(cpu, cpu_fp), tiny_launches=counts)
+    say("q1-tiny", layers=layers["layers"], layer_max_abs_err=f"{layers['max_abs_err']:.3e}",
+        **{k: f"{v:.3e}" for k, v in out.items() if "rel_l2" in k},
+        k1_launches=counts["K1"], k2_launches=counts["K2"])
+
+    cfg = flagship_config(steps=STEPS)
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    want = {True: quant_launches(cfg, STEPS, 1), False: expected_launches(cfg, STEPS, 1)}
+    quant_batch(cfg, unet_sd, ae_sd, tmp, 0, True)
+    runs = {True: [], False: []}
+    for quantized in (False, True, True, False):
+        r = quant_batch(cfg, unet_sd, ae_sd, tmp, 1, quantized)
+        if r["counts"] != {**want[quantized], "K3": 0}:
+            raise AssertionError(f"{'int8' if quantized else 'bf16'} batch: launches "
+                                 f"{r['counts']}, expected {want[quantized]}")
+        if r["signals"].shape != (BATCH, 3000, 1) or not np.isfinite(r["signals"]).all():
+            raise AssertionError(f"int8 phase: signals {r['signals'].shape}")
+        runs[quantized].append(r)
+    rel = rel_l2(runs[True][0]["signals"], runs[False][0]["signals"])
+    for quantized, name in ((True, "int8"), (False, "bf16")):
+        s = [r["seconds"] for r in runs[quantized]]
+        out[name] = dict(seconds=s, windows_per_s=BATCH / statistics.median(s),
+                         launches=runs[quantized][0]["counts"])
+    out.update(int8_vs_bf16_rel_l2=rel, shapes=runs[True][0]["shapes"])
+    unet, _ = build_models(cfg, unet_sd, ae_sd, torch.device("cuda"), quantized=True)
+    sched = sampling_schedule(cfg, "cuda")
+    x = torch.randn((BATCH, 1, cfg.unet.image_size), device="cuda")
+    with torch.inference_mode():
+        ddim_sample_loop(unet, sched, x, 2)
+        step_ms = statistics.median(host_ms(lambda: ddim_sample_loop(unet, sched, x, 1), 5))
+        _, device_ms, top, n_kernels = device_profile(
+            lambda: ddim_sample_loop(unet, sched, x, 1), 5)
+    out["int8_step"] = dict(host_ms=step_ms, device_ms=device_ms,
+                            busy_share=device_ms / step_ms, top=top, kernels=n_kernels)
+    say("q1-step", host_ms=f"{step_ms:.3f}", device_ms=f"{device_ms:.3f}",
+        busy_share=f"{device_ms / step_ms:.3f}", kernels=n_kernels)
+    for row in top[:8]:
+        say("q1-step-top", ms_per_step=f"{row['ms_per_run']:.3f}", kernel=row["kernel"][:80])
+    del unet, x
+    say("q1", int8_windows_per_s=f"{out['int8']['windows_per_s']:.2f}",
+        bf16_windows_per_s=f"{out['bf16']['windows_per_s']:.2f}",
+        int8_seconds=[f"{v:.3f}" for v in out["int8"]["seconds"]],
+        bf16_seconds=[f"{v:.3f}" for v in out["bf16"]["seconds"]],
+        int8_vs_bf16_rel_l2=f"{rel:.4f}", int8_k1=out["int8"]["launches"]["K1"],
+        int8_k2=out["int8"]["launches"]["K2"])
+    free_card()
+    return out
+
+
+def phase_long_window() -> dict:
+    """W1: the long window (``benches/long_window.py``: the default UNet on
+    windows of 12288, batch 16, bf16, DDIM-50 over the LDM's sampling
+    schedule, seeded weights). A ``kv_block_size`` of 1000, which does not
+    divide the 3072 attention tokens, is refused with JAX's AssertionError
+    before any kernel is launched. Then blocks 512 and 0, each after a
+    two-step warm-up: seconds, ms per step, windows/s, peak memory, launch
+    counts as derived; the two outputs must be equal (the block changes
+    only the refusal, the attention stays one SDPA call)."""
+    bad, sched, x_T = long_window_inputs(long_window_config(LONG_BAD_BLOCK))
+    reset_counts()
+    try:
+        with torch.inference_mode():
+            ddim_sample_loop(bad, sched, x_T, 1)
+    except AssertionError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"kv_block_size {LONG_BAD_BLOCK} was not refused")
+    torch.cuda.synchronize()
+    if read_counts() != {"K1": 0, "K2": 0, "K3": 0} or "L=3072" not in refusal:
+        raise AssertionError(f"the refusal launched {read_counts()}: {refusal}")
+    say("w1-refusal", block=LONG_BAD_BLOCK, message=refusal[:60].replace(" ", "_"))
+    del bad
+    out, outputs = dict(refusal=refusal), {}
+    for block in (LONG_BLOCK, 0):
+        unet, sched, x_T = long_window_inputs(long_window_config(block))
+        with torch.inference_mode():
+            ddim_sample_loop(unet, sched, x_T, 2)
+            free_card()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            x, counts, shapes = counted(f"long window, block {block}",
+                                        times(unet_launches(unet), LONG_STEPS),
+                                        lambda: ddim_sample_loop(unet, sched, x_T, LONG_STEPS))
+            seconds = time.perf_counter() - t0
+        outputs[block] = x
+        out[f"block_{block}"] = dict(seconds=seconds, ms_per_step=seconds * 1e3 / LONG_STEPS,
+                                     windows_per_s=LONG_BATCH / seconds, launches=counts,
+                                     peak_bytes=torch.cuda.max_memory_allocated())
+        out["shapes"] = shapes
+        del unet
+    if not torch.equal(outputs[LONG_BLOCK], outputs[0]) or not bool(
+            torch.isfinite(outputs[0]).all()):
+        raise AssertionError("long window: blocks 512 and 0 differ, max |diff| "
+                             f"{float((outputs[LONG_BLOCK] - outputs[0]).abs().max())}")
+    for block in (LONG_BLOCK, 0):
+        r = out[f"block_{block}"]
+        say("w1", block=block, seconds=f"{r['seconds']:.3f}", ms_per_step=f"{r['ms_per_step']:.3f}",
+            windows_per_s=f"{r['windows_per_s']:.3f}", peak_gib=f"{r['peak_bytes'] / 2**30:.2f}",
+            k1_launches=r["launches"]["K1"], k2_launches=r["launches"]["K2"])
+    del outputs
+    free_card()
+    return out
+
+
+def v1_paths(shapes: dict, v1: dict | None = None) -> dict:
+    """phase_timings' rows of the v1 pipeline, fp32: K1 and K3 on one
+    encoder step and one DDPM step (phase 3's), K1 and K2 on one ancestral
+    batch (1000 UNet forwards and the decode: phase 3's step shapes, V2's
+    launches)."""
+    steps = shapes["v1"]
+    anc = {kid: {k: V1_TIMESTEPS * n for k, n in steps["sample_step"][1][kid].items()}
+           for kid in ("K1", "K2")}
+    for k, n in steps["decode"][1]["K1"].items():
+        anc["K1"][k] = anc["K1"].get(k, 0) + n
+    launches = v1["ancestral"]["launches"] if v1 else {kid: sum(anc[kid].values())
+                                                       for kid in ("K1", "K2")}
+    rows = {}
+    for kid, tag in itertools.product(("K1", "K3"), ("encoder_step", "ddpm_step")):
+        counts, per_shape = steps[tag]
+        rows[f"{kid} v1 {tag}"] = (kid, "v1 " + tag.replace("_", " ").replace("ddpm", "DDPM"),
+                                   per_shape[kid], counts[kid], torch.float32)
+    for kid in ("K1", "K2"):
+        rows[f"{kid} v1 ancestral"] = (kid, "v1 ancestral batch", anc[kid], launches[kid],
+                                       torch.float32)
+    return rows
+
+
+def quant_long_paths(quant: dict, long: dict) -> dict:
+    """phase_timings' rows of the int8 sampler's K1 (a DDIM-200 batch) and
+    of the long window's K1 and K2 (a DDIM-50 batch), bf16, from Q1's and
+    W1's runs."""
+    block = long[f"block_{LONG_BLOCK}"]
+    return {"K1 int8": ("K1", "int8 DDIM-200 batch", quant["shapes"]["K1"],
+                        quant["int8"]["launches"]["K1"]),
+            **{f"{kid} long": (kid, "long-window DDIM-50 batch", long["shapes"][kid],
+                               block["launches"][kid]) for kid in ("K1", "K2")}}
+
+
 def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
     """Hold each kernel to its plain version at the shapes of ``shapes``
     ({kernel id: {shape: launches}}) not checked yet."""
@@ -2718,9 +3463,10 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, dtype, seed=3)
             # fewer calls at the training steps' tensors of 25-400 M elements,
-            # where the plain versions take milliseconds a call
-            reps = (20 if kid in ("K2", "B3") else
-                    10 if path in ("train step", "stage-1 step", "DM train step") else 50)
+            # where the plain versions take milliseconds a call; 30 and 12
+            # calls elsewhere keep the whole run near half its time limit
+            reps = (12 if kid in ("K2", "B3") else
+                    10 if path in ("train step", "stage-1 step", "DM train step") else 30)
             calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                          library_ms=(spec["library"](*args), ()) if kid == "K3"
                          else (spec["library"], args))
@@ -2734,7 +3480,8 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] = None if tot[k] is None or t[k] is None else tot[k] + t[k] * count
-            if kid in ("K2", "B3"):  # the weight re-layout, apart (cached per weight)
+            if kid in ("K2", "B3") and dtype == torch.bfloat16:
+                # the bf16 weight re-layout, apart (cached per weight; fp32 has none)
                 t["relayout_ms"], t["relayout_graph_ms"] = time_ms(
                     fused_resblock.conv_tiles, (args[3],), reps)
                 for k in relayout:
@@ -2745,7 +3492,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 **{k: "null" if v is None else f"{v:.4f}" for k, v in t.items()})
             del args
         free_card()
-        if kid in ("K2", "B3"):
+        if kid in ("K2", "B3") and dtype == torch.bfloat16:
             say("time", kernel=spec["name"], path=path,
                 **{f"{k}_per_run": f"{v:.4f}" for k, v in relayout.items()},
                 kernel_ms_per_run=f"{tot['ms']:.4f}",
@@ -2909,10 +3656,13 @@ def k2_only(smi: str, build_logs: dict) -> int:
     measured launches at each shape); no {"ok": ...} line."""
     with tempfile.TemporaryDirectory() as td:
         shapes, checks = phase_checks(Path(td), only="K2")
+    (v1_counts, v1_shapes), (long_counts, long_shapes) = shapes["v1"]["sample_step"], shapes["long"]
     rows, per_shape = phase_timings(
         {"K2": ("K2", "DDIM step", shapes["sample"]["K2"], shapes["sample_counts"]["K2"]),
          "K2 dm": ("K2", "DM DDIM step", shapes["dm_sample"]["K2"],
                    shapes["dm_sample_counts"]["K2"]),
+         "K2 v1": ("K2", "v1 ancestral step", v1_shapes["K2"], v1_counts["K2"], torch.float32),
+         "K2 long": ("K2", "long-window DDIM step", long_shapes["K2"], long_counts["K2"]),
          "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
     return write_only_report("k2", smi, build_logs, rows, per_shape, checks)
 
@@ -2929,9 +3679,13 @@ def gn_only(smi: str, build_logs: dict) -> int:
     with tempfile.TemporaryDirectory() as td:
         shapes, checks = phase_checks(Path(td), only="GN")
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
+    (quant_counts, quant_shapes), (long_counts, long_shapes) = shapes["quant_step"], shapes["long"]
     rows, per_shape = phase_timings(
         {"K1 sample": ("K1", "DDIM step", shapes["sample"]["K1"], shapes["sample_counts"]["K1"]),
          **training_paths(shapes), **recon_path(shapes), **dm_paths(shapes),
+         **{k: v for k, v in v1_paths(shapes).items() if not k.startswith("K2")},
+         "K1 int8": ("K1", "int8 DDIM step", quant_shapes["K1"], quant_counts["K1"]),
+         "K1 long": ("K1", "long-window DDIM step", long_shapes["K1"], long_counts["K1"]),
          "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
     strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
     strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"], stage1["K3"])
@@ -2998,10 +3752,17 @@ def main(only: str | None = None) -> int:
         tiny_decode = phase_tiny_decode()
         decode = phase_decode(tmp)
         tail = phase_eval_tail(tmp, checks, Path(tiny_stage1["aekl_run_dir"]))
+        tiny_v1 = phase_tiny_v1()
+        v1 = phase_v1_full(tmp)
+        quant = phase_quant(tmp)
+        long = phase_long_window()
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     check_new_shapes(checks, "DM DDIM-200 batch",
                      {kid: dm["sample"]["shapes"][kid] for kid in ("K1", "K2")})
+    check_new_shapes(checks, "int8 DDIM-200 batch", {"K1": quant["shapes"]["K1"]})
+    check_new_shapes(checks, "long-window DDIM-50 batch",
+                     {kid: long["shapes"][kid] for kid in ("K1", "K2")})
     dpm = evals["dpm"]
     paths = {"K1 sample": ("K1", "sample batch", full["shapes"]["K1"], full["launches"]["K1"]),
              "K2": ("K2", "sample batch", full["shapes"]["K2"], full["launches"]["K2"]),
@@ -3018,6 +3779,7 @@ def main(only: str | None = None) -> int:
                               tail["band_shapes"]["K1"],
                               tail["band_eval"]["reconstruction_ms_ssim"]["launches"]["K1"],
                               torch.float32),
+             **v1_paths(shapes, v1), **quant_long_paths(quant, long),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -3042,6 +3804,8 @@ def main(only: str | None = None) -> int:
                   dm={**dm, "sample": {k: v for k, v in dm["sample"].items() if k != "shapes"}},
                   dm_profile=dm_prof, tiny_decode=tiny_decode, decode=decode,
                   eval_tail={k: v for k, v in tail.items() if k != "band_shapes"},
+                  tiny_v1=tiny_v1, v1=v1, quant={k: v for k, v in quant.items() if k != "shapes"},
+                  long_window={k: v for k, v in long.items() if k != "shapes"},
                   modules=HAVE, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})

@@ -33,15 +33,18 @@ class Convolution(nn.Module):
 
 class AEResBlock(nn.Module):
     """GN -> SiLU -> conv3 -> GN -> SiLU -> conv3, plus a 1x1 shortcut when
-    the channel count changes."""
+    the channel count changes. ``conv`` makes the convolutions: MONAI's
+    ``Convolution`` (``conv1.conv.weight``), or ``conv1d`` for the
+    first-generation VAE's names (``conv1.weight``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 1,
+                 conv=Convolution):
         super().__init__()
         self.norm1 = GroupNorm32(in_channels, num_groups, fuse_silu=True)
-        self.conv1 = Convolution(in_channels, out_channels, 3)
+        self.conv1 = conv(in_channels, out_channels, 3)
         self.norm2 = GroupNorm32(out_channels, num_groups, fuse_silu=True)
-        self.conv2 = Convolution(out_channels, out_channels, 3)
-        self.nin_shortcut = (Convolution(in_channels, out_channels, 1)
+        self.conv2 = conv(out_channels, out_channels, 3)
+        self.nin_shortcut = (conv(in_channels, out_channels, 1)
                              if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -52,22 +55,23 @@ class AEResBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Right-pad by one, then a stride-2 VALID conv: ceil(L / 2) outputs."""
+    """Right-pad by one, then a stride-2 VALID conv: ceil(L / 2) outputs.
+    ``conv`` as ``AEResBlock``'s."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, conv=Convolution):
         super().__init__()
-        self.conv = Convolution(channels, channels, 3, stride=2, padding=0)
+        self.conv = conv(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1)))
 
 
 class Upsample(nn.Module):
-    """Nearest x2 along L, then a conv3."""
+    """Nearest x2 along L, then a conv3. ``conv`` as ``AEResBlock``'s."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, conv=Convolution):
         super().__init__()
-        self.conv = Convolution(channels, channels, 3)
+        self.conv = conv(channels, channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.repeat_interleave(2, dim=-1))

@@ -21,6 +21,13 @@ Two of flax's semantics are kept:
   statistics, as flax's in training (the only mode the trainer runs); its
   running mean and *biased* variance move only when the caller asks
   (``update_stats``), at flax's momentum 0.9.
+
+``DiscriminatorV1`` is the first-generation PatchGAN
+(``sleepgen/nn/discriminator.py::DiscriminatorV1``, reference
+``src/models/discriminator.py``): kernel 4 with explicit padding (1, 1),
+so its two stride-1 convolutions each shorten the sequence by one; no
+LeakyReLU on the logits. Its modules carry the flax module's automatic
+names in lower case (``conv_0`` ... ``conv_{n_layers + 1}``, ``bn_0`` ...).
 """
 from __future__ import annotations
 
@@ -82,3 +89,32 @@ class PatchDiscriminator(nn.Module):
             outs.append(h)
         outs.append(self.final_conv(h))
         return outs
+
+
+class DiscriminatorV1(nn.Module):
+    """conv k4 s2 (bias) -> LeakyReLU(0.2); ``n_layers - 1`` x [conv k4 s2
+    (no bias) -> BN -> LeakyReLU]; conv k4 s1 (no bias) -> BN -> LeakyReLU;
+    conv k4 s1 (bias), the logits map. Channels ndf x min(2**n, 8)."""
+
+    def __init__(self, ndf: int = 64, n_layers: int = 3, in_channels: int = 1):
+        super().__init__()
+        self.n_layers = n_layers
+        self.conv_0 = nn.Conv1d(in_channels, ndf, 4, stride=2, padding=1)
+        ch = ndf
+        for n in range(1, n_layers + 1):
+            out = ndf * min(2**n, 8)
+            stride = 2 if n < n_layers else 1
+            self.add_module(f"conv_{n}", nn.Conv1d(ch, out, 4, stride=stride, padding=1,
+                                                   bias=False))
+            self.add_module(f"bn_{n - 1}", BatchNorm(out))
+            ch = out
+        self.add_module(f"conv_{n_layers + 1}", nn.Conv1d(ch, 1, 4, stride=1, padding=1))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        """Logits (B, 1, L') of x (B, C, L). BatchNorm uses the batch's
+        statistics and moves its running ones only when ``update_stats``."""
+        h = F.leaky_relu(self.conv_0(x), 0.2)
+        for n in range(1, self.n_layers + 1):
+            h = getattr(self, f"bn_{n - 1}")(getattr(self, f"conv_{n}")(h), update_stats)
+            h = F.leaky_relu(h, 0.2)
+        return getattr(self, f"conv_{self.n_layers + 1}")(h)

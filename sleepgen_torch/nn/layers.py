@@ -125,27 +125,56 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     return emb
 
 
+def check_kv_block(length: int, block: int) -> None:
+    """Refuse a ``kv_block_size`` that the JAX package refuses: a block
+    above 0 and below the attention length L must divide L. Raises
+    AssertionError with the message of ``sleepgen/nn/blockwise_attention.py``.
+
+    In the JAX package the block selects blockwise (online-softmax)
+    attention for long windows, which computes the same softmax; the port
+    keeps the refusal and computes the attention with one
+    ``scaled_dot_product_attention`` whatever the block."""
+    if block and length > block and length % block:
+        raise AssertionError(
+            f"kv_block_size={block} must divide the attention length "
+            f"L={length}. The UNet attends at image_size/ds for each ds in "
+            f"attention_resolutions — pick a block size dividing all of them "
+            f"(powers of two are always safe for power-of-two windows).")
+
+
 class SelfAttention1d(nn.Module):
     """Self-attention over the length axis of (B, C, L), without residual.
 
-    One 1x1 qkv convolution; per head, q and k are each scaled by d^-1/4
-    in fp32 and cast back to the compute dtype; softmax in fp32 (inside
-    ``scaled_dot_product_attention``, with its own scale set to 1); a 1x1
-    output projection."""
+    One 1x1 qkv convolution (three, ``q``, ``k`` and ``v``, with
+    ``split_qkv``, as the first-generation VAE names them); per head, q and
+    k are each scaled by d^-1/4 in fp32 and cast back to the compute dtype;
+    softmax in fp32 (inside ``scaled_dot_product_attention``, with its own
+    scale set to 1); a 1x1 output projection. ``conv`` makes the 1x1
+    convolutions (``conv1d``, or ``quant.QuantConv1d`` for int8 sampling)."""
 
-    def __init__(self, channels: int, num_heads: int = 1):
+    def __init__(self, channels: int, num_heads: int = 1, split_qkv: bool = False,
+                 conv=conv1d):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"channels {channels} not divisible by heads {num_heads}")
         self.num_heads = num_heads
-        self.qkv = conv1d(channels, 3 * channels, 1)
-        self.proj_out = conv1d(channels, channels, 1)
+        if split_qkv:
+            self.q, self.k, self.v = (conv(channels, channels, 1) for _ in range(3))
+        else:
+            self.qkv = conv(channels, 3 * channels, 1)
+        self.proj_out = conv(channels, channels, 1)
+
+    def project_qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 3C, L): q, k and v stacked along the channels."""
+        if hasattr(self, "qkv"):
+            return self.qkv(x)
+        return torch.cat([self.q(x), self.k(x), self.v(x)], dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, l = x.shape
         h = self.num_heads
         d = c // h
-        q, k, v = self.qkv(x).reshape(b, h, 3 * d, l).split(d, dim=2)
+        q, k, v = self.project_qkv(x).reshape(b, h, 3 * d, l).split(d, dim=2)
         scale = 1.0 / math.sqrt(math.sqrt(d))
         q = (q.float() * scale).to(x.dtype).transpose(-1, -2)  # (B, h, L, d)
         k = (k.float() * scale).to(x.dtype).transpose(-1, -2)
@@ -156,10 +185,13 @@ class SelfAttention1d(nn.Module):
 
 class AttentionBlock1d(SelfAttention1d):
     """GroupNorm (no SiLU) -> self-attention -> residual add. Parameters are
-    named as the reference UNet's AttentionBlock (norm, qkv, proj_out)."""
+    named as the reference UNet's AttentionBlock (norm, qkv, proj_out), or
+    as the first-generation VAE's AttnBlock (norm, q, k, v, proj_out) with
+    ``split_qkv``."""
 
-    def __init__(self, channels: int, num_heads: int = 1, num_groups: int = 32):
-        super().__init__(channels, num_heads)
+    def __init__(self, channels: int, num_heads: int = 1, num_groups: int = 32,
+                 split_qkv: bool = False, conv=conv1d):
+        super().__init__(channels, num_heads, split_qkv, conv)
         self.norm = GroupNorm32(channels, num_groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

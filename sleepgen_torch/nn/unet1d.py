@@ -14,6 +14,16 @@ block does not resample, chain 2 always. The up/down chain 1, the
 attention norms and the output norm run kernel K1. In training the chains
 run ``GroupNorm32`` (K1 forward, K3 backward) and then the convolution,
 as K2 has no backward.
+
+``quantized`` builds the int8 sampling UNet (``nn/quant.py``): every
+resblock convolution, ``conv_in``, ``conv_out`` and the attention
+projections become ``QuantConv1d``, loaded from
+``quant.quantize_unet_params`` of a trained state dict. Its resblock chains
+then run GroupNorm32 (K1) and the int8 convolution, never K2.
+``kv_block_size`` is the JAX package's long-window attention option: the
+UNet refuses a block that does not divide each of its attention lengths
+before it runs anything (``check_kv_block``), and its attention stays one
+``scaled_dot_product_attention`` call.
 """
 from __future__ import annotations
 
@@ -24,17 +34,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from sleepgen_torch.kernels.fused_resblock import gn_silu_conv3, needs_grad
-from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, conv1d,
-                                      timestep_embedding)
+from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, cast_compute_dtype,
+                                      check_kv_block, conv1d, timestep_embedding)
+from sleepgen_torch.nn.quant import QuantConv1d, quantize_unet_params
 
 
-def _chain(norm: GroupNorm32, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+def _chain(norm: GroupNorm32, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """conv(SiLU(norm(x))): one K2 call when autograd needs no gradient,
-    else GroupNorm32 then the convolution. K2 takes contiguous inputs
+    else (and always for an int8 ``QuantConv1d``) GroupNorm32 then the
+    convolution. K2 takes contiguous inputs
     (cuDNN may hand back strided convolution outputs). Under autocast the
     weight is an fp32 master: it goes to K2 as the parameter itself, which
     keys K2's cache of its re-layout, and the bias is cast to x's dtype."""
-    if needs_grad(x, norm.weight, norm.bias, conv.weight, conv.bias):
+    if isinstance(conv, QuantConv1d) or needs_grad(x, norm.weight, norm.bias, conv.weight,
+                                                    conv.bias):
         return conv(norm(x))
     return gn_silu_conv3(x.contiguous(), norm.weight, norm.bias, conv.weight,
                          conv.bias.to(x.dtype), norm.num_groups, norm.eps)
@@ -48,17 +61,17 @@ class TimestepResBlock(nn.Module):
     out_layers.0 norm, out_layers.3 conv)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
-                 num_groups: int = 32, up: bool = False, down: bool = False):
+                 num_groups: int = 32, up: bool = False, down: bool = False, conv=conv1d):
         super().__init__()
         self.up, self.down = up, down
         self.in_layers = nn.ModuleDict({
             "0": GroupNorm32(in_channels, num_groups, fuse_silu=True),
-            "2": conv1d(in_channels, out_channels, 3)})
+            "2": conv(in_channels, out_channels, 3)})
         self.emb_layers = nn.ModuleDict({"1": nn.Linear(emb_channels, out_channels)})
         self.out_layers = nn.ModuleDict({
             "0": GroupNorm32(out_channels, num_groups, fuse_silu=True),
-            "3": conv1d(out_channels, out_channels, 3)})
-        self.skip_connection = (conv1d(in_channels, out_channels, 1)
+            "3": conv(out_channels, out_channels, 3)})
+        self.skip_connection = (conv(in_channels, out_channels, 1)
                                 if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb_act: torch.Tensor) -> torch.Tensor:
@@ -93,30 +106,40 @@ class UNet1d(nn.Module):
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 4),
                  num_heads: int = 1, num_groups: int = 32, num_classes: int = 0,
                  resblock_updown: bool = True, use_scale_shift_norm: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, kv_block_size: int = 0, quantized: bool = False):
         super().__init__()
         if not resblock_updown or use_scale_shift_norm or dropout:
             raise NotImplementedError(
                 "the port supports resblock_updown=True, use_scale_shift_norm="
                 "False and dropout=0 (every reference configuration)")
+        self.config = dict(in_channels=in_channels, out_channels=out_channels,
+                           model_channels=model_channels, channel_mult=tuple(channel_mult),
+                           num_res_blocks=num_res_blocks,
+                           attention_resolutions=tuple(attention_resolutions),
+                           num_heads=num_heads, num_groups=num_groups, num_classes=num_classes,
+                           kv_block_size=kv_block_size, quantized=quantized)
+        conv = QuantConv1d if quantized else conv1d
         mc = model_channels
         emb_ch = 4 * mc
         levels = len(channel_mult)
         self.model_channels = mc
         self.levels = levels
         self.num_classes = num_classes
+        self.kv_block_size = kv_block_size
+        self.attention_ds = []  # each attention block's downsampling, in forward order
         self.time_embed = nn.ModuleDict({"0": nn.Linear(mc, emb_ch),
                                          "2": nn.Linear(emb_ch, emb_ch)})
         if num_classes:
             self.label_emb = nn.Embedding(num_classes, emb_ch)
 
         def res(cin, cout, **kw):
-            return TimestepResBlock(cin, cout, emb_ch, num_groups, **kw)
+            return TimestepResBlock(cin, cout, emb_ch, num_groups, conv=conv, **kw)
 
-        def attn(ch):
-            return AttentionBlock1d(ch, num_heads, num_groups)
+        def attn(ch, ds):
+            self.attention_ds.append(ds)
+            return AttentionBlock1d(ch, num_heads, num_groups, conv=conv)
 
-        blocks = [nn.ModuleList([conv1d(in_channels, mc, 3)])]
+        blocks = [nn.ModuleList([conv(in_channels, mc, 3)])]
         skip_chans = [mc]
         ch, ds = mc, 1
         for level, mult in enumerate(channel_mult):
@@ -124,7 +147,7 @@ class UNet1d(nn.Module):
                 layers = [res(ch, mult * mc)]
                 ch = mult * mc
                 if ds in attention_resolutions:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, ds))
                 blocks.append(nn.ModuleList(layers))
                 skip_chans.append(ch)
             if level != levels - 1:
@@ -132,7 +155,7 @@ class UNet1d(nn.Module):
                 skip_chans.append(ch)
                 ds *= 2
         self.input_blocks = nn.ModuleList(blocks)
-        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
+        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch, ds), res(ch, ch)])
         blocks = []
         for level in reversed(range(levels)):
             mult = channel_mult[level]
@@ -140,14 +163,14 @@ class UNet1d(nn.Module):
                 layers = [res(ch + skip_chans.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in attention_resolutions:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, ds))
                 if level > 0 and i == num_res_blocks:
                     layers.append(res(ch, ch, up=True))
                     ds //= 2
                 blocks.append(nn.ModuleList(layers))
         self.output_blocks = nn.ModuleList(blocks)
         self.out = nn.ModuleDict({"0": GroupNorm32(ch, num_groups, fuse_silu=True),
-                                  "2": conv1d(ch, out_channels, 3)})
+                                  "2": conv(ch, out_channels, 3)})
 
     @staticmethod
     def _run(layers: nn.ModuleList, h: torch.Tensor, emb_act: torch.Tensor) -> torch.Tensor:
@@ -159,8 +182,10 @@ class UNet1d(nn.Module):
                 y: torch.Tensor | None = None) -> torch.Tensor:
         if x.shape[-1] % 2 ** (self.levels - 1):
             raise ValueError(f"length {x.shape[-1]} must divide 2**{self.levels - 1}")
+        for ds in self.attention_ds:
+            check_kv_block(x.shape[-1] // ds, self.kv_block_size)
         conv_in = self.input_blocks[0][0]
-        dtype = conv_in.weight.dtype
+        dtype = self.time_embed["0"].weight.dtype
         t_emb = timestep_embedding(timesteps, self.model_channels).to(dtype)
         emb = self.time_embed["2"](F.silu(self.time_embed["0"](t_emb)))
         if self.num_classes:
@@ -179,3 +204,18 @@ class UNet1d(nn.Module):
         for layers in self.output_blocks:
             h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb_act)
         return self.out["2"](self.out["0"](h)).float()
+
+
+def quantize_unet(unet: UNet1d) -> UNet1d:
+    """The int8 sampling copy of a trained ``unet`` (fp32 weights, as the
+    JAX package quantizes its fp32 parameters), on the same device, in eval
+    mode, its linear layers in ``unet``'s compute dtype. A UNet that is
+    already quantized is returned as it is."""
+    if unet.config["quantized"]:
+        return unet
+    dtype = unet.time_embed["0"].weight.dtype
+    state = quantize_unet_params({k: v.float() for k, v in unet.state_dict().items()})
+    with torch.device(unet.time_embed["0"].weight.device):
+        q = UNet1d(**{**unet.config, "quantized": True})
+    q.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return cast_compute_dtype(q.eval(), dtype)

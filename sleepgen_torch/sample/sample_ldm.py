@@ -29,7 +29,7 @@ from sleepgen_torch.diffusion.dpm_solver import dpm_solver_pp_2m_sample_loop
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
-from sleepgen_torch.nn.unet1d import UNet1d
+from sleepgen_torch.nn.unet1d import UNet1d, quantize_unet
 from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_loop,
                                              ddpm_sample_loop, sample_dm_conditional,
                                              seed_noise, validate_stage)
@@ -68,7 +68,8 @@ def build_unet(cfg: Config, in_channels: int, out_channels: int) -> UNet1d:
                   attention_resolutions=tuple(u.attention_resolutions),
                   num_heads=u.num_heads, num_groups=u.norm_num_groups,
                   num_classes=u.num_classes, resblock_updown=u.resblock_updown,
-                  use_scale_shift_norm=u.use_scale_shift_norm, dropout=u.dropout)
+                  use_scale_shift_norm=u.use_scale_shift_norm, dropout=u.dropout,
+                  kv_block_size=u.kv_block_size)
 
 
 def build_aekl(cfg: Config) -> AutoencoderKL:
@@ -84,15 +85,19 @@ def build_aekl(cfg: Config) -> AutoencoderKL:
 
 def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
                  ae_state: Mapping[str, np.ndarray], device: torch.device,
-                 aekl_cfg: Optional[Config] = None) -> Tuple[UNet1d, AutoencoderKL]:
+                 aekl_cfg: Optional[Config] = None,
+                 quantized: bool = False) -> Tuple[UNet1d, AutoencoderKL]:
     """The UNet and the AEKL on ``device`` with the given state dicts, in
-    eval mode and cast to ``cfg.dtype``."""
+    eval mode and cast to ``cfg.dtype``; ``quantized``: the int8 UNet, its
+    convolutions quantized from the fp32 ``unet_state``."""
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     dtype = DTYPES[cfg.dtype]
     with torch.device(device):
         unet = load_numpy_state(build_unet(cfg, lc, lc), unet_state)
         ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
+    if quantized:
+        unet = quantize_unet(unet)
     cast_compute_dtype(unet.eval(), dtype)
     cast_compute_dtype(ae.eval(), dtype)
     return unet, ae
@@ -102,8 +107,8 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                      latent_len: int = 768, latent_channels: int = 1,
                      num_inference_steps: int = 200, border_pad: int = BORDER_PAD,
                      sampler: str = "ddim", device: torch.device | str = "cuda",
-                     conditional: bool = False, guided: bool = False
-                     ) -> Callable[..., torch.Tensor]:
+                     conditional: bool = False, guided: bool = False,
+                     quantized: bool = False) -> Callable[..., torch.Tensor]:
     """Returns ``sample(scale_factor, seeds, labels=None, guidance_scale=None)
     -> (B, L - 2 * border_pad, C)`` fp32 on ``device``. ``unet``, ``ae`` and
     ``sched`` must already live on ``device``. ``sampler``: "ddim" (the
@@ -114,15 +119,19 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     ``device``, for the UNet's class embedding (``unet.num_classes`` > 0).
     ``guided``: classifier-free guidance, with the null branch in the same
     2B-batch UNet forward per step (``samplers.cond_model_fn``); each call
-    takes its ``guidance_scale``, so one sampler serves every scale. The
-    call returns once the work is queued on the card; it reads nothing
-    back."""
+    takes its ``guidance_scale``, so one sampler serves every scale.
+    ``quantized``: the UNet runs int8 (``quantize_unet`` of ``unet``, which
+    should hold fp32 weights, unless it is quantized already), with the
+    strict fp32 GroupNorm numerics. The call returns once the work is
+    queued on the card; it reads nothing back."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler '{sampler}'; one of {sorted(SAMPLERS)}")
     if guided and not conditional:
         raise ValueError("guided sampling requires a conditional sampler")
     loop = SAMPLERS[sampler]
     dev = resolve_device(device)
+    if quantized:
+        unet = quantize_unet(unet)
 
     def sample(scale_factor: float, seeds: Sequence[int], labels: torch.Tensor | None = None,
                guidance_scale: float | None = None) -> torch.Tensor:
@@ -248,10 +257,13 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
                       batch_size: int = 64, aekl_cfg: Optional[Config] = None,
                       compute_psd: bool = True, border_pad: int = BORDER_PAD,
                       device: torch.device | str = "cuda", stage: Optional[int] = None,
-                      guidance_scale: float = 1.0) -> np.ndarray:
+                      guidance_scale: float = 1.0, quantized: bool = False) -> np.ndarray:
     """Sample seeds [start_seed, stop_seed) in batches of ``batch_size`` and
     write their artifacts. ``unet_state``/``ae_state`` are the port's state
-    dicts (``utils.weights``); the models run in ``cfg.dtype``. ``stage``:
+    dicts (``utils.weights``); the models run in ``cfg.dtype``.
+    ``quantized``: the UNet's convolutions run int8 (``nn/quant.py``),
+    quantized from ``unet_state``, as the JAX package's
+    ``sample_ldm_trials(quantized=True)``. ``stage``:
     the class label of a conditional checkpoint (``cfg.unet.num_classes`` >
     0); ``guidance_scale`` other than 1 adds classifier-free guidance. A
     last partial batch is padded to ``batch_size`` and trimmed. Returns all
@@ -260,7 +272,7 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
     dev = resolve_device(device)
     conditional = cfg.unet.num_classes > 0
     guided = conditional and guidance_scale != 1.0
-    unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg)
+    unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg, quantized)
     sampler = make_ldm_sampler(unet, ae, sampling_schedule(cfg, dev),
                                latent_len=cfg.unet.image_size,
                                latent_channels=(aekl_cfg or cfg).aekl.latent_channels,

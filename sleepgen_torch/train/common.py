@@ -12,7 +12,10 @@ conditional model's label dropout), 1 an eval batch (by epoch and batch),
 scale factor's encoder eps. Stage 1 (``train_aekl``): stream 4 is a
 training step's encoder eps (by step number). The signal-space DM
 (``train_dm``) uses streams 0-2 in the same roles, without the encoder's
-eps.
+eps. The first-generation pipeline (``train_v1``): stream 5 is a v1
+encoder step's eps (by step number), 6 a v1 encoder eval batch's eps (by
+epoch and batch), 7 a v1 DDPM step (by step number; draws the encoder's
+eps, then t, then the noise, the JAX step's split order).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from sleepgen_torch.config import Config
 
 TRAIN_STREAM, EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM, AEKL_STREAM = 0, 1, 2, 3, 4
+V1_ENCODER_STREAM, V1_EVAL_STREAM, V1_DDPM_STREAM = 5, 6, 7
 
 
 def make_generator(seed: int, device: torch.device | str, *stream: int) -> torch.Generator:

@@ -57,17 +57,20 @@ class CheckpointManager:
         return torch.load(self.dir / f"step_{step:08d}.pt", map_location="cpu",
                           weights_only=True)
 
-    def save_best(self, params: Mapping[str, Any], cfg: Config, name: str = "best_model",
-                  scale_factor: Optional[float] = None) -> Path:
+    def save_best(self, params: Mapping[str, Any], cfg: Optional[Config],
+                  name: str = "best_model", scale_factor: Optional[float] = None) -> Path:
         """Write ``run_dir/name`` as a port run dir: ``params`` is the
         model's flax parameter tree (``weights.unet_state_to_jax`` or
-        ``aekl_state_to_jax`` of its state dict); ``scale_factor`` (an
-        LDM's) goes to ``scale_factor.txt`` when given."""
+        ``aekl_state_to_jax`` of its state dict); ``cfg`` goes to
+        ``config.yaml`` (the first-generation trainers have none);
+        ``scale_factor`` (an LDM's) goes to ``scale_factor.txt`` when
+        given."""
         path = self.run_dir / name
         if path.exists():
             shutil.rmtree(path)
         path.mkdir()
-        cfg.to_yaml(path / "config.yaml")
+        if cfg is not None:
+            cfg.to_yaml(path / "config.yaml")
         save_params_npz(path / "params.npz", params)
         if scale_factor is not None:
             (path / "scale_factor.txt").write_text(repr(float(scale_factor)))

@@ -5,8 +5,14 @@ tree of numpy arrays (as the JAX package's ``UNet1d`` and
 ``AutoencoderKL`` hold them) to the port's ``state_dict`` names, which are
 the reference UNetModel's and MONAI's; ``unet_state_to_jax`` and
 ``aekl_state_to_jax`` map them back, so the run dirs the port trains hold
-the JAX package's keys. ``discriminator_state_from_jax`` maps a
-``PatchDiscriminator``'s ``params`` and ``batch_stats``, and
+the JAX package's keys. ``aekl_v1_state_from_jax`` and
+``aekl_v1_state_to_jax`` do the same for the first-generation
+``AutoencoderKLV1`` under the reference's own names (``encoder.blocks.N``,
+which ``sleepgen.utils.torch_import.import_aekl_v1`` reads back; its
+fused qkv convs become three, ``q``, ``k`` and ``v``).
+``discriminator_state_from_jax`` maps a
+``PatchDiscriminator``'s ``params`` and ``batch_stats``
+(``discriminator_v1_state_from_jax`` a ``DiscriminatorV1``'s), and
 ``usleep_state_from_jax`` a ``USleep``'s to braindecode's names (those
 of the reference's pretrained USleep). Conventions: conv
 kernel (k, in, out) -> weight (out, in, k); Dense kernel (in, out) ->
@@ -154,9 +160,18 @@ def _has_node(p: Tree) -> Callable[[str, str], bool]:
     return has
 
 
+def _split_qkv(sd, prefix, node) -> None:
+    """A fused 1x1 qkv conv (1, C, 3C) -> three convs ``q``, ``k``, ``v``."""
+    kernel, bias = np.asarray(node["kernel"], np.float32), np.asarray(node["bias"], np.float32)
+    c = kernel.shape[-1] // 3
+    for i, name in enumerate("qkv"):
+        _conv(sd, f"{prefix}.{name}", {"kernel": kernel[..., i * c:(i + 1) * c],
+                                       "bias": bias[i * c:(i + 1) * c]})
+
+
 def _state_from_tree(p: Tree, layers: Layers) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    convert = {"conv": _conv, "dense": _dense, "gn": _gn}
+    convert = {"conv": _conv, "dense": _dense, "gn": _gn, "qkv": _split_qkv}
     for kind, port, path in layers:
         if kind == "embed":
             sd[f"{port}.weight"] = np.asarray(_node(p, path)["embedding"], np.float32)
@@ -171,6 +186,13 @@ def _tree_from_state(sd: Mapping[str, np.ndarray], layers: Layers) -> Dict[str, 
         node = tree
         for part in path:
             node = node.setdefault(part, {})
+        if kind == "qkv":  # three convs q, k, v -> one fused qkv
+            node["kernel"] = np.concatenate(
+                [sd[f"{port}.{n}.weight"].astype(np.float32).transpose(2, 1, 0) for n in "qkv"],
+                axis=-1)
+            node["bias"] = np.concatenate([sd[f"{port}.{n}.bias"].astype(np.float32)
+                                           for n in "qkv"])
+            continue
         w = sd[f"{port}.weight"].astype(np.float32)
         if kind == "embed":
             node["embedding"] = w
@@ -271,6 +293,94 @@ def aekl_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     return _tree_from_state(sd, _aekl_layers(shape, has))
 
 
+def _aekl_v1_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Layers:
+    """(kind, port prefix, flax path) of every layer of an AutoencoderKLV1
+    with ``levels`` levels and ``nrb`` resblocks per level, in the
+    reference's flat block order (the walk of
+    ``sleepgen.utils.torch_import.import_aekl_v1``); kind is conv, gn or
+    qkv (a fused qkv conv, three convs in the port). ``has(flax name, port
+    prefix)`` says whether an optional layer (a per-resolution attention
+    block, a 1x1 shortcut) is there."""
+
+    def column(side: str):
+        pre, b = f"{side}.blocks", 0
+
+        def block():
+            nonlocal b
+            b += 1
+            return f"{pre}.{b - 1}"
+
+        def res(name):
+            port = block()
+            yield "gn", f"{port}.norm1", (side, name, "GroupNorm32_0")
+            yield "conv", f"{port}.conv1", (side, name, "conv1")
+            yield "gn", f"{port}.norm2", (side, name, "GroupNorm32_1")
+            yield "conv", f"{port}.conv2", (side, name, "conv2")
+            if has(f"{side}/{name}/nin_shortcut", f"{port}.nin_shortcut"):
+                yield "conv", f"{port}.nin_shortcut", (side, name, "nin_shortcut")
+
+        def attn(name, optional=True):
+            if optional and not has(f"{side}/{name}", f"{pre}.{b}.q"):
+                return
+            port = block()
+            yield "gn", f"{port}.norm", (side, name, "GroupNorm32_0")
+            yield "qkv", port, (side, name, "SelfAttention1d_0", "qkv")
+            yield "conv", f"{port}.proj_out", (side, name, "SelfAttention1d_0", "proj_out")
+
+        def middle():
+            yield from res("mid_res_1")
+            yield from attn("mid_attn", optional=False)
+            yield from res("mid_res_2")
+
+        yield "conv", block(), (side, "conv_in")
+        if side == "decoder":
+            yield from middle()
+        tag, resample = ("down", "downsample") if side == "encoder" else ("up", "upsample")
+        order = range(levels) if side == "encoder" else reversed(range(levels))
+        for i in order:
+            for j in range(nrb):
+                yield from res(f"{tag}_{i}_res_{j}")
+                yield from attn(f"{tag}_{i}_attn_{j}")
+            if i != (levels - 1 if side == "encoder" else 0):
+                yield "conv", f"{block()}.conv", (side, f"{tag}_{i}_{resample}", "conv")
+        if side == "encoder":
+            yield from middle()
+        yield "gn", block(), (side, "norm_out")
+        yield "conv", block(), (side, "conv_out")
+
+    yield from column("encoder")
+    yield from column("decoder")
+    for name in ("quant_conv_mu", "quant_conv_log_sigma", "post_quant_conv"):
+        yield "conv", name, (name,)
+
+
+def aekl_v1_state_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``AutoencoderKLV1`` params -> the port's state_dict (numpy), in
+    the reference's names."""
+    p = _params(tree)
+    enc = p["encoder"]
+    return _state_from_tree(p, _aekl_v1_layers(_count(enc, "down_{}_res_0"),
+                                               _count(enc, "down_0_res_{}"), _has_node(p)))
+
+
+def aekl_v1_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``AutoencoderKLV1`` state_dict (numpy arrays or tensors)
+    -> the JAX ``AutoencoderKLV1`` params tree, the inverse of
+    ``aekl_v1_state_from_jax``."""
+    sd = _numpy_state(state)
+
+    def n(pattern):
+        return sum(bool(re.fullmatch(rf"encoder\.blocks\.\d+\.{pattern}\.weight", k)) for k in sd)
+
+    levels = n("conv") + 1  # a downsampling conv between levels
+    nrb = (n("norm1") - 2) // levels  # the middle's two resblocks besides
+
+    def has(_name, port):
+        return f"{port}.weight" in sd
+
+    return _tree_from_state(sd, _aekl_v1_layers(levels, nrb, has))
+
+
 def _batch_norm(sd, prefix, node, stats) -> None:
     for port, v in (("weight", node["scale"]), ("bias", node["bias"]),
                     ("running_mean", stats["mean"]), ("running_var", stats["var"])):
@@ -288,6 +398,19 @@ def discriminator_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
         _conv(sd, f"layer_{l}_conv", p[f"layer_{l}_conv"])
         _batch_norm(sd, f"layer_{l}_bn", p[f"layer_{l}_bn"], stats[f"layer_{l}_bn"])
     _conv(sd, "final_conv", p["final_conv"])
+    return sd
+
+
+def discriminator_v1_state_from_jax(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX ``DiscriminatorV1`` variables (``params`` and ``batch_stats``,
+    flax's automatic names ``Conv_i`` and ``BatchNorm_i``) -> the port's
+    ``DiscriminatorV1`` state_dict (numpy), BatchNorm statistics included."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(_count(p, "Conv_{}")):
+        _conv(sd, f"conv_{i}", p[f"Conv_{i}"])
+    for i in range(_count(p, "BatchNorm_{}")):
+        _batch_norm(sd, f"bn_{i}", p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])
     return sd
 
 

@@ -431,3 +431,116 @@ def test_group_norm_silu_kernel_at_the_band_eval_batch(c, l, silu, dtype):
     else:
         err = (got.float() - want).abs()
         assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()
+
+
+# The first-generation VAE's GroupNorms (sleepgen_torch/nn/aekl_v1.py at the
+# trainers' defaults: n_channels 64, ch_mult (1, 2, 4), G 32, L 3072), fp32 as
+# the v1 trainers run them: (C, L, SiLU), groups of 3,072 to 12,288
+# elements, all on chip; the decoder's first resblock after each upsample,
+# (256, 1536) and (128, 3072), reaches exactly ON_CHIP_MAX.
+V1_BATCH = 16
+V1_AEKL_GN_SHAPES = [(64, 3072, True), (64, 1536, True), (128, 1536, True), (128, 768, True),
+                     (256, 768, True), (256, 768, False), (256, 1536, True), (128, 3072, True),
+                     (64, 3072, False)]
+
+
+def _hold(got, want, dtype, rtol, atol):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    else:
+        err = (got.float() - want).abs()
+        assert bool((err <= BF16_RTOL * want.abs() + 1e-5).all()), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l,silu", V1_AEKL_GN_SHAPES)
+def test_group_norm_kernels_at_the_v1_aekl_groups(c, l, silu, dtype):
+    """K1 and K3 at batch 16, G 32, each group on chip (no scratch)."""
+    g = 32
+    assert _build.load().sg_group_norm_silu_scratch_floats(V1_BATCH, c, l, g) == 0
+    assert c // g * l <= group_norm.ON_CHIP_MAX
+    x, scale, bias = _inputs(24, V1_BATCH, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, g, 1e-6, silu)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, g, 1e-6, silu)
+    _hold(got, want, dtype, 1e-5, 2e-6)
+    dx, dx_want = _backward_case(25, V1_BATCH, c, l, g, silu, dtype)
+    _hold(dx, dx_want, dtype, 1e-4, 1e-5)
+
+
+# Every (C_in, C_out, L) that the v1 ancestral sampler gives K2: the DDPM's
+# UNet (mc 64, channel_mult (1, 2), attention at ds 2, G 32) on the v1
+# latent of 768 x 3, batch 16, fp32 (K2's FMA path): C_out 64 fills half of
+# K2's 128-wide output tile.
+V1_UNET_K2_SHAPES = [(64, 64, 768), (64, 64, 384), (64, 128, 384), (128, 128, 384),
+                     (256, 128, 384), (192, 128, 384), (128, 128, 768), (192, 64, 768),
+                     (128, 64, 768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout,l", V1_UNET_K2_SHAPES)
+def test_gn_silu_conv3_kernel_at_the_v1_unet(cin, cout, l, dtype):
+    x, scale, bias, w, bb = _inputs(26, V1_BATCH, cin, l, cout)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(),
+                                                  bb.float(), 32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        err = (got.float() - want).abs()
+        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+        assert bool((err <= tol).all()), err.max()
+
+
+# The long window (benches/long_window.py: the default UNet at window 12288,
+# batch 16): K1 streams groups of 49,152 elements at G 32 (C 128), K2 runs at
+# L 12288 (its first level and the skip concatenations of the last).
+LONG_K1_SHAPES = [(128, 12288), (256, 12288), (384, 12288)]
+LONG_K2_SHAPES = [(128, 128, 12288), (256, 128, 12288), (384, 128, 12288)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l", LONG_K1_SHAPES)
+def test_group_norm_silu_kernel_at_the_long_window(c, l, dtype):
+    x, scale, bias = _inputs(27, V1_BATCH, c, l)
+    assert c // 32 * l > group_norm.ON_CHIP_MAX  # the streaming path
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, 32)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, 32)
+    _hold(got, want, dtype, 1e-5, 2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout,l", LONG_K2_SHAPES)
+def test_gn_silu_conv3_kernel_at_the_long_window(cin, cout, l, dtype):
+    x, scale, bias, w, bb = _inputs(28, V1_BATCH, cin, l, cout)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(),
+                                                  bb.float(), 32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        err = (got.float() - want).abs()
+        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+        assert bool((err <= tol).all()), err.max()
+
+
+def test_int8_products_on_the_card_equal_the_cpu():
+    """``torch._int_mm`` on the card at QuantConv1d's padded shapes (k C_in
+    = 3, C_out = 1, an M of 16) gives the CPU's int32 accumulators."""
+    from sleepgen_torch.nn import quant
+
+    gen = torch.Generator().manual_seed(29)
+    for b, cin, cout, l, k in ((64, 1, 128, 768, 3), (64, 128, 1, 768, 3), (1, 8, 24, 16, 1),
+                               (4, 256, 768, 192, 1)):
+        xq = torch.randint(-127, 128, (b, cin, l), generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, cin, k), generator=gen, dtype=torch.int8)
+        want = quant.int8_conv_accumulate(xq, quant.weight_matrix(wq), k, cout)
+        got = quant.int8_conv_accumulate(xq.cuda(), quant.weight_matrix(wq.cuda()), k, cout)
+        assert torch.equal(got.cpu(), want)

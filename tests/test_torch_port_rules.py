@@ -287,3 +287,43 @@ def test_both_packages_have_the_same_commands():
     for name, module in COMMANDS.items():
         assert module == JAX_COMMANDS[name].replace("sleepgen.", "sleepgen_torch.", 1)
         assert (ROOT / (module.replace(".", "/") + ".py")).exists()
+
+
+def test_import_walk_covers_the_v1_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"sleepgen_torch/{m}.py" for m in (
+        "diffusion/ddpm_v1", "nn/aekl_v1", "nn/discriminator", "nn/quant",
+        "train/train_v1")} <= names
+
+
+def test_v1_entry_points_default_to_the_gpu(tmp_path):
+    """The v1 trainers, the v1 encoder state and quantized sampling raise with
+    no GPU unless told device="cpu", before they write anything."""
+    from sleepgen_torch.config import Config
+    from sleepgen_torch.data.dataset import WindowDataset
+    from sleepgen_torch.data.synthetic import make_synthetic_dataset
+    from sleepgen_torch.nn.aekl_v1 import AutoencoderKLV1
+    from sleepgen_torch.nn.discriminator import DiscriminatorV1
+    from sleepgen_torch.sample.sample_ldm import make_ldm_sampler, sample_ldm_trials
+    from sleepgen_torch.train import train_v1 as V
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    ds = WindowDataset.from_raw(make_synthetic_dataset(2, duration_s=30.0), window=248, pad=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.train_v1_encoder(ds, ds, tmp_path / "enc")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.train_v1_ddpm(ds, {}, tmp_path / "ddpm", AutoencoderKLV1(resolution=256))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.init_v1_encoder_state(AutoencoderKLV1(n_channels=4, ch_mult=(1,), num_groups=4),
+                                DiscriminatorV1(ndf=4), seed=0)
+    assert not any(tmp_path.iterdir())
+    unet, ae, sched = _tiny_models()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_ldm_sampler(unet, ae, sched, latent_len=32, quantized=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_ldm_trials(Config(), {}, {}, 1.0, tmp_path / "q", quantized=True)
+    assert not (tmp_path / "q").exists()
+    out = make_ldm_sampler(unet, ae, sched, latent_len=32, num_inference_steps=2,
+                           device="cpu", quantized=True)(1.0, [0, 1])
+    assert out.shape == (2, 4 * 32 - 72, 1) and bool(torch.isfinite(out).all())
