@@ -11,7 +11,8 @@ guided sampling), the signal-space DM (``sample-dm``, ``train-dm``,
 (EDF files, ``convert-edfx``, ``decode``), the evaluation tail
 (``sample-ae``, ``band-eval``), the first-generation pipeline (the v1 VAE
 against the v1 PatchGAN, DDPM-v1 training, ancestral sampling), int8
-quantized sampling and the long window. Phases, one line each:
+quantized sampling, the long window, the models' options and data
+parallelism over ``torch.distributed``. Phases, one line each:
 
   1. device: the card's name and power limit (nvidia-smi); then whether
      matplotlib and pandas can be imported here (the port needs neither);
@@ -231,6 +232,27 @@ quantized sampling and the long window. Phases, one line each:
      launched; blocks 512 and 0 at DDIM-50, batch 16, bf16 (seconds, ms
      per step, windows/s, peak memory, launches as derived), their outputs
      equal;
+  OPT. the options variant: ldm.yaml's UNet with scale-shift norm,
+     resampling outside the resblocks (a stride-2 convolution down,
+     nearest + convolution up) and dropout 0.1; aekl_eeg.yaml's AEKL with
+     attention in its last level and both non-local blocks. Tiny (the
+     tiny sampler's widths, fp32), card against CPU: a 4-step sampler plus
+     decode at the model bound, one stage-2 step (loss at the model bound,
+     each gradient within 2e-3 of its leaf's largest) and one stage-1
+     step (``hold_tiny_stage1``, the AEKL's leaves in the JAX layout);
+     then at full width one DDIM step at batch 64, one stage-2 step at
+     batch 1024 and one stage-1 step at batch 2048 (halved until it fits),
+     each with its launches as derived from the modules (a scale-shift
+     chain 2 runs K1 without SiLU, every chain 1 K2), their new kernel
+     shapes held in fp32 and bf16 as phase 3's; then DDIM-200 batches of
+     64, three of each sampler in turns (median windows/s each), and each
+     training step's median ms and peak memory;
+  MESH. ``torch.distributed`` over NCCL at world size 1: a stage-2 step
+     (batch 256), a stage-1 step (batch 512), a DDIM-200 batch of 64 and a
+     DeepSleepNet ``decode`` step (batch 64), each with ``make_mesh()`` and
+     without, from the same weights and inputs under deterministic cuDNN,
+     must be equal (``torch.equal``); the stage-2 and decode steps then
+     take turns on the host clock: the ms the mesh adds per step;
   8. timings: each kernel at each shape of its path in bf16 (the
      reconstruction's K1 and the v1 paths in fp32, as they run): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
@@ -257,12 +279,13 @@ per kernel and path: launches in one run of the path (K1: a sampler
 batch, a stage-2 and a stage-1 training step, a DPM++2M-20 batch, a
 reconstruction batch, a guided DPM++2M-20 request, a DM DDIM-200 batch,
 a DM training step, band-eval's batch-512 reconstruction, a v1 encoder
-step, a v1 DDPM step, a v1 ancestral batch, an int8 DDIM-200 batch and a
-long-window DDIM-50 batch; K2: a
-sampler batch, a DPM++2M-20 batch, a
-guided DPM++2M-20 request, a DM DDIM-200 batch, a v1 ancestral batch
-(fp32) and a long-window DDIM-50 batch; K3: a stage-2, a
-stage-1, a DM, a v1 encoder and a v1 DDPM training step; B2, B3: on no
+step, a v1 DDPM step, a v1 ancestral batch, an int8 DDIM-200 batch, a
+long-window DDIM-50 batch, an options DDIM-200 batch, an options stage-2
+step and an attention stage-1 step; K2: a sampler batch, a DPM++2M-20
+batch, a guided DPM++2M-20 request, a DM DDIM-200 batch, a v1 ancestral
+batch (fp32), a long-window DDIM-50 batch and an options DDIM-200 batch;
+K3: a stage-2, a stage-1, a DM, a v1 encoder, a v1 DDPM, an options
+stage-2 and an attention stage-1 training step; B2, B3: on no
 path), its error and
 its times (each shape's time times its launches in that run, summed);
 the last line is
@@ -292,6 +315,11 @@ batch", "DM train step", the v1 paths, "int8 DDIM step" and
 "long-window DDIM step"), K3 ("train step", "stage-1 step", "DM train
 step", the v1 steps) and B2, and of K3's strided-dy copies. Report in
 chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
+
+``python3 chip_smoke.py --only OPT``: phases 1 and 2, OPT (its new
+shapes checked from scratch) and MESH, then the phase-8 timings of OPT's
+rows. Report in chiprun_out/chip_smoke_opt_report.json; no {"ok": ...}
+line.
 """
 from __future__ import annotations
 
@@ -1241,12 +1269,16 @@ def stage1_state(ae, disc) -> dict:
             **{f"disc.{k}": host_copy(v) for k, v in disc.state_dict().items()}}
 
 
-def tiny_stage1_run(cfg: Config, dev: str, x: np.ndarray, eps: list) -> dict:
+def tiny_stage1_run(cfg: Config, dev: str, x: np.ndarray, eps: list,
+                    ae_state: dict | None = None) -> dict:
     """Steps of the stage-1 trainer on ``dev`` from ``build_trainer``'s
-    weights, one per eps: each step's metrics and gradients (the AEKL's
-    from the G loss, the discriminator's from the D loss), and the state
-    (parameters and BatchNorm buffers) before and after."""
+    weights (the AEKL's ``ae_state`` instead, when given), one per eps:
+    each step's metrics and gradients (the AEKL's from the G loss, the
+    discriminator's from the D loss), and the state (parameters and
+    BatchNorm buffers) before and after."""
     ae, disc, opt_g, opt_d = A.build_trainer(cfg, dev)
+    if ae_state is not None:
+        load_numpy_state(ae, ae_state)
     named = [*((f"ae.{k}", p) for k, p in ae.named_parameters()),
              *((f"disc.{k}", p) for k, p in disc.named_parameters())]
     before = stage1_state(ae, disc)
@@ -2779,16 +2811,17 @@ def n_modules(model: torch.nn.Module, kind) -> int:
 
 def unet_launches(unet: UNet1d) -> dict:
     """Launches of one UNet forward without autograd, derived from its
-    blocks: K2 at both chains of each resblock that does not resample and
-    at chain 2 of each that does, K1 at the chain 1 of those, every
-    attention norm and the output norm; an int8 UNet runs K1 at every
-    GroupNorm and no K2."""
+    blocks: K2 at both chains of each resblock that neither resamples nor
+    scales and shifts its second norm, at chain 2 of one that resamples and
+    at chain 1 of one that scales and shifts; K1 at the chains K2 does not
+    run, every attention norm and the output norm; an int8 UNet runs K1 at
+    every GroupNorm and no K2."""
     if unet.config["quantized"]:
         return {"K1": n_modules(unet, GroupNorm32), "K2": 0, "K3": 0}
     blocks = [m for m in unet.modules() if isinstance(m, TimestepResBlock)]
-    resampling = sum(b.up or b.down for b in blocks)
-    return {"K1": resampling + n_modules(unet, AttentionBlock1d) + 1,
-            "K2": 2 * len(blocks) - resampling, "K3": 0}
+    unfused = sum(b.up or b.down for b in blocks) + sum(b.scale_shift for b in blocks)
+    return {"K1": unfused + n_modules(unet, AttentionBlock1d) + 1,
+            "K2": 2 * len(blocks) - unfused, "K3": 0}
 
 
 def times(counts: dict, n: int, plus: dict | None = None) -> dict:
@@ -3388,6 +3421,435 @@ def phase_long_window() -> dict:
     return out
 
 
+# -- the options variant (OPT) and data parallelism (MESH) ---------------------
+
+# ldm.yaml's UNet and aekl_eeg.yaml's AEKL with every option the JAX package
+# can set: scale-shift norm, resampling outside the resblocks (a stride-2
+# conv down, nearest + conv up), dropout (inert, as in the JAX trainers), and
+# attention in the AEKL's last level and both non-local blocks.
+OPT_UNET = dict(use_scale_shift_norm=True, resblock_updown=False, conv_resample=True,
+                dropout=0.1)
+OPT_AEKL = dict(attention_levels=[False, False, True], with_encoder_nonlocal_attn=True,
+                with_decoder_nonlocal_attn=True)
+OPT_TIMED_STEPS = 3  # timed training steps after the counted one
+TRAIN_PATHS = ("train step", "stage-1 step", "DM train step", "options stage-2 step",
+               "attention stage-1 step")
+MESH_TRAIN_BATCH, MESH_STAGE1_BATCH, MESH_TIMED = 256, 512, 5
+
+
+def with_options(cfg: Config) -> Config:
+    for k, v in OPT_UNET.items():
+        setattr(cfg.unet, k, v)
+    for k, v in OPT_AEKL.items():
+        setattr(cfg.aekl, k, v)
+    return cfg
+
+
+def meta_models(cfg: Config) -> tuple:
+    lc = cfg.aekl.latent_channels
+    with torch.device("meta"):
+        return build_unet(cfg, lc, lc), build_aekl(cfg)
+
+
+def module_launches(cfg: Config, forwards: int = 0, decodes: int = 0,
+                    train_steps: int = 0, stage1_steps: int = 0) -> dict:
+    """Launches derived from the models' modules: a sampler's UNet forwards
+    (``unet_launches``) and decodes (K1 at every decoder GroupNorm, the
+    attention norms included); a stage-2 step K1 at every UNet and encoder
+    GroupNorm, K3 at the UNet's; a stage-1 step K1 and K3 at every AEKL
+    GroupNorm."""
+    unet, ae = meta_models(cfg)
+    u, enc, dec = (n_modules(m, GroupNorm32) for m in (unet, ae.encoder, ae.decoder))
+    out = times(unet_launches(unet), forwards,
+                {"K1": decodes * dec + train_steps * (u + enc) + stage1_steps * (enc + dec),
+                 "K3": train_steps * u + stage1_steps * (enc + dec)})
+    return out
+
+
+def aekl_jax_layout(run: dict) -> dict:
+    """A ``tiny_stage1_run`` record with the AEKL's leaves in the JAX tree's
+    layout: each attention's to_q, to_k and to_v fused into one qkv leaf,
+    as JAX holds them (the k bias alone has only a rounding's gradient,
+    softmax ignoring a shift of k)."""
+    def convert(d: dict) -> dict:
+        ae = {k[len("ae."):]: v for k, v in d.items() if k.startswith("ae.")}
+        return {**flat(aekl_state_to_jax(ae), "ae"),
+                **{k: v for k, v in d.items() if not k.startswith("ae.")}}
+
+    return dict(run, grads=[convert(g) for g in run["grads"]], before=convert(run["before"]),
+                after=convert(run["after"]))
+
+
+def tiny_options_config() -> Config:
+    cfg = with_options(tiny_stage1_config())
+    return cfg
+
+
+def opt_tiny(tmp: Path) -> dict:
+    """The options variant tiny (the tiny sampler's widths, fp32), card
+    against CPU: a 4-step DDIM sampler plus decode at the model bound; one
+    stage-2 step (loss at the model bound, each gradient within 2e-3 of its
+    leaf's largest); one stage-1 step held by ``hold_tiny_stage1``. Launch
+    counts as derived from the modules."""
+    cfg = tiny_options_config()
+    unet_sd, ae_sd = seeded_weights(cfg, SEED + 120)
+    kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
+    card, counts, _ = counted("tiny options sampler", module_launches(cfg, forwards=4, decodes=1),
+                              lambda: sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3,
+                                                        tmp / "opt_tiny_card", device="cuda",
+                                                        **kw))
+    cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "opt_tiny_cpu", device="cpu", **kw)
+    np.testing.assert_allclose(card, cpu, rtol=2e-3, atol=2e-4,
+                               err_msg="tiny options sampler: card vs CPU")
+    out = dict(sampler_max_abs_err=float(np.abs(card - cpu).max()), sampler_launches=counts)
+
+    rng = np.random.default_rng(SEED + 121)
+    b, lat = 4, (1, cfg.unet.image_size)
+    x = rng.uniform(size=(b, 1, 4 * lat[1])).astype(np.float32)
+    t, noise, enc = (rng.integers(0, 1000, b), rng.standard_normal((b, *lat)).astype(np.float32),
+                     rng.standard_normal((b, *lat)).astype(np.float32))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            unet = load_numpy_state(build_unet(cfg, 1, 1), unet_sd)
+            ae = load_numpy_state(build_aekl(cfg), ae_sd).requires_grad_(False)
+        opt = torch.optim.Adam(unet.parameters(), lr=1e-4)
+        step = T.make_ldm_train_step(unet, ae, T.make_schedule(cfg, dev), opt, 1.1)
+        args = [torch.from_numpy(a).to(dev) for a in (x, t, noise, enc)]
+        loss, c, _ = counted(f"tiny options stage-2 step on {dev}",
+                             module_launches(cfg, train_steps=1) if dev == "cuda"
+                             else {"K1": 0, "K2": 0, "K3": 0}, lambda: step(*args))
+        runs[dev] = (float(loss), {k: host_copy(v.grad) for k, v in unet.named_parameters()})
+    (card_loss, card_g), (cpu_loss, cpu_g) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=2e-3, atol=2e-4,
+                               err_msg="tiny options stage-2 loss: card vs CPU")
+    ratio = 0.0
+    for k, g in cpu_g.items():
+        top, err = float(np.abs(g).max()), float(np.abs(card_g[k] - g).max())
+        if not (top > 0 and err <= 2e-3 * top):
+            raise AssertionError(f"tiny options stage-2 gradient {k}: |err| {err:.3e}, "
+                                 f"leaf's largest {top:.3e}")
+        ratio = max(ratio, err / top)
+    out.update(stage2_loss=card_loss, stage2_loss_err=abs(card_loss - cpu_loss),
+               stage2_grad_err_ratio=ratio)
+
+    x = rng.uniform(size=(b, 1, 4 * lat[1])).astype(np.float32)
+    eps = [rng.standard_normal((b, 1, lat[1])).astype(np.float32)]
+    # seeded AEKL weights: the trainer's zero output projections would leave
+    # every q, k and v gradient of a first step at 0
+    card_s1, c1, _ = counted("tiny attention stage-1 step", module_launches(cfg, stage1_steps=1),
+                             lambda: tiny_stage1_run(cfg, "cuda", x, eps, ae_sd))
+    held = hold_tiny_stage1(aekl_jax_layout(card_s1),
+                            aekl_jax_layout(tiny_stage1_run(cfg, "cpu", x, eps, ae_sd)),
+                            what="tiny attention stage-1 step")
+    out.update(stage1=held, stage1_launches=c1)
+    say("opt-tiny", sampler_max_abs_err=f"{out['sampler_max_abs_err']:.3e}",
+        stage2_loss_err=f"{out['stage2_loss_err']:.3e}",
+        stage2_grad_err_ratio=f"{ratio:.3e}",
+        stage1_grad_err_ratio=f"{held['grad_err_ratio']:.3e}",
+        stage1_update_err_ratio=f"{held['update_err_ratio']:.3e}",
+        k1=counts["K1"], k2=counts["K2"], stage1_k1=c1["K1"], stage1_k3=c1["K3"])
+    return out
+
+
+def timed_steps(step, args: tuple) -> dict:
+    """``OPT_TIMED_STEPS`` steps after a warm-up one: median ms on the host
+    clock (each ended by a synchronize) and the peak memory of the steps."""
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: step(*args), OPT_TIMED_STEPS)
+    return dict(ms=ms, median_ms=statistics.median(ms),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def sdpa_backends(channels: int, length: int, dtype: torch.dtype, mixed: bool) -> dict:
+    """Which of SDPA's fused kernels take the q, k and v that
+    ``layers.attention`` hands SDPA for one head of ``channels`` at
+    ``length`` tokens (batch 4; ``mixed``: its mixed-precision path), the
+    first reason each gives for refusing them (torch's own checks), and
+    which would take contiguous copies of them (``*_contiguous``)."""
+    import warnings
+
+    from sleepgen_torch.nn.layers import attention
+
+    seen = []
+    sdpa = F.scaled_dot_product_attention
+
+    def record(q, k, v, *args, **kwargs):
+        seen.append((q, k, v))
+        return sdpa(q, k, v, *args, **kwargs)
+
+    qkv = torch.randn((4, 3 * channels, length), device="cuda").to(dtype)
+    F.scaled_dot_product_attention = record
+    try:
+        attention(qkv, 1, mixed)
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    q, k, v = seen[0]
+    out = dict(dtype=str(q.dtype), q_stride=list(q.stride()))
+    for tag, args in (("", (q, k, v)), ("_contiguous", (q.contiguous(), k.contiguous(),
+                                                         v.contiguous()))):
+        params = torch.backends.cuda.SDPAParams(*args, None, 0.0, False, False)
+        for name in ("flash", "efficient", "cudnn"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out[name + tag] = bool(getattr(torch.backends.cuda,
+                                               f"can_use_{name}_attention")(params, True))
+            if not tag:
+                out[f"{name}_refusal"] = str(caught[0].message)[:160] if caught else ""
+    return out
+
+
+def opt_stage1_step(cfg: Config) -> tuple:
+    """One counted stage-1 step of the attention AEKL at ``aekl_eeg.yaml``'s
+    batch, halved until a step fits on the card: (batch, counts, shapes);
+    ``cfg.train.batch_size`` is left at that batch."""
+    batch = cfg.train.batch_size
+    while True:
+        cfg.train.batch_size = batch
+        step = x = eps = None
+        try:
+            step = stage1_trainer(cfg)
+            x, eps = stage1_inputs(cfg, SEED)
+            metrics, counts, shapes = counted("attention stage-1 step",
+                                              module_launches(cfg, stage1_steps=1),
+                                              lambda: step(x, eps))
+            fits = True
+        except torch.OutOfMemoryError:  # freed below, once the traceback is gone
+            fits = False
+        step = x = eps = None
+        free_card()
+        if fits:
+            break
+        say("opt-stage1", batch=batch, out_of_memory=True)
+        batch //= 2
+        if batch < 64:
+            raise AssertionError("the attention stage-1 step fits at no batch of 64 or more")
+    values = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in values.values()):
+        raise AssertionError(f"attention stage-1 step: metrics {values}")
+    return batch, counts, shapes
+
+
+def phase_opt(tmp: Path, checks: dict) -> dict:
+    """OPT: the options variant (``OPT_UNET``, ``OPT_AEKL``) at full width.
+    Tiny card-vs-CPU holds (``opt_tiny``); then one DDIM step of the
+    sampler at batch 64, one stage-2 step at batch 1024 and one stage-1
+    step of the attention AEKL at batch 2048 (halved until it fits), each
+    with its launches as derived from the modules, whose new kernel shapes
+    are held to the plain versions in fp32 and bf16 before anything is
+    timed; then DDIM-200 batches of 64, the default sampler's beside the
+    options', three of each in turns (default, options, options, default,
+    default, options; seconds, median windows/s each), and each training
+    step, rebuilt, after a
+    warm-up step (``timed_steps``: median ms, peak memory). Returns the
+    record and phase 8's rows."""
+    start = time.perf_counter()
+    out = dict(tiny=opt_tiny(tmp))
+    out["sdpa"] = {"unet mixed bf16 (512, 192)": sdpa_backends(512, 192, torch.bfloat16, True),
+                   "aekl strict fp32 (64, 768)": sdpa_backends(64, 768, torch.float32, False)}
+    for where, r in out["sdpa"].items():
+        say("opt-sdpa", attention=where.replace(" ", "_"), q_stride=r["q_stride"],
+            **{k: r[k] for k in ("flash", "efficient", "cudnn", "flash_contiguous",
+                                 "efficient_contiguous", "cudnn_contiguous")},
+            efficient_refusal=r["efficient_refusal"][:100].replace(" ", "_"))
+    cfg = with_options(flagship_config(steps=1))
+    unet_sd, ae_sd = seeded_weights(cfg, SEED)
+    _, counts, sample_shapes = counted(
+        "options DDIM step", module_launches(cfg, forwards=1, decodes=1),
+        lambda: sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "opt_warmup", 0, BATCH, BATCH,
+                                  compute_psd=False))
+
+    def stage2_step():
+        step, _, sched, latent_shape = full_trainer(cfg, ae_sd)
+        gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
+        x = train_windows(TRAIN_BATCH, SEED)
+        return step, (x, *T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape,
+                                             sched.num_timesteps))
+
+    step, inputs = stage2_step()
+    loss, train_counts, train_shapes = counted("options stage-2 step",
+                                               module_launches(cfg, train_steps=1),
+                                               lambda: step(*inputs))
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"options stage-2 step: loss {float(loss)}")
+    step = inputs = loss = None
+    free_card()
+    s1_cfg = with_options(stage1_config())
+    s1_batch, s1_counts, s1_shapes = opt_stage1_step(s1_cfg)
+    check_new_shapes(checks, "options DDIM step",
+                     {kid: sample_shapes[kid] for kid in ("K1", "K2")})
+    check_new_shapes(checks, "options stage-2 step",
+                     {kid: train_shapes[kid] for kid in ("K1", "K3")})
+    check_new_shapes(checks, "attention stage-1 step",
+                     {kid: s1_shapes[kid] for kid in ("K1", "K3")})
+
+    batches = {}
+    for name, c in (("default", flagship_config(steps=STEPS)),
+                    ("options", with_options(flagship_config(steps=STEPS)))):
+        batches[name] = (c, seeded_weights(c, SEED), module_launches(c, forwards=STEPS, decodes=1))
+    sample_ldm_trials(flagship_config(steps=1), *seeded_weights(flagship_config(1), SEED), 1.0,
+                      tmp / "opt_default_warmup", 0, BATCH, BATCH, compute_psd=False)
+    seconds = {"default": [], "options": []}
+    for name in ("default", "options", "options", "default", "default", "options"):
+        c, (usd, asd), want = batches[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sig, got, shapes = counted(f"{name} DDIM-200 batch", want, lambda: sample_ldm_trials(
+            c, usd, asd, 1.0, tmp / f"opt_{name}", 0, BATCH, BATCH, compute_psd=False))
+        seconds[name].append(time.perf_counter() - t0)
+        if sig.shape != (BATCH, 3000, 1) or not np.isfinite(sig).all():
+            raise AssertionError(f"{name} DDIM-200 batch: signals {sig.shape}")
+        if name == "options":
+            out["sample"] = dict(launches=got, shapes=shapes)
+    for name, sec in seconds.items():
+        out[f"{name}_sampler"] = dict(seconds=sec, windows_per_s=BATCH / statistics.median(sec))
+    ratio = out["options_sampler"]["windows_per_s"] / out["default_sampler"]["windows_per_s"]
+    say("opt", options_windows_per_s=f"{out['options_sampler']['windows_per_s']:.3f}",
+        default_windows_per_s=f"{out['default_sampler']['windows_per_s']:.3f}",
+        options_over_default=f"{ratio:.3f}",
+        k1_per_batch=out["sample"]["launches"]["K1"], k2_per_batch=out["sample"]["launches"]["K2"])
+
+    step, inputs = stage2_step()
+    step(*inputs)
+    out["stage2"] = dict(batch=TRAIN_BATCH, launches=train_counts, **timed_steps(step, inputs))
+    step = inputs = None
+    free_card()
+    step = stage1_trainer(s1_cfg)
+    inputs = stage1_inputs(s1_cfg, SEED)
+    step(*inputs)
+    out["stage1"] = dict(batch=s1_batch, launches=s1_counts, **timed_steps(step, inputs))
+    step = inputs = None
+    free_card()
+    for tag in ("stage2", "stage1"):
+        r = out[tag]
+        say("opt", path=tag, batch=r["batch"], median_ms=f"{r['median_ms']:.2f}",
+            windows_per_s=f"{r['batch'] / r['median_ms'] * 1e3:.1f}",
+            peak_gib=f"{r['peak_bytes'] / 2**30:.2f}", k1=r["launches"]["K1"],
+            k3=r["launches"]["K3"])
+    sample = out["sample"]
+    out["paths"] = {
+        "K1 opt sample": ("K1", "options DDIM-200 batch", sample["shapes"]["K1"],
+                          sample["launches"]["K1"]),
+        "K2 opt sample": ("K2", "options DDIM-200 batch", sample["shapes"]["K2"],
+                          sample["launches"]["K2"]),
+        "K1 opt train": ("K1", "options stage-2 step", train_shapes["K1"], train_counts["K1"]),
+        "K3 opt train": ("K3", "options stage-2 step", train_shapes["K3"], train_counts["K3"]),
+        "K1 opt stage-1": ("K1", "attention stage-1 step", s1_shapes["K1"], s1_counts["K1"]),
+        "K3 opt stage-1": ("K3", "attention stage-1 step", s1_shapes["K3"], s1_counts["K3"])}
+    del out["sample"]["shapes"]
+    free_card()
+    out["seconds"] = time.perf_counter() - start
+    say("opt", seconds=f"{out['seconds']:.1f}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _equal_states(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _state(*models) -> dict:
+    return {f"{i}.{k}": v.detach().clone() for i, m in enumerate(models)
+            for k, v in m.state_dict().items()}
+
+
+def phase_mesh(tmp: Path) -> dict:
+    """MESH: ``torch.distributed`` at world size 1 over NCCL
+    (``initialize_distributed`` on tcp://127.0.0.1 and a free port), cuDNN
+    held to deterministic algorithms. Each path runs twice from the same
+    weights and inputs, without a mesh and with ``make_mesh()`` (its
+    gradient and metric all-reduces and the sampler's all-gather over one
+    rank), and the two must be equal (``torch.equal``): a stage-2 step
+    (flagship widths, batch 256), a stage-1 step (``aekl_eeg.yaml``, batch
+    512), a DDIM-200 batch of 64 through ``sample_ldm_trials`` and a
+    ``decode`` step of DeepSleepNet at batch 64. Then the two stage-2 and
+    the two decode steps take turns (none, mesh, mesh, none, ...; each on
+    the host clock, ended by a synchronize): the median ms the mesh adds
+    per step. The process group is destroyed after."""
+    from sleepgen_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.perf_counter()
+    initialize_distributed(f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+                           device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        mesh = make_mesh()
+        if mesh.shape != {"data": 1, "model": 1} or mesh.group is None:
+            raise AssertionError(f"make_mesh(): {mesh}")
+        cfg = flagship_config(steps=STEPS)
+        unet_sd, ae_sd = seeded_weights(cfg, SEED)
+
+        def stage2(m):
+            unet, ae, sched, opt = T.build_trainer(cfg, ae_sd, cfg, "cuda")
+            step = T.make_ldm_train_step(unet, ae, sched, opt, 1.0, DTYPES[cfg.dtype], mesh=m)
+            gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
+            args = (train_windows(MESH_TRAIN_BATCH, SEED + 130), *T.draw_step_inputs(
+                gen, MESH_TRAIN_BATCH, (1, C.latent_length(cfg, 3072)), sched.num_timesteps))
+            return step(*args), _state(unet), lambda: step(*args)
+
+        def stage1(m):
+            c = stage1_config()
+            c.train.batch_size = MESH_STAGE1_BATCH
+            ae, disc, opt_g, opt_d = A.build_trainer(c, "cuda")
+            step = A.make_train_step(ae, disc, opt_g, opt_d, c, DTYPES[c.dtype], mesh=m)
+            metrics = step(*stage1_inputs(c, SEED))
+            return torch.stack([metrics[k] for k in sorted(metrics)]), _state(ae, disc), None
+
+        def ddim(m):
+            sig = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "mesh_ddim", 0, BATCH, BATCH,
+                                    compute_psd=False, mesh=m)
+            return torch.from_numpy(sig), {}, None
+
+        def decode(m):
+            model = DeepSleepNet().cuda()
+            load_numpy_state(model, flax_init_state(model, SEED))
+            opt, sched = DEC.make_optimizer(model, 1e-3, 1e-3, 2, DECODE_BATCH, DECODE_BATCH)
+            step = DEC.make_train_step(model, opt, sched,
+                                       torch.tensor([1.0, 2.0, 0.5, 1.0, 1.5], device="cuda"),
+                                       torch.Generator(device="cuda").manual_seed(SEED), m)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
+            x = torch.randn((DECODE_BATCH, 1, 3000), generator=gen, device="cuda")
+            y = torch.randint(0, 5, (DECODE_BATCH,), generator=gen, device="cuda")
+            return step(x, y), _state(model), lambda: step(x, y)
+
+        for name, fn in (("stage2", stage2), ("stage1", stage1), ("ddim", ddim),
+                         ("decode", decode)):
+            (a, sa, step_a), (b, sb, step_b) = fn(None), fn(mesh)
+            if not (torch.equal(a, b) and _equal_states(sa, sb)) or not bool(
+                    torch.isfinite(a).all()):
+                raise AssertionError(f"MESH {name}: the mesh of one differs from no mesh, "
+                                     f"max |diff| {float((a.float() - b.float()).abs().max())}")
+            out[name] = dict(equal=True)
+            if step_a is not None:
+                ms = {step_a: [], step_b: []}
+                for i in range(2 * MESH_TIMED):
+                    turn = (step_a, step_b) if i % 2 == 0 else (step_b, step_a)
+                    for f in turn:
+                        ms[f] += host_ms(f, 1)
+                none_ms, mesh_ms = statistics.median(ms[step_a]), statistics.median(ms[step_b])
+                out[name].update(ms=none_ms, mesh_ms=mesh_ms, mesh_adds_ms=mesh_ms - none_ms)
+            del a, b, sa, sb, step_a, step_b
+            free_card()
+            say("mesh", path=name, equal=True, **{k: f"{v:.3f}" for k, v in out[name].items()
+                                                  if k != "equal"})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.distributed.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    say("mesh", seconds=f"{out['seconds']:.1f}")
+    return out
+
+
 def v1_paths(shapes: dict, v1: dict | None = None) -> dict:
     """phase_timings' rows of the v1 pipeline, fp32: K1 and K3 on one
     encoder step and one DDPM step (phase 3's), K1 and K2 on one ancestral
@@ -3448,6 +3910,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     {shape: launches in the run}, launches[, dtype]): a dtype other than
     bf16 (the reconstruction's fp32) is timed and bounded in it."""
     rows, per_shape = [], []
+    timed = {}  # (kernel, shape, dtype, reps) -> its times: a shape on several paths is timed once
     for kid, path, shapes, launches, *dtype in paths.values():
         dtype = dtype[0] if dtype else torch.bfloat16
         spec = KERNELS[kid]
@@ -3465,25 +3928,31 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             # fewer calls at the training steps' tensors of 25-400 M elements,
             # where the plain versions take milliseconds a call; 30 and 12
             # calls elsewhere keep the whole run near half its time limit
-            reps = (12 if kid in ("K2", "B3") else
-                    10 if path in ("train step", "stage-1 step", "DM train step") else 30)
-            calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
-                         library_ms=(spec["library"](*args), ()) if kid == "K3"
-                         else (spec["library"], args))
-            t = {}
-            for name, (fn, fn_args) in calls.items():
-                t[name], t[name.replace("ms", "graph_ms")] = time_ms(
-                    fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
-            if kid == "K3":  # autograd cannot be captured: its aten ops can
-                t["library_graph_ms"] = time_ms(k3_library_ops(*args), (), reps)[1]
+            reps = 12 if kid in ("K2", "B3") else 10 if path in TRAIN_PATHS else 30
+            t = timed.get((kid, key, dtype, reps))
+            if t is None:
+                t = timed[kid, key, dtype, reps] = {}
+                calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
+                             library_ms=(spec["library"](*args), ()) if kid == "K3"
+                             else (spec["library"], args))
+                for name, (fn, fn_args) in calls.items():
+                    t[name], t[name.replace("ms", "graph_ms")] = time_ms(
+                        fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
+                if kid == "K3":  # autograd cannot be captured: its aten ops can
+                    t["library_graph_ms"] = time_ms(k3_library_ops(*args), (), reps)[1]
+            t = dict(t)
             t["bound_ms"], kind = spec["bound"](key, dtype)
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] = None if tot[k] is None or t[k] is None else tot[k] + t[k] * count
             if kid in ("K2", "B3") and dtype == torch.bfloat16:
                 # the bf16 weight re-layout, apart (cached per weight; fp32 has none)
-                t["relayout_ms"], t["relayout_graph_ms"] = time_ms(
-                    fused_resblock.conv_tiles, (args[3],), reps)
+                if "relayout_ms" not in timed[kid, key, dtype, reps]:
+                    timed[kid, key, dtype, reps]["relayout_ms"], timed[
+                        kid, key, dtype, reps]["relayout_graph_ms"] = time_ms(
+                            fused_resblock.conv_tiles, (args[3],), reps)
+                t.update((k, timed[kid, key, dtype, reps][k])
+                         for k in ("relayout_ms", "relayout_graph_ms"))
                 for k in relayout:
                     relayout[k] += t[k] * count
             per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
@@ -3693,6 +4162,19 @@ def gn_only(smi: str, build_logs: dict) -> int:
                              strided_dy=strided, strided_dy_stage1=strided_stage1)
 
 
+def opt_only(smi: str, build_logs: dict) -> int:
+    """``--only OPT``: phases OPT and MESH alone (OPT's new shapes checked
+    from scratch), then the phase-8 timings of OPT's rows; no {"ok": ...}
+    line."""
+    checks = {kid: {} for kid in ("K1", "K2", "K3")}
+    with tempfile.TemporaryDirectory() as td:
+        opt = phase_opt(Path(td), checks)
+        mesh = phase_mesh(Path(td))
+    rows, per_shape = phase_timings(opt["paths"], checks)
+    return write_only_report("opt", smi, build_logs, rows, per_shape, checks,
+                             options={k: v for k, v in opt.items() if k != "paths"}, mesh=mesh)
+
+
 def training_paths(shapes: dict) -> dict:
     """phase_timings' rows of K1 and K3 on one training step of each stage."""
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
@@ -3732,6 +4214,8 @@ def main(only: str | None = None) -> int:
         return k2_only(smi, build_logs)
     if only == "GN":
         return gn_only(smi, build_logs)
+    if only == "OPT":
+        return opt_only(smi, build_logs)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
@@ -3756,6 +4240,8 @@ def main(only: str | None = None) -> int:
         v1 = phase_v1_full(tmp)
         quant = phase_quant(tmp)
         long = phase_long_window()
+        opt = phase_opt(tmp, checks)
+        mesh = phase_mesh(tmp)
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     check_new_shapes(checks, "DM DDIM-200 batch",
@@ -3779,7 +4265,7 @@ def main(only: str | None = None) -> int:
                               tail["band_shapes"]["K1"],
                               tail["band_eval"]["reconstruction_ms_ssim"]["launches"]["K1"],
                               torch.float32),
-             **v1_paths(shapes, v1), **quant_long_paths(quant, long),
+             **v1_paths(shapes, v1), **quant_long_paths(quant, long), **opt["paths"],
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -3806,6 +4292,7 @@ def main(only: str | None = None) -> int:
                   eval_tail={k: v for k, v in tail.items() if k != "band_shapes"},
                   tiny_v1=tiny_v1, v1=v1, quant={k: v for k, v in quant.items() if k != "shapes"},
                   long_window={k: v for k, v in long.items() if k != "shapes"},
+                  options={k: v for k, v in opt.items() if k != "paths"}, mesh=mesh,
                   modules=HAVE, build_logs=build_logs,
                   checks={kid: [dict(shape=list(k), **v) for k, v in res.items()]
                           for kid, res in checks.items()})
@@ -3823,6 +4310,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold-batch"]:
         cold_batch(sys.argv[2])
         sys.exit(0)
-    if sys.argv[1:] and sys.argv[1:] not in (["--only", "K2"], ["--only", "GN"]):
-        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN]")
+    if sys.argv[1:] and sys.argv[1:] not in (["--only", "K2"], ["--only", "GN"],
+                                             ["--only", "OPT"]):
+        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN|OPT]")
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

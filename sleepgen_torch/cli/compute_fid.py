@@ -58,6 +58,9 @@ def load_usleep(torch_params: str | None = None, seed: int = 0) -> USleep:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(args.device)
     device = resolve_device(args.device)
     ds = load_split(args.path_test_ids, args.path_pre_processed, args.dataset)
     windows = to_bcl(center_crop_valid(ds.epoch_windows(np.random.default_rng(args.seed))))

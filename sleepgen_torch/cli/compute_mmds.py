@@ -80,6 +80,9 @@ def write_tsv(path: Path, columns, rows) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(args.device)
     device = resolve_device(args.device)
     run = Path(args.best_model_path)
     cfg = Config.from_yaml(run / "config.yaml")

@@ -27,6 +27,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(device="cpu")
     data_dir = Path(args.data_dir)
     psgs = sorted(data_dir.glob("*PSG.edf")) or sorted(data_dir.glob("*.edf"))
     for psg in psgs:

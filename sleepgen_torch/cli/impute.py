@@ -69,6 +69,7 @@ def main(argv=None):
     import torch
 
     from sleepgen_torch.data.transforms import BORDER_PAD
+    from sleepgen_torch.nn.layers import set_fast_math
     from sleepgen_torch.sample.sample_ldm import (build_dm, build_models, model_dir,
                                                   read_model_dir, read_run_dirs,
                                                   stage_labels)
@@ -106,6 +107,7 @@ def main(argv=None):
     else:
         unet = build_dm(cfg, unet_state, dev)
         window = cfg.unet.image_size
+    set_fast_math(unet, False)  # the JAX CLI's UNet takes no fast_math
     if length + 2 * BORDER_PAD != window:
         raise SystemExit(f"window length {length} + 2*{BORDER_PAD} pad must equal the "
                          f"checkpoint's signal window {window}")

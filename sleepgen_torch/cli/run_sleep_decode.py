@@ -85,6 +85,9 @@ def split_recordings(rids: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarr
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(args.device)
     device = resolve_device(args.device)
     out = Path(args.output_dir)
     seed = args.seed

@@ -49,6 +49,11 @@ def main(argv=None):
     from sleepgen_torch.sample.samplers import validate_stage
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     cfg, aekl_cfg, unet_state, ae_state, scale_factor = read_run_dirs(
         args.best_model_path, args.diffusion_path)
     if args.latent_channels is not None:

@@ -48,6 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(args.device)
     device = resolve_device(args.device)
     cfg = Config.from_yaml(Path(args.stage1_path) / "config.yaml")
     if args.num_channels is not None:

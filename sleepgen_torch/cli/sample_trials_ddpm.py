@@ -56,6 +56,11 @@ def main(argv=None):
     from sleepgen_torch.sample.samplers import validate_stage
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     cfg, unet_state = read_model_dir(args.diffusion_path, "best_model")
     try:
         validate_stage(cfg.unet.num_classes, args.stage, args.guidance_scale)

@@ -62,6 +62,11 @@ def main(argv=None):
     from sleepgen_torch.serve import SamplerService
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
 

@@ -16,6 +16,9 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ids_csv", type=str, required=True)
     args = p.parse_args(argv)
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+    maybe_initialize_multihost(device="cpu")
     write_splits(args.ids_csv)
     print("Done")
 

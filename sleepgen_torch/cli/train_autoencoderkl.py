@@ -41,6 +41,11 @@ def main(argv=None):
     from sleepgen_torch.train.train_aekl import train_aekl
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     cfg = Config.from_yaml(args.config_file)
     if args.num_channels is not None:
         cfg.aekl.num_channels = list(args.num_channels)

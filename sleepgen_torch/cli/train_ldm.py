@@ -46,6 +46,11 @@ def main(argv=None):
     from sleepgen_torch.utils.weights import aekl_state_from_jax, load_params_npz
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     cfg = Config.from_yaml(args.config_file)
     aekl_cfg = Config.from_yaml(args.autoencoderkl_config_file_path)
     if args.num_channels is not None:

@@ -31,6 +31,11 @@ def main(argv=None):
     from sleepgen_torch.train.train_dm import train_dm
 
     args = build_parser().parse_args(argv)
+
+    from sleepgen_torch.utils.profiling import maybe_initialize_multihost
+
+
+    maybe_initialize_multihost(args.device)
     cfg = Config.from_yaml(args.config_file)
     cfg.spectral = args.spe == "spectral"
     cfg.dataset = args.dataset

@@ -3,7 +3,8 @@
 Reads the same YAML files (the repo's ``sleepgen/configs/*.yaml`` and the
 reference schema with ``autoencoderkl``/``model`` sections) and writes
 ``config.yaml`` into a run dir. Keys the port does not use, such as the
-JAX package's switches for its TPU kernels, are ignored on reading.
+JAX package's switches for its TPU kernels (``use_pallas_norm``,
+``fused_resblock_sampling``), are ignored on reading.
 PyYAML is imported only inside the two functions that read or write a
 file, so the rest of the port runs without it.
 """
@@ -143,6 +144,12 @@ class Config:
     spectral: bool = False
     dataset: str = "edfx"
     dtype: str = "bfloat16"  # compute dtype of the sampler on the card
+    # The JAX package's precision switches for the diffusion UNet under
+    # bf16: True is its mixed attention (q and k cast back to bf16 before
+    # their product), False its strict one (the product and softmax in
+    # fp32); nn/layers.py::attention. Sampling and training each have one.
+    fast_sampling_math: bool = True
+    fast_train_math: bool = True
 
     # -- I/O ------------------------------------------------------------------
     def to_yaml(self, path: str | Path) -> None:

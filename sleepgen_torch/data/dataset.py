@@ -7,7 +7,9 @@ and held in host memory; each epoch draws one random window per recording
 exactly as the JAX package does, so the same seed gives the same windows.
 The split CSVs are read with the ``csv`` module and windows are gathered
 with numpy. Batches are (B, L, 1) float32 arrays, the JAX package's
-layout; the final batch may be short (drop_last=False).
+layout; the final batch may be short (drop_last=False), or padded with
+copies of its last window to a multiple of the data-parallel ranks
+(``pad_multiple``), as the JAX loader pads to its devices.
 """
 from __future__ import annotations
 
@@ -71,15 +73,18 @@ class WindowDataset:
         return out
 
     def epoch_batches(self, batch_size: int, rng: np.random.Generator,
-                      shuffle: bool = False) -> Iterator[np.ndarray]:
+                      shuffle: bool = False, pad_multiple: int = 1) -> Iterator[np.ndarray]:
         """The epoch's windows in batches of ``batch_size`` (the last may be
-        shorter); ``shuffle`` permutes them with the same generator."""
+        shorter, or padded to ``pad_multiple``); ``shuffle`` permutes them
+        with the same generator."""
+        from sleepgen_torch.parallel.mesh import pad_to_multiple
+
         wins = self.epoch_windows(rng)
         idx = np.arange(len(wins))
         if shuffle:
             rng.shuffle(idx)
         for i in range(0, len(idx), batch_size):
-            yield wins[idx[i:i + batch_size]]
+            yield pad_to_multiple(wins[idx[i:i + batch_size]], pad_multiple)
 
 
 def load_split(ids_csv: str | Path, basepath: str | Path,

@@ -238,12 +238,17 @@ class LabeledEpochDataset:
         return self.windows.shape[1]
 
     def epoch_batches(self, batch_size: int, rng: np.random.Generator,
-                      shuffle: bool = True) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+                      shuffle: bool = True,
+                      pad_multiple: int = 1) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """The epoch's (windows, labels) in batches of ``batch_size`` (the
-        last may be shorter), permuted by ``rng`` when ``shuffle``."""
+        last may be shorter, or padded to ``pad_multiple`` with copies of its
+        last pair), permuted by ``rng`` when ``shuffle``."""
+        from sleepgen_torch.parallel.mesh import pad_to_multiple
+
         idx = np.arange(len(self))
         if shuffle:
             rng.shuffle(idx)
         for i in range(0, len(idx), batch_size):
             sel = idx[i:i + batch_size]
-            yield self.windows[sel], self.labels[sel]
+            yield (pad_to_multiple(self.windows[sel], pad_multiple),
+                   pad_to_multiple(self.labels[sel], pad_multiple))

@@ -1,12 +1,19 @@
 """1-D AutoencoderKL (the stage-1 VAE) in torch's (B, C, L) layout.
 
-Counterpart of ``sleepgen/nn/aekl.py`` (MONAI-generative ``AutoencoderKL``
-with the reference configuration: GroupNorm with one group, no attention).
-Submodules carry MONAI's names (``encoder.blocks.1.norm1``,
+Counterpart of ``sleepgen/nn/aekl.py`` (MONAI-generative ``AutoencoderKL``;
+the reference configuration has GroupNorm with one group and no
+attention). Submodules carry MONAI's names (``encoder.blocks.1.norm1``,
 ``decoder.blocks.0.conv.weight``, ...), so state dicts of
 ``sleepgen.utils.torch_import.export_aekl_monai`` load with ``strict=True``.
 Every GroupNorm runs kernel K1 (K3 for its gradient in stage-1 training);
 the convolutions run ``F.conv1d``.
+
+``attention_levels`` and the two non-local attentions place
+``AttentionBlock``s where MONAI's AutoencoderKL and the JAX package place
+them: after each resblock of an attention level, and as resblock,
+attention, resblock before ``norm_out`` (encoder) or after ``conv_in``
+(decoder). One head, the AEKL's groups; the attention is the JAX
+package's strict path (its AEKL never takes fast_math).
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sleepgen_torch.nn.layers import GroupNorm32, conv1d
+from sleepgen_torch.nn.layers import GroupNorm32, attention, conv1d
 
 
 class Convolution(nn.Module):
@@ -77,29 +84,68 @@ class Upsample(nn.Module):
         return self.conv(x.repeat_interleave(2, dim=-1))
 
 
+class PointwiseLinear(nn.Linear):
+    """MONAI's ``nn.Linear`` over the channels, on (B, C, L)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(x, self.weight[:, :, None], self.bias)
+
+
+class AttentionBlock(nn.Module):
+    """GroupNorm (no SiLU) -> one-head self-attention -> residual add, with
+    MONAI's names (``norm``, ``to_q``, ``to_k``, ``to_v``, ``proj_attn``,
+    linear weights (C, C)) and the math of ``layers.attention`` on its
+    strict path."""
+
+    def __init__(self, channels: int, num_groups: int = 1):
+        super().__init__()
+        self.norm = GroupNorm32(channels, num_groups)
+        self.to_q, self.to_k, self.to_v, self.proj_attn = (
+            PointwiseLinear(channels, channels) for _ in range(4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.norm(x)
+        qkv = torch.cat([self.to_q(h), self.to_k(h), self.to_v(h)], dim=1)
+        return x + self.proj_attn(attention(qkv, 1, mixed_precision=False))
+
+
 def _column(first: nn.Module, chans: Sequence[int], in_ch: int, num_res_blocks: int,
-            num_groups: int, resample, last_out: int) -> nn.ModuleList:
-    """MONAI's block list: conv_in, resblocks with resampling between
-    levels, norm_out (GroupNorm without SiLU), conv_out."""
-    blocks = [first]
+            num_groups: int, resample, last_out: int, attention_levels: Sequence[bool],
+            mid: str = "") -> nn.ModuleList:
+    """MONAI's block list: conv_in, resblocks (each followed by an
+    attention block on an attention level) with resampling between
+    levels, norm_out (GroupNorm without SiLU), conv_out; ``mid`` "first" or
+    "last" puts resblock, attention, resblock after conv_in or before
+    norm_out."""
+    def mid_blocks(ch):
+        return [AEResBlock(ch, ch, num_groups), AttentionBlock(ch, num_groups),
+                AEResBlock(ch, ch, num_groups)]
+
+    blocks = [first] + (mid_blocks(in_ch) if mid == "first" else [])
     ch = in_ch
     for level, out_ch in enumerate(chans):
         for _ in range(num_res_blocks):
             blocks.append(AEResBlock(ch, out_ch, num_groups))
             ch = out_ch
+            if attention_levels[level]:
+                blocks.append(AttentionBlock(ch, num_groups))
         if level != len(chans) - 1:
             blocks.append(resample(ch))
+    blocks += mid_blocks(ch) if mid == "last" else []
     blocks += [GroupNorm32(ch, num_groups), Convolution(ch, last_out, 3)]
     return nn.ModuleList(blocks)
 
 
 class Encoder(nn.Module):
     def __init__(self, in_channels: int, num_channels: Sequence[int],
-                 latent_channels: int, num_res_blocks: int = 2, num_groups: int = 1):
+                 latent_channels: int, num_res_blocks: int = 2, num_groups: int = 1,
+                 attention_levels: Sequence[bool] = (), with_nonlocal_attn: bool = False):
         super().__init__()
         self.blocks = _column(Convolution(in_channels, num_channels[0], 3),
                               num_channels, num_channels[0], num_res_blocks,
-                              num_groups, Downsample, latent_channels)
+                              num_groups, Downsample, latent_channels,
+                              attention_levels or [False] * len(num_channels),
+                              "last" if with_nonlocal_attn else "")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
@@ -109,11 +155,14 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, num_channels: Sequence[int], latent_channels: int,
-                 out_channels: int = 1, num_res_blocks: int = 2, num_groups: int = 1):
+                 out_channels: int = 1, num_res_blocks: int = 2, num_groups: int = 1,
+                 attention_levels: Sequence[bool] = (), with_nonlocal_attn: bool = False):
         super().__init__()
         rev = list(reversed(num_channels))
         self.blocks = _column(Convolution(latent_channels, rev[0], 3), rev, rev[0],
-                              num_res_blocks, num_groups, Upsample, out_channels)
+                              num_res_blocks, num_groups, Upsample, out_channels,
+                              list(reversed(attention_levels or [False] * len(rev))),
+                              "first" if with_nonlocal_attn else "")
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         for block in self.blocks:
@@ -123,8 +172,7 @@ class Decoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     """VAE over (B, in_channels, L) windows; the latent is
-    (B, latent_channels, L / 4) for three levels. Attention levels are not
-    ported (no reference configuration uses them)."""
+    (B, latent_channels, L / 4) for three levels."""
 
     def __init__(self, num_channels: Sequence[int] = (32, 32, 64),
                  latent_channels: int = 1, in_channels: int = 1,
@@ -134,12 +182,12 @@ class AutoencoderKL(nn.Module):
                  with_encoder_nonlocal_attn: bool = False,
                  with_decoder_nonlocal_attn: bool = False):
         super().__init__()
-        if any(attention_levels) or with_encoder_nonlocal_attn or with_decoder_nonlocal_attn:
-            raise NotImplementedError("AutoencoderKL attention is not ported")
         self.encoder = Encoder(in_channels, num_channels, latent_channels,
-                               num_res_blocks, norm_num_groups)
+                               num_res_blocks, norm_num_groups, attention_levels,
+                               with_encoder_nonlocal_attn)
         self.decoder = Decoder(num_channels, latent_channels, out_channels,
-                               num_res_blocks, norm_num_groups)
+                               num_res_blocks, norm_num_groups, attention_levels,
+                               with_decoder_nonlocal_attn)
         self.quant_conv_mu = Convolution(latent_channels, latent_channels, 1)
         self.quant_conv_log_sigma = Convolution(latent_channels, latent_channels, 1)
         self.post_quant_conv = Convolution(latent_channels, latent_channels, 1)

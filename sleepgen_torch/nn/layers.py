@@ -6,9 +6,18 @@ stay fp32; convolutions and linear layers run in the model's compute dtype
 softmax are fp32 in either dtype. ``BatchNorm`` is flax's, for every port
 model that has one (the discriminator, USleep and the sleep stagers), and
 ``dropout`` draws its mask from an explicit generator.
+
+Data parallelism (``sleepgen_torch.parallel``): a ``BatchNorm`` whose
+``group`` is set reduces its statistics over that process group, so every
+rank normalises with the global batch's and moves identical running ones;
+inside ``batch_shard(rank, world)`` a dropout mask is drawn for the global
+batch (``world`` times the local leading axis) and this rank's rows are
+kept, so the masks do not depend on the world size.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -59,6 +68,7 @@ class BatchNorm(nn.Module):
     torch BatchNorm's state dict (braindecode's models) loads strictly."""
 
     MOMENTUM, EPS = 0.9, 1e-5
+    group = None  # a process group: statistics over the global batch (Mesh.bind)
 
     def __init__(self, channels: int, count_batches: bool = False):
         super().__init__()
@@ -76,26 +86,69 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.EPS)
+        dims = [d for d in range(x.dim()) if d != 1]
+        if self.group is not None:
+            return self._global_forward(x, dims, update_stats)
         if update_stats:
             with torch.no_grad():
-                dims = [d for d in range(x.dim()) if d != 1]
                 var, mean = torch.var_mean(x, dim=dims, correction=0)
-                self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
-                self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
-                if self.num_batches_tracked is not None:
-                    self.num_batches_tracked += 1
+                self._move_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                             eps=self.EPS)
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+        self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+        if self.num_batches_tracked is not None:
+            self.num_batches_tracked += 1
+
+    def _global_forward(self, x: torch.Tensor, dims, update_stats: bool) -> torch.Tensor:
+        """The training forward with the statistics of the batch over every
+        rank of ``group``: sums all-reduced with autograd, so the gradient
+        reaches each rank's rows through the other ranks' losses too."""
+        from torch.distributed.nn.functional import all_reduce
+
+        world = torch.distributed.get_world_size(self.group)
+        n = world * (x.numel() // x.shape[1])
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        mean = all_reduce(x.sum(dims), group=self.group) / n
+        d = x - mean.view(shape)
+        var = all_reduce(d.square().sum(dims), group=self.group) / n
+        if update_stats:
+            with torch.no_grad():
+                self._move_running(mean, var)
+        scale = torch.rsqrt(var + self.EPS) * self.weight
+        return d * scale.view(shape) + self.bias.view(shape)
+
+
+_BATCH_SHARD = contextvars.ContextVar("batch_shard", default=(0, 1))
+
+
+@contextlib.contextmanager
+def batch_shard(rank: int, world: int):
+    """Within this context ``dropout`` draws each mask for the global batch
+    of ``world`` shards and keeps shard ``rank``'s rows (leading axes are
+    batch-major, as every port model's are)."""
+    token = _BATCH_SHARD.set((rank, world))
+    try:
+        yield
+    finally:
+        _BATCH_SHARD.reset(token)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """Inverted dropout with its mask drawn from ``generator`` (on x's
     device): kept entries scaled by 1 / (1 - p). The identity when not
-    ``training`` or when p is 0."""
+    ``training`` or when p is 0. Inside ``batch_shard`` the mask is this
+    shard's rows of the global batch's mask."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    rank, world = _BATCH_SHARD.get()
+    n = x.shape[0]
+    u = torch.rand((n * world, *x.shape[1:]), generator=generator, device=x.device)
+    keep = u[rank * n:(rank + 1) * n] >= p
     return x * keep / (1.0 - p)
 
 
@@ -142,22 +195,49 @@ def check_kv_block(length: int, block: int) -> None:
             f"(powers of two are always safe for power-of-two windows).")
 
 
-class SelfAttention1d(nn.Module):
-    """Self-attention over the length axis of (B, C, L), without residual.
+def attention(qkv: torch.Tensor, num_heads: int, mixed_precision: bool = True) -> torch.Tensor:
+    """Softmax attention over the length axis: qkv (B, 3C, L), q, k and v
+    stacked per head along the channels -> (B, C, L) in qkv's dtype. Per
+    head, q and k are each scaled by d^-1/4 in fp32; softmax in fp32 (inside
+    ``scaled_dot_product_attention``, its own scale set to 1).
 
-    One 1x1 qkv convolution (three, ``q``, ``k`` and ``v``, with
-    ``split_qkv``, as the first-generation VAE names them); per head, q and
-    k are each scaled by d^-1/4 in fp32 and cast back to the compute dtype;
-    softmax in fp32 (inside ``scaled_dot_product_attention``, with its own
-    scale set to 1); a 1x1 output projection. ``conv`` makes the 1x1
-    convolutions (``conv1d``, or ``quant.QuantConv1d`` for int8 sampling)."""
+    ``mixed_precision`` is the JAX package's ``fast_math`` attention
+    (``sleepgen/nn/layers.py:221-238``): the scaled q and k are cast back to
+    the compute dtype and the products run there. Without it (JAX's strict
+    path) q, k and v enter the product in fp32, outside autocast, and the
+    result is cast to the compute dtype; JAX also rounds the softmax
+    weights to the compute dtype before their product with v, which this
+    path does not. In fp32 the two paths are the same computation."""
+    b, c3, l = qkv.shape
+    d = c3 // (3 * num_heads)
+    q, k, v = qkv.reshape(b, num_heads, 3 * d, l).split(d, dim=2)
+    scale = 1.0 / math.sqrt(math.sqrt(d))
+    q, k, v = (t.transpose(-1, -2) for t in (q, k, v))  # (B, h, L, d)
+    if mixed_precision:
+        out = F.scaled_dot_product_attention((q.float() * scale).to(qkv.dtype),
+                                             (k.float() * scale).to(qkv.dtype), v, scale=1.0)
+    else:
+        with torch.autocast(qkv.device.type, enabled=False):
+            out = F.scaled_dot_product_attention(q.float() * scale, k.float() * scale,
+                                                 v.float(), scale=1.0).to(qkv.dtype)
+    return out.transpose(-1, -2).reshape(b, c3 // 3, l)
+
+
+class SelfAttention1d(nn.Module):
+    """Self-attention over the length axis of (B, C, L), without residual:
+    ``attention`` of one 1x1 qkv convolution (three, ``q``, ``k`` and
+    ``v``, with ``split_qkv``, as the first-generation VAE names them),
+    then a 1x1 output projection. ``conv`` makes the 1x1 convolutions
+    (``conv1d``, or ``quant.QuantConv1d`` for int8 sampling);
+    ``mixed_precision`` as ``attention``'s (``set_fast_math`` sets it)."""
 
     def __init__(self, channels: int, num_heads: int = 1, split_qkv: bool = False,
-                 conv=conv1d):
+                 conv=conv1d, mixed_precision: bool = True):
         super().__init__()
         if channels % num_heads:
             raise ValueError(f"channels {channels} not divisible by heads {num_heads}")
         self.num_heads = num_heads
+        self.mixed_precision = mixed_precision
         if split_qkv:
             self.q, self.k, self.v = (conv(channels, channels, 1) for _ in range(3))
         else:
@@ -171,16 +251,21 @@ class SelfAttention1d(nn.Module):
         return torch.cat([self.q(x), self.k(x), self.v(x)], dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, l = x.shape
-        h = self.num_heads
-        d = c // h
-        q, k, v = self.project_qkv(x).reshape(b, h, 3 * d, l).split(d, dim=2)
-        scale = 1.0 / math.sqrt(math.sqrt(d))
-        q = (q.float() * scale).to(x.dtype).transpose(-1, -2)  # (B, h, L, d)
-        k = (k.float() * scale).to(x.dtype).transpose(-1, -2)
-        out = F.scaled_dot_product_attention(q, k, v.transpose(-1, -2),
-                                             scale=1.0)
-        return self.proj_out(out.transpose(-1, -2).reshape(b, c, l))
+        return self.proj_out(attention(self.project_qkv(x), self.num_heads,
+                                       self.mixed_precision))
+
+
+def set_fast_math(model: nn.Module, fast: bool) -> nn.Module:
+    """The JAX package's ``fast_math`` switch on every attention of
+    ``model`` (``attention``'s ``mixed_precision``). GroupNorm has nothing
+    to switch: K1, K2 and their plain versions compute the normalisation
+    in fp32 and round once to the compute dtype, which is JAX's strict
+    GroupNorm (its fast-math GroupNorm normalises in bf16). In place;
+    returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, SelfAttention1d):
+            m.mixed_precision = fast
+    return model
 
 
 class AttentionBlock1d(SelfAttention1d):

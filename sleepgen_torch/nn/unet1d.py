@@ -1,19 +1,37 @@
 """1-D diffusion UNet in torch's (B, C, L) layout.
 
-Counterpart of ``sleepgen/nn/unet1d.py`` (reference ``UNetModel`` with the
-LDM configuration: model_channels 128, channel_mult [1, 2, 4], two
+Counterpart of ``sleepgen/nn/unet1d.py`` (reference ``UNetModel``; the
+LDM configuration is model_channels 128, channel_mult [1, 2, 4], two
 resblocks per level, attention at ds 4 and in the middle, one head,
 resblocks that resample, no scale-shift norm). Submodules carry the
 reference UNetModel's names (``time_embed.0``, ``input_blocks.1.0.in_layers.2``,
 ...), so state dicts of ``sleepgen.utils.torch_export.export_unet1d`` load
 with ``strict=True``.
 
+Every option of the JAX UNet is built:
+
+* ``use_scale_shift_norm``: ``emb_layers.1`` gives 2 x out channels, split
+  scale first, then shift; chain 2 is GroupNorm without SiLU (K1,
+  ``silu=False``), ``h * (1 + scale) + shift``, SiLU and the convolution.
+* ``resblock_updown=False``: resampling leaves the resblocks. With
+  ``conv_resample`` a level ends in a stride-2 k=3 convolution
+  (``input_blocks.N.0.op``) padded as flax's SAME, (0, 1) on an even
+  length, and the way up in a nearest upsample and a k=3 convolution
+  (``output_blocks.N.M.conv``); without it, a parameter-free average pool
+  and a nearest upsample alone.
+* ``dropout`` is accepted and inert, as in the JAX package, whose train
+  steps never pass ``deterministic=False`` or a dropout key to the UNet
+  (``sleepgen/train/train_ldm.py``, ``train_dm.py``): no mask is drawn.
+* ``fast_math``: the JAX package's ``fast_sampling_math`` /
+  ``fast_train_math``, on the attention only (``layers.set_fast_math``).
+
 When no gradient is needed (the sampler, evals), every resblock
 GroupNorm -> SiLU -> Conv1d(k=3) chain runs as kernel K2: chain 1 when the
-block does not resample, chain 2 always. The up/down chain 1, the
-attention norms and the output norm run kernel K1. In training the chains
-run ``GroupNorm32`` (K1 forward, K3 backward) and then the convolution,
-as K2 has no backward.
+block does not resample (every block without ``resblock_updown``), chain
+2 unless the norm scales and shifts. The up/down chain 1, a scale-shift
+chain 2, the attention norms and the output norm run kernel K1. In
+training the chains run ``GroupNorm32`` (K1 forward, K3 backward) and then
+the convolution, as K2 has no backward.
 
 ``quantized`` builds the int8 sampling UNet (``nn/quant.py``): every
 resblock convolution, ``conv_in``, ``conv_out`` and the attention
@@ -34,8 +52,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from sleepgen_torch.kernels.fused_resblock import gn_silu_conv3, needs_grad
+from sleepgen_torch.nn.discriminator import SameConv1d
 from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, cast_compute_dtype,
-                                      check_kv_block, conv1d, timestep_embedding)
+                                      check_kv_block, conv1d, set_fast_math,
+                                      timestep_embedding)
 from sleepgen_torch.nn.quant import QuantConv1d, quantize_unet_params
 
 
@@ -54,22 +74,25 @@ def _chain(norm: GroupNorm32, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class TimestepResBlock(nn.Module):
-    """Resblock with an additive timestep embedding and optional built-in
-    nearest-upsample (``up``) or average-pool (``down``) of both h and x
-    after the first norm. ModuleDict keys keep the reference's Sequential
-    indices (in_layers.0 norm, in_layers.2 conv, emb_layers.1 linear,
-    out_layers.0 norm, out_layers.3 conv)."""
+    """Resblock with an additive (or, with ``scale_shift``, a scale-shift)
+    timestep embedding and optional built-in nearest-upsample (``up``) or
+    average-pool (``down``) of both h and x after the first norm.
+    ModuleDict keys keep the reference's Sequential indices (in_layers.0
+    norm, in_layers.2 conv, emb_layers.1 linear, out_layers.0 norm,
+    out_layers.3 conv)."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
-                 num_groups: int = 32, up: bool = False, down: bool = False, conv=conv1d):
+                 num_groups: int = 32, up: bool = False, down: bool = False, conv=conv1d,
+                 scale_shift: bool = False):
         super().__init__()
-        self.up, self.down = up, down
+        self.up, self.down, self.scale_shift = up, down, scale_shift
         self.in_layers = nn.ModuleDict({
             "0": GroupNorm32(in_channels, num_groups, fuse_silu=True),
             "2": conv(in_channels, out_channels, 3)})
-        self.emb_layers = nn.ModuleDict({"1": nn.Linear(emb_channels, out_channels)})
+        self.emb_layers = nn.ModuleDict({
+            "1": nn.Linear(emb_channels, (2 if scale_shift else 1) * out_channels)})
         self.out_layers = nn.ModuleDict({
-            "0": GroupNorm32(out_channels, num_groups, fuse_silu=True),
+            "0": GroupNorm32(out_channels, num_groups, fuse_silu=not scale_shift),
             "3": conv(out_channels, out_channels, 3)})
         self.skip_connection = (conv(in_channels, out_channels, 1)
                                 if in_channels != out_channels else None)
@@ -86,38 +109,74 @@ class TimestepResBlock(nn.Module):
             h = conv1(h)
         else:
             h = _chain(norm1, conv1, x)
-        h = h + self.emb_layers["1"](emb_act)[:, :, None]
-        h = _chain(self.out_layers["0"], self.out_layers["3"], h)
+        emb_out = self.emb_layers["1"](emb_act)[:, :, None]
+        norm2, conv2 = self.out_layers["0"], self.out_layers["3"]
+        if self.scale_shift:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = conv2(F.silu(norm2(h) * (1 + scale) + shift))
+        else:
+            h = _chain(norm2, conv2, h + emb_out)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         return x + h
+
+
+class Downsample(nn.Module):
+    """The reference UNet's Downsample: a stride-2 k=3 convolution ``op``
+    with flax's SAME padding, or (``use_conv=False``) a 2-wide average
+    pool without parameters."""
+
+    def __init__(self, channels: int, use_conv: bool = True):
+        super().__init__()
+        self.op = SameConv1d(channels, channels, 3, stride=2) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op(x) if self.op is not None else F.avg_pool1d(x, 2)
+
+
+class Upsample(nn.Module):
+    """The reference UNet's Upsample: nearest x2 along L, then (with
+    ``use_conv``) a k=3 convolution ``conv``."""
+
+    def __init__(self, channels: int, use_conv: bool = True):
+        super().__init__()
+        self.conv = conv1d(channels, channels, 3) if use_conv else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(2, dim=-1)
+        return self.conv(x) if self.conv is not None else x
 
 
 class UNet1d(nn.Module):
     """Diffusion UNet: (B, in_channels, L) noisy latent and (B,) timesteps
     (and (B,) labels when ``num_classes`` > 0; a label < 0 is the
     classifier-free-guidance null label) -> (B, out_channels, L) fp32.
-
-    Only the reference configurations' options are ported: resblocks that
-    resample (``resblock_updown``) and additive timestep conditioning."""
+    The options are the JAX UNet's (module docstring)."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  model_channels: int = 128, channel_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: int = 2, attention_resolutions: Sequence[int] = (8, 4),
                  num_heads: int = 1, num_groups: int = 32, num_classes: int = 0,
                  resblock_updown: bool = True, use_scale_shift_norm: bool = False,
-                 dropout: float = 0.0, kv_block_size: int = 0, quantized: bool = False):
+                 conv_resample: bool = True, dropout: float = 0.0, kv_block_size: int = 0,
+                 quantized: bool = False, fast_math: bool = True):
         super().__init__()
-        if not resblock_updown or use_scale_shift_norm or dropout:
-            raise NotImplementedError(
-                "the port supports resblock_updown=True, use_scale_shift_norm="
-                "False and dropout=0 (every reference configuration)")
         self.config = dict(in_channels=in_channels, out_channels=out_channels,
                            model_channels=model_channels, channel_mult=tuple(channel_mult),
                            num_res_blocks=num_res_blocks,
                            attention_resolutions=tuple(attention_resolutions),
                            num_heads=num_heads, num_groups=num_groups, num_classes=num_classes,
-                           kv_block_size=kv_block_size, quantized=quantized)
+                           resblock_updown=resblock_updown,
+                           use_scale_shift_norm=use_scale_shift_norm,
+                           conv_resample=conv_resample, dropout=dropout,
+                           kv_block_size=kv_block_size, quantized=quantized,
+                           fast_math=fast_math)
+        if quantized and not resblock_updown:
+            # the JAX package's int8 UNet cannot load this either: it keeps
+            # the stride-2 downsample float while quantize_unet_params
+            # converts its kernel
+            raise NotImplementedError("int8 sampling needs resblock_updown=True: the "
+                                      "stride-2 downsample has no int8 form")
         conv = QuantConv1d if quantized else conv1d
         mc = model_channels
         emb_ch = 4 * mc
@@ -133,7 +192,8 @@ class UNet1d(nn.Module):
             self.label_emb = nn.Embedding(num_classes, emb_ch)
 
         def res(cin, cout, **kw):
-            return TimestepResBlock(cin, cout, emb_ch, num_groups, conv=conv, **kw)
+            return TimestepResBlock(cin, cout, emb_ch, num_groups, conv=conv,
+                                    scale_shift=use_scale_shift_norm, **kw)
 
         def attn(ch, ds):
             self.attention_ds.append(ds)
@@ -151,7 +211,8 @@ class UNet1d(nn.Module):
                 blocks.append(nn.ModuleList(layers))
                 skip_chans.append(ch)
             if level != levels - 1:
-                blocks.append(nn.ModuleList([res(ch, ch, down=True)]))
+                blocks.append(nn.ModuleList([res(ch, ch, down=True) if resblock_updown
+                                             else Downsample(ch, conv_resample)]))
                 skip_chans.append(ch)
                 ds *= 2
         self.input_blocks = nn.ModuleList(blocks)
@@ -165,12 +226,14 @@ class UNet1d(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch, ds))
                 if level > 0 and i == num_res_blocks:
-                    layers.append(res(ch, ch, up=True))
+                    layers.append(res(ch, ch, up=True) if resblock_updown
+                                  else Upsample(ch, conv_resample))
                     ds //= 2
                 blocks.append(nn.ModuleList(layers))
         self.output_blocks = nn.ModuleList(blocks)
         self.out = nn.ModuleDict({"0": GroupNorm32(ch, num_groups, fuse_silu=True),
                                   "2": conv(ch, out_channels, 3)})
+        set_fast_math(self, fast_math)
 
     @staticmethod
     def _run(layers: nn.ModuleList, h: torch.Tensor, emb_act: torch.Tensor) -> torch.Tensor:
@@ -209,13 +272,14 @@ class UNet1d(nn.Module):
 def quantize_unet(unet: UNet1d) -> UNet1d:
     """The int8 sampling copy of a trained ``unet`` (fp32 weights, as the
     JAX package quantizes its fp32 parameters), on the same device, in eval
-    mode, its linear layers in ``unet``'s compute dtype. A UNet that is
-    already quantized is returned as it is."""
+    mode, its linear layers in ``unet``'s compute dtype, its attention on
+    the strict path (the JAX package's int8 UNet never takes fast_math). A
+    UNet that is already quantized is returned as it is."""
     if unet.config["quantized"]:
         return unet
     dtype = unet.time_embed["0"].weight.dtype
     state = quantize_unet_params({k: v.float() for k, v in unet.state_dict().items()})
     with torch.device(unet.time_embed["0"].weight.device):
-        q = UNet1d(**{**unet.config, "quantized": True})
+        q = UNet1d(**{**unet.config, "quantized": True, "fast_math": False})
     q.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     return cast_compute_dtype(q.eval(), dtype)

@@ -14,6 +14,12 @@ of the border pad; the DM skips the decode (``sample_dm_trials``, and
 
 Models run in torch's (B, C, L) layout; the sampler returns (B, 3000, C)
 as the JAX package's does.
+
+Data parallelism (``mesh``): each batch of seeds splits into one
+contiguous share per rank (the batch must divide over the ranks, as the
+JAX sampler asserts); each seed keeps its own generator, and the windows
+are gathered in seed order on every rank, so a seed's window does not
+depend on the world size. Only rank 0 writes artifacts.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d, quantize_unet
+from sleepgen_torch.parallel.mesh import Mesh, split_seeds
 from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_loop,
                                              ddpm_sample_loop, sample_dm_conditional,
                                              seed_noise, validate_stage)
@@ -60,7 +67,11 @@ def dm_sampling_schedule(cfg: Config, num_train_timesteps: int,
                                 device=device)
 
 
-def build_unet(cfg: Config, in_channels: int, out_channels: int) -> UNet1d:
+def build_unet(cfg: Config, in_channels: int, out_channels: int,
+               fast_math: bool = True) -> UNet1d:
+    """The UNet of ``cfg.unet``; ``fast_math`` is the precision switch of
+    the path that runs it (``cfg.fast_sampling_math`` or
+    ``cfg.fast_train_math``)."""
     u = cfg.unet
     return UNet1d(in_channels=in_channels, out_channels=out_channels,
                   model_channels=u.model_channels, channel_mult=tuple(u.channel_mult),
@@ -68,8 +79,9 @@ def build_unet(cfg: Config, in_channels: int, out_channels: int) -> UNet1d:
                   attention_resolutions=tuple(u.attention_resolutions),
                   num_heads=u.num_heads, num_groups=u.norm_num_groups,
                   num_classes=u.num_classes, resblock_updown=u.resblock_updown,
-                  use_scale_shift_norm=u.use_scale_shift_norm, dropout=u.dropout,
-                  kv_block_size=u.kv_block_size)
+                  use_scale_shift_norm=u.use_scale_shift_norm,
+                  conv_resample=u.conv_resample, dropout=u.dropout,
+                  kv_block_size=u.kv_block_size, fast_math=fast_math)
 
 
 def build_aekl(cfg: Config) -> AutoencoderKL:
@@ -88,13 +100,14 @@ def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
                  aekl_cfg: Optional[Config] = None,
                  quantized: bool = False) -> Tuple[UNet1d, AutoencoderKL]:
     """The UNet and the AEKL on ``device`` with the given state dicts, in
-    eval mode and cast to ``cfg.dtype``; ``quantized``: the int8 UNet, its
+    eval mode and cast to ``cfg.dtype``, the UNet's attention on
+    ``cfg.fast_sampling_math``'s path; ``quantized``: the int8 UNet, its
     convolutions quantized from the fp32 ``unet_state``."""
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     dtype = DTYPES[cfg.dtype]
     with torch.device(device):
-        unet = load_numpy_state(build_unet(cfg, lc, lc), unet_state)
+        unet = load_numpy_state(build_unet(cfg, lc, lc, cfg.fast_sampling_math), unet_state)
         ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
     if quantized:
         unet = quantize_unet(unet)
@@ -108,7 +121,8 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                      num_inference_steps: int = 200, border_pad: int = BORDER_PAD,
                      sampler: str = "ddim", device: torch.device | str = "cuda",
                      conditional: bool = False, guided: bool = False,
-                     quantized: bool = False) -> Callable[..., torch.Tensor]:
+                     quantized: bool = False,
+                     mesh: Optional[Mesh] = None) -> Callable[..., torch.Tensor]:
     """Returns ``sample(scale_factor, seeds, labels=None, guidance_scale=None)
     -> (B, L - 2 * border_pad, C)`` fp32 on ``device``. ``unet``, ``ae`` and
     ``sched`` must already live on ``device``. ``sampler``: "ddim" (the
@@ -123,7 +137,9 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     ``quantized``: the UNet runs int8 (``quantize_unet`` of ``unet``, which
     should hold fp32 weights, unless it is quantized already), with the
     strict fp32 GroupNorm numerics. The call returns once the work is
-    queued on the card; it reads nothing back."""
+    queued on the card; it reads nothing back (with a ``mesh``, the ranks'
+    windows are gathered: each call samples this rank's share of the seeds
+    and of the labels, and returns the whole batch)."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler '{sampler}'; one of {sorted(SAMPLERS)}")
     if guided and not conditional:
@@ -139,13 +155,16 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
             raise ValueError("a conditional sampler needs labels")
         if guided and guidance_scale is None:
             raise ValueError("a guided sampler needs guidance_scale")
+        if mesh is not None and labels is not None:
+            labels = mesh.shard(labels)
         with torch.inference_mode():
-            x_T = seed_noise(seeds, (latent_len, latent_channels), dev)
+            x_T = seed_noise(split_seeds(mesh, seeds), (latent_len, latent_channels), dev)
             model_fn = cond_model_fn(unet, labels if conditional else None, guidance_scale,
                                      guided=guided)
             z = loop(model_fn, sched, x_T.transpose(1, 2), num_inference_steps)
             signal = ae.decode_stage_2_outputs(z / scale_factor).float()
-            return signal[:, :, border_pad:-border_pad].transpose(1, 2)
+            out = signal[:, :, border_pad:-border_pad].transpose(1, 2)
+            return out if mesh is None else mesh.gather(out.contiguous())
 
     return sample
 
@@ -153,9 +172,10 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 def build_dm(cfg: Config, unet_state: Mapping[str, np.ndarray],
              device: torch.device) -> UNet1d:
     """The signal-space DM's UNet (one channel in and out) on ``device`` with
-    the given state dict, in eval mode and cast to ``cfg.dtype``."""
+    the given state dict, in eval mode and cast to ``cfg.dtype``, its
+    attention on ``cfg.fast_sampling_math``'s path."""
     with torch.device(device):
-        unet = load_numpy_state(build_unet(cfg, 1, 1), unet_state)
+        unet = load_numpy_state(build_unet(cfg, 1, 1, cfg.fast_sampling_math), unet_state)
     return cast_compute_dtype(unet.eval(), DTYPES[cfg.dtype])
 
 
@@ -257,7 +277,8 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
                       batch_size: int = 64, aekl_cfg: Optional[Config] = None,
                       compute_psd: bool = True, border_pad: int = BORDER_PAD,
                       device: torch.device | str = "cuda", stage: Optional[int] = None,
-                      guidance_scale: float = 1.0, quantized: bool = False) -> np.ndarray:
+                      guidance_scale: float = 1.0, quantized: bool = False,
+                      mesh: Optional[Mesh] = None) -> np.ndarray:
     """Sample seeds [start_seed, stop_seed) in batches of ``batch_size`` and
     write their artifacts. ``unet_state``/``ae_state`` are the port's state
     dicts (``utils.weights``); the models run in ``cfg.dtype``.
@@ -266,10 +287,14 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
     ``sample_ldm_trials(quantized=True)``. ``stage``:
     the class label of a conditional checkpoint (``cfg.unet.num_classes`` >
     0); ``guidance_scale`` other than 1 adds classifier-free guidance. A
-    last partial batch is padded to ``batch_size`` and trimmed. Returns all
-    cropped signals, (N, 3000, 1) fp32."""
+    last partial batch is padded to ``batch_size`` and trimmed. ``mesh``:
+    each batch's seeds split over its ranks (``batch_size`` must divide
+    over them), on its device; only rank 0 writes. Returns all cropped
+    signals, (N, 3000, 1) fp32."""
     validate_stage(cfg.unet.num_classes, stage, guidance_scale)
-    dev = resolve_device(device)
+    if mesh is not None:
+        assert batch_size % mesh.n_data == 0, (batch_size, mesh.n_data)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     conditional = cfg.unet.num_classes > 0
     guided = conditional and guidance_scale != 1.0
     unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg, quantized)
@@ -278,12 +303,13 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
                                latent_channels=(aekl_cfg or cfg).aekl.latent_channels,
                                num_inference_steps=cfg.diffusion.num_inference_steps,
                                border_pad=border_pad, sampler=cfg.diffusion.sampler,
-                               device=dev, conditional=conditional, guided=guided)
+                               device=dev, conditional=conditional, guided=guided, mesh=mesh)
     labels = stage_labels(stage, batch_size, dev) if conditional else None
     outs = []
     for seeds, n in padded_chunks(range(start_seed, stop_seed), batch_size):
         sig = sampler(scale_factor, seeds, labels, guidance_scale).cpu().numpy()[:n]
-        write_sample_artifacts(output_dir, seeds[:n], sig, compute_psd)
+        if mesh is None or mesh.is_main:
+            write_sample_artifacts(output_dir, seeds[:n], sig, compute_psd)
         outs.append(sig)
     return np.concatenate(outs, axis=0)
 

@@ -8,13 +8,12 @@ PSDs). A request is queued on the card without waiting
 nothing back, and each chunk's copy to the host is queued behind it, so a
 server can queue request k + 1 before it writes request k's artifacts.
 
-Left out of the JAX service on purpose:
-
-- ``mesh`` (seeds sharded over several devices): multi-GPU serving comes
-  with the port of ``parallel/mesh.py``;
-- ``base_key`` / ``base_seed``: the port maps a seed to its noise its own
-  way (``samplers.seed_noise``), and no caller of the JAX service outside
-  the service sets them.
+``mesh`` (``sleepgen_torch.parallel``): every rank runs the service, and
+each chunk's seeds split over the ranks as ``make_ldm_sampler``'s do; each
+rank gets every window back. Left out of the JAX service on purpose:
+``base_key`` / ``base_seed``: the port maps a seed to its noise its own
+way (``samplers.seed_noise``), and no caller of the JAX service outside
+the service sets them.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ import numpy as np
 import torch
 
 from sleepgen_torch.config import Config
+from sleepgen_torch.parallel.mesh import Mesh
 from sleepgen_torch.sample.sample_ldm import (build_models, make_ldm_sampler, padded_chunks,
                                               read_run_dirs, sampling_schedule, stage_labels)
 from sleepgen_torch.sample.samplers import validate_stage
@@ -87,7 +87,8 @@ class SamplerService:
     ``unet_state`` and ``ae_state`` are the port's state dicts; the models
     are built on ``device`` in ``cfg.dtype`` when the service is made, and
     the sampler (``cfg.diffusion.sampler``, ``num_inference_steps``) is
-    the LDM config's."""
+    the LDM config's. With a ``mesh`` the models live on its device and
+    ``batch_size`` must divide over its ranks."""
 
     cfg: Config
     aekl_cfg: Config
@@ -96,10 +97,14 @@ class SamplerService:
     scale_factor: float
     batch_size: int = 64
     device: torch.device | str = "cuda"
+    mesh: Optional[Mesh] = None
     _samplers: Dict[Tuple[int, bool], Callable] = field(default_factory=dict, repr=False)
     stats: Dict[str, float] = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
+        if self.mesh is not None:
+            assert self.batch_size % self.mesh.n_data == 0, (self.batch_size, self.mesh.n_data)
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         self._unet, self._ae = build_models(self.cfg, self.unet_state, self.ae_state,
                                             self.device, self.aekl_cfg)
@@ -129,8 +134,8 @@ class SamplerService:
             self._samplers[key] = make_ldm_sampler(
                 self._unet, self._ae, self._sched, self.cfg.unet.image_size,
                 self.aekl_cfg.aekl.latent_channels, self.cfg.diffusion.num_inference_steps,
-                sampler=self.cfg.diffusion.sampler,
-                device=self.device, conditional=self.conditional, guided=guided)
+                sampler=self.cfg.diffusion.sampler, device=self.device,
+                conditional=self.conditional, guided=guided, mesh=self.mesh)
         return self._samplers[key]
 
     def warmup(self) -> float:

@@ -24,15 +24,22 @@ runs in eval mode on the running ones.
 Differences from the JAX trainer, each forced: initial weights come from
 numpy (``utils/weights.flax_init_state``) and dropout masks from a
 ``torch.Generator`` seeded with ``seed``, as torch cannot reproduce JAX's
-threefry stream; the port trains on one card, so no batch is padded to a
-device count (the JAX trainer repeats the last window up to a multiple of
-its mesh's devices) and there is no ``mesh`` argument.
+threefry stream.
+
+Data parallelism (``mesh``): a training batch is padded to a multiple of
+the ranks with copies of its last window and label, as the JAX trainer
+pads it, and each rank takes its shard; dropout masks are drawn for the
+global batch and sliced (``layers.batch_shard``), BatchNorm computes the
+global batch's statistics, the weighted cross-entropy divides by the
+global batch's weight, and gradients are averaged over the ranks. Each
+rank predicts every window itself (no collective).
 
 Inputs are the JAX package's numpy arrays, windows (N, T, C) or
 sequences (N, S, T, C); each batch goes to the device as (.., C, T).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from dataclasses import dataclass, field
@@ -43,17 +50,22 @@ import torch
 from torch import nn
 
 from sleepgen_torch.data.staging import balanced_class_weights
-from sleepgen_torch.utils.device import resolve_device
+from sleepgen_torch.nn.layers import batch_shard
+from sleepgen_torch.parallel.mesh import Mesh, make_mesh, pad_to_multiple
 from sleepgen_torch.utils.weights import flax_init_state, load_numpy_state
 
 
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                           class_weights: torch.Tensor) -> torch.Tensor:
-    """sum_i w[y_i] nll_i / max(sum_i w[y_i], 1e-8), in fp32."""
+                           class_weights: torch.Tensor,
+                           total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum_i w[y_i] nll_i / max(sum_i w[y_i], 1e-8), in fp32; the
+    denominator is ``total_weight`` when given (a data-parallel rank's
+    share of the global batch's)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     w = class_weights[labels]
-    return (w * nll).sum() / w.sum().clamp_min(1e-8)
+    return (w * nll).sum() / (w.sum().clamp_min(1e-8) if total_weight is None
+                              else total_weight)
 
 
 def balanced_accuracy(y_true: np.ndarray, y_pred: np.ndarray, n_classes: int = 5) -> float:
@@ -100,18 +112,31 @@ def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def make_train_step(model: nn.Module, opt: torch.optim.Optimizer,
                     sched: torch.optim.lr_scheduler.LRScheduler, class_weights: torch.Tensor,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, mesh: Optional[Mesh] = None):
     """``step(x, y) -> loss`` on a device batch (x (B, .., C, T), y (B,)):
     the loss with the batch's BatchNorm statistics (the running ones
     moved), its gradient, one AdamW step and one schedule step. The loss
-    is a detached 0-d tensor; the gradients stay in ``.grad``."""
+    is a detached 0-d tensor; the gradients stay in ``.grad``. With a
+    ``mesh``, x and y are this rank's equal shard of the global batch
+    (module docstring); the loss is the global batch's."""
+    if mesh is not None:
+        mesh.bind(model)
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         model.train()
         opt.zero_grad(set_to_none=True)
-        loss = weighted_cross_entropy(model(x, update_stats=True, generator=generator), y,
-                                      class_weights)
+        shard = (batch_shard(mesh.rank, mesh.n_data) if mesh is not None
+                 else contextlib.nullcontext())
+        with shard:
+            logits = model(x, update_stats=True, generator=generator)
+        total = None
+        if mesh is not None:  # each rank's share of the mean over the ranks
+            total = mesh.sum(class_weights[y].sum()).clamp_min(1e-8) / mesh.n_data
+        loss = weighted_cross_entropy(logits, y, class_weights, total)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(model.parameters())
+            loss = mesh.mean(loss)
         opt.step()
         sched.step()
         return loss.detach()
@@ -140,11 +165,14 @@ def train_decoder(
     n_classes: int = 5,
     seed: int = 2,
     device: torch.device | str = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> DecodeResult:
     """Train a (B, .., C, T) -> logits decoder with the reference's recipe
     on pre-epoched numpy arrays, from initial weights drawn from ``seed``
-    (``flax_init_state``)."""
-    dev = resolve_device(device)
+    (``flax_init_state``). ``mesh``: data-parallel over its ranks (default:
+    the world of one on ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev = mesh.device
     x_train, y_train = train_xy
     x_valid, y_valid = valid_xy
     load_numpy_state(model, flax_init_state(model, seed))
@@ -152,7 +180,7 @@ def train_decoder(
     opt, sched = make_optimizer(model, lr, weight_decay, n_epochs, len(x_train), batch_size)
     class_w = torch.as_tensor(balanced_class_weights(y_train, n_classes), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    step = make_train_step(model, opt, sched, class_w, gen)
+    step = make_train_step(model, opt, sched, class_w, gen, mesh)
 
     def predict(x: np.ndarray) -> np.ndarray:
         model.eval()
@@ -169,7 +197,7 @@ def train_decoder(
         order = np_rng.permutation(len(x_train))
         losses = []
         for i in range(0, len(order), batch_size):
-            idx = order[i:i + batch_size]
+            idx = mesh.shard(pad_to_multiple(order[i:i + batch_size], mesh.n_data))
             losses.append(step(to_device(x_train[idx], dev),
                                torch.as_tensor(y_train[idx], device=dev)))
         loss = float(torch.stack(losses).double().mean())

@@ -37,6 +37,11 @@ Random draws: the encoder's eps of step ``s`` comes from
 ``common.make_generator(seed, device, AEKL_STREAM, s)``, a stream of its
 own; crop offsets come from ``numpy.random.default_rng(seed)`` in the
 JAX package's order (training crops unshuffled, validation shuffled).
+
+Data parallelism (``mesh``): each rank takes its shard of the global
+batch and of its eps; the discriminator's BatchNorm computes the global
+batch's statistics (``Mesh.bind``), both gradients are averaged over the
+ranks, the metrics are the global batch's, and only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -54,16 +59,18 @@ from sleepgen_torch.losses import (discriminator_adv_loss, generator_adv_loss, j
                                    kl_gaussian)
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.discriminator import PatchDiscriminator
+from sleepgen_torch.parallel.mesh import Mesh, make_mesh
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl
 from sleepgen_torch.train.common import (AEKL_STREAM, latent_length, make_generator,
                                          windows_to_device)
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
-from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
+from sleepgen_torch.utils.logging import setup_run_dir, split_loggers
 from sleepgen_torch.utils.weights import aekl_state_to_jax, lecun_normal_state, load_numpy_state
 
 METRICS = ("g_loss", "disc_loss", "recons_loss", "kl_loss", "gen_loss", "spec_loss")
+# Layers the JAX AEKL zero-initialises: each attention's output projection.
+ZERO_INIT_SUFFIXES = (".proj_attn.weight",)
 
 
 def build_models(cfg: Config) -> Tuple[AutoencoderKL, PatchDiscriminator]:
@@ -78,7 +85,7 @@ def build_trainer(cfg: Config, dev: torch.device | str):
     ``cfg.losses``' rates."""
     with torch.device(dev):
         ae, disc = build_models(cfg)
-    load_numpy_state(ae, lecun_normal_state(ae, cfg.train.seed))  # no zero-init layer
+    load_numpy_state(ae, lecun_normal_state(ae, cfg.train.seed, ZERO_INIT_SUFFIXES))
     load_numpy_state(disc, lecun_normal_state(disc, [cfg.train.seed, 1]))
     opt_g = torch.optim.Adam(ae.parameters(), lr=cfg.losses.optimizer_g_lr)
     opt_d = torch.optim.Adam(disc.parameters(), lr=cfg.losses.optimizer_d_lr)
@@ -108,11 +115,18 @@ def generator_losses(ae: AutoencoderKL, disc: PatchDiscriminator, x: torch.Tenso
 
 def make_train_step(ae: AutoencoderKL, disc: PatchDiscriminator, opt_g: torch.optim.Optimizer,
                     opt_d: torch.optim.Optimizer, cfg: Config,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32, mesh: Optional[Mesh] = None):
     """``step(x, eps) -> metrics``: the G step, then the D step, on windows
     x (B, C, L) with the encoder's eps given. The metrics (``METRICS``) are
-    detached 0-d tensors on x's device."""
+    detached 0-d tensors on x's device. With a ``mesh``, x and eps are this
+    rank's equal shard of the global batch's: the discriminator's
+    BatchNorm is bound to the mesh, each gradient is averaged over the
+    ranks and the metrics are the global batch's (the spectral term, a sum
+    over windows, summed over the ranks)."""
     adv_w, kl_w, spec_w = cfg.losses.adv_weight, cfg.losses.kl_weight, cfg.losses.spectral_weight
+    world = mesh.n_data if mesh is not None else 1
+    if mesh is not None:
+        mesh.bind(disc)
 
     def train_step(x: torch.Tensor, eps: torch.Tensor) -> Dict[str, torch.Tensor]:
         disc.requires_grad_(False)
@@ -120,11 +134,14 @@ def make_train_step(ae: AutoencoderKL, disc: PatchDiscriminator, opt_g: torch.op
             opt_g.zero_grad(set_to_none=True)
             recon, terms = generator_losses(ae, disc, x, eps, cfg.spectral, compute_dtype)
             g_loss = terms["recons_loss"] + kl_w * terms["kl_loss"] + adv_w * terms["gen_loss"]
-            if cfg.spectral:
-                g_loss = g_loss + spec_w * terms["spec_loss"]
+            if cfg.spectral:  # a sum over the global batch: this rank's share, times the
+                # ranks the gradient's mean divides by
+                g_loss = g_loss + spec_w * world * terms["spec_loss"]
             g_loss.backward()
         finally:
             disc.requires_grad_(True)
+        if mesh is not None:
+            mesh.average_gradients(ae.parameters())
         opt_g.step()
 
         opt_d.zero_grad(set_to_none=True)
@@ -133,8 +150,17 @@ def make_train_step(ae: AutoencoderKL, disc: PatchDiscriminator, opt_g: torch.op
             logits_real = disc(x, update_stats=True)[-1]
         d_adv = discriminator_adv_loss(logits_fake, logits_real)
         (adv_w * d_adv).backward()
+        if mesh is not None:
+            mesh.average_gradients(disc.parameters())
         opt_d.step()
-        return {k: v.detach() for k, v in dict(g_loss=g_loss, disc_loss=d_adv, **terms).items()}
+        metrics = dict(disc_loss=d_adv, **terms)
+        if mesh is not None:
+            metrics = {k: (mesh.sum if k == "spec_loss" else mesh.mean)(v)
+                       for k, v in metrics.items()}
+        g_loss = (metrics["recons_loss"] + kl_w * metrics["kl_loss"]
+                  + adv_w * metrics["gen_loss"]
+                  + (spec_w * metrics["spec_loss"] if cfg.spectral else 0.0))
+        return {k: v.detach() for k, v in dict(g_loss=g_loss, **metrics).items()}
 
     return train_step
 
@@ -176,20 +202,23 @@ class AEKLTrainResult:
 
 
 def train_aekl(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
-               run_name: Optional[str] = None,
-               device: torch.device | str = "cuda") -> AEKLTrainResult:
+               run_name: Optional[str] = None, device: torch.device | str = "cuda",
+               mesh: Optional[Mesh] = None) -> AEKLTrainResult:
     """Train the AEKL on ``train_ds``; writes the run dir under
     ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl, checkpoints/,
-    best_model/, final_model/)."""
-    dev = resolve_device(device)
+    best_model/, final_model/). ``mesh``: data-parallel over its ranks
+    (default: the world of one on ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev, main, n_dev = mesh.device, mesh.is_main, mesh.n_data
     dtype = DTYPES[cfg.dtype]
     seed, bs = cfg.train.seed, cfg.train.batch_size
 
     spe = "spectral" if cfg.spectral else "no-spectral"
     run_name = run_name or f"aekl_eeg_{spe}_{cfg.dataset}"
     run_dir, resume = setup_run_dir(cfg.train.output_dir, run_name)
-    cfg.to_yaml(run_dir / "config.yaml")
-    logger_t, logger_v = MetricsLogger(run_dir, "train"), MetricsLogger(run_dir, "val")
+    if main:
+        cfg.to_yaml(run_dir / "config.yaml")
+    logger_t, logger_v = split_loggers(run_dir, main)
     ckpt = CheckpointManager(run_dir)
 
     ae, disc, opt_g, opt_d = build_trainer(cfg, dev)
@@ -201,15 +230,18 @@ def train_aekl(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
         opt_d.load_state_dict(restored["opt_d"])
         step, best_loss = restored["step"], restored["best_loss"]
 
-    train_step = make_train_step(ae, disc, opt_g, opt_d, cfg, dtype)
+    train_step = make_train_step(ae, disc, opt_g, opt_d, cfg, dtype, mesh)
     eval_step = make_eval_step(ae, dtype)
 
     def state() -> dict:
         return dict(step=step, params_g=ae.state_dict(), opt_g=opt_g.state_dict(),
                     params_d=disc.state_dict(), opt_d=opt_d.state_dict(), best_loss=best_loss)
 
-    def windows(batch: np.ndarray) -> torch.Tensor:
-        return windows_to_device(batch, dev).to(dtype)
+    def batches(ds, rng, **kw):
+        """(this rank's shard of each global batch on ``dev`` in ``dtype``,
+        the global batch size)."""
+        for batch in ds.epoch_batches(bs, rng, pad_multiple=n_dev, **kw):
+            yield windows_to_device(mesh.shard(batch), dev).to(dtype), batch.shape[0]
 
     np_rng = np.random.default_rng(seed)
     latent_shape = (cfg.aekl.latent_channels, latent_length(cfg, train_ds.padded_window))
@@ -220,11 +252,10 @@ def train_aekl(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
         last_epoch = epoch
         t0 = time.perf_counter()
         metrics: List[Dict[str, torch.Tensor]] = []
-        for batch in train_ds.epoch_batches(bs, np_rng):
-            x = windows(batch)
-            eps = torch.randn((x.shape[0], *latent_shape), device=dev,
+        for x, n in batches(train_ds, np_rng):
+            eps = torch.randn((n, *latent_shape), device=dev,
                               generator=make_generator(seed, dev, AEKL_STREAM, step))
-            metrics.append(train_step(x, eps))
+            metrics.append(train_step(x, mesh.shard(eps)))
             step += 1
         m = {k: float(torch.stack([s[k] for s in metrics]).mean()) for k in METRICS}
         logger_t.log(epoch, {**m, "seconds": time.perf_counter() - t0})
@@ -235,31 +266,33 @@ def train_aekl(cfg: Config, train_ds: WindowDataset, valid_ds: WindowDataset,
             first_pair = {}
 
             def losses(bi, batch):
-                x = windows(batch)
+                x, _ = batch
                 l1, recon = eval_step(x)
-                if bi == 0:  # the figures plot sample 0 only
+                if bi == 0 and main:  # the figures plot sample 0 only
                     first_pair.update(orig=x[:1].float().cpu().numpy(),
                                       recon=recon[:1].float().cpu().numpy())
-                return l1
+                return mesh.gather(l1)
 
-            val_loss = masked_epoch_mean(
-                len(valid_ds), valid_ds.epoch_batches(bs, np_rng, shuffle=True), losses)
+            val_loss = masked_epoch_mean(len(valid_ds), batches(valid_ds, np_rng, shuffle=True),
+                                         losses)
             logger_v.log(epoch, {"recons_loss": val_loss})
-            _log_val_figures(run_dir, epoch, first_pair)
             improved = val_loss <= best_loss  # best before save
             if improved:
                 best_loss = val_loss
-            st = state()
-            ckpt.save(step, st)
-            if improved:
-                ckpt.save_best(aekl_state_to_jax(st["params_g"]), cfg)
+            if main:
+                _log_val_figures(run_dir, epoch, first_pair)
+                st = state()
+                ckpt.save(step, st)
+                if improved:
+                    ckpt.save_best(aekl_state_to_jax(st["params_g"]), cfg)
 
     if stopped_on_nan:  # the final model is the last finite checkpoint, if any
         final = ckpt.restore_latest()
     else:
         final = state()
-        ckpt.save(step, final)
-    if final is not None:
+        if main:
+            ckpt.save(step, final)
+    if final is not None and main:
         ckpt.save_best(aekl_state_to_jax(final["params_g"]), cfg, "final_model")
     logger_t.close()
     logger_v.close()

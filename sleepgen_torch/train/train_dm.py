@@ -42,6 +42,7 @@ from sleepgen_torch.config import Config
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.losses.spectral import jukebox_loss
 from sleepgen_torch.nn.unet1d import UNet1d
+from sleepgen_torch.parallel.mesh import Mesh, make_mesh
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_unet
 from sleepgen_torch.sample.samplers import cond_model_fn, ddpm_sample_loop
 from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, TRAIN_STREAM,
@@ -49,8 +50,7 @@ from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, TRAIN_STREA
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.train.train_ldm import DiffusionTrainResult, init_unet_state, make_schedule
 from sleepgen_torch.utils.checkpoint import CheckpointManager
-from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
+from sleepgen_torch.utils.logging import setup_run_dir, split_loggers
 from sleepgen_torch.utils.weights import load_numpy_state, unet_state_to_jax
 
 DM_SPECTRAL_WEIGHT = 1e-6  # the reference's train_pure_ldm.py:158
@@ -82,12 +82,17 @@ def draw_dm_step_inputs(gen: torch.Generator, batch: int, shape, num_timesteps: 
 
 
 def make_dm_train_step(unet: UNet1d, sched: NoiseSchedule, opt: torch.optim.Optimizer,
-                       spectral: bool, compute_dtype: torch.dtype = torch.float32):
+                       spectral: bool, compute_dtype: torch.dtype = torch.float32,
+                       mesh: Optional[Mesh] = None):
     """``step(x, t, noise, y=None, drop=None) -> {"loss", "mse",
     "spec_loss"}``: one Adam step on the mean loss. ``y`` (B,) labels of a
     conditional UNet; where ``drop`` (B,) bool is set, the label becomes
     the null label -1. ``spec_loss`` is reported whether or not it is in the
-    loss."""
+    loss. With a ``mesh`` the inputs are this rank's equal shard of the
+    global batch's, the gradient is averaged over the ranks and the
+    metrics are the global batch's (the spectral sum over every rank's
+    rows)."""
+    world = mesh.n_data if mesh is not None else 1
 
     def train_step(x, t, noise, y=None, drop=None) -> Dict[str, torch.Tensor]:
         if drop is not None:
@@ -96,8 +101,14 @@ def make_dm_train_step(unet: UNet1d, sched: NoiseSchedule, opt: torch.optim.Opti
         pred, target = dm_prediction(unet, sched, x, t, noise, y, compute_dtype)
         mse = (pred - target).square().mean()
         spec = jukebox_loss(pred, target, reduction="sum")
-        loss = mse + DM_SPECTRAL_WEIGHT * spec if spectral else mse
+        # a sum over the global batch: each rank's share, times the ranks
+        # the gradient's mean divides by
+        loss = mse + DM_SPECTRAL_WEIGHT * world * spec if spectral else mse
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(unet.parameters())
+            mse, spec = mesh.mean(mse), mesh.sum(spec)
+            loss = mse + DM_SPECTRAL_WEIGHT * spec if spectral else mse
         opt.step()
         return {"loss": loss.detach(), "mse": mse.detach(), "spec_loss": spec.detach()}
 
@@ -122,18 +133,21 @@ def build_dm_trainer(cfg: Config, dev: torch.device | str):
     master weights initialised from ``cfg.train.seed``, the training
     schedule and Adam."""
     with torch.device(dev):
-        unet = build_unet(cfg, 1, 1)
+        unet = build_unet(cfg, 1, 1, cfg.fast_train_math)
     load_numpy_state(unet, init_unet_state(unet, cfg.train.seed))
     opt = torch.optim.Adam(unet.parameters(), lr=cfg.train.base_lr)
     return unet, make_schedule(cfg, dev), opt
 
 
 def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
-             device: torch.device | str = "cuda") -> DiffusionTrainResult:
+             device: torch.device | str = "cuda",
+             mesh: Optional[Mesh] = None) -> DiffusionTrainResult:
     """Train the signal-space DM on ``train_ds`` (a ``WindowDataset``, or a
     ``LabeledEpochDataset`` when ``cfg.unet.num_classes`` > 0); writes the
-    run dir under ``cfg.train.output_dir``."""
-    dev = resolve_device(device)
+    run dir under ``cfg.train.output_dir``. ``mesh``: data-parallel over its
+    ranks as ``train_ldm``'s (default: the world of one on ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev, main, n_dev = mesh.device, mesh.is_main, mesh.n_data
     dtype = DTYPES[cfg.dtype]
     seed = cfg.train.seed
     conditional = cfg.unet.num_classes > 0
@@ -142,8 +156,9 @@ def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
     spe = "spectral" if cfg.spectral else "no-spectral"
     run_name = run_name or f"dm_eeg_{spe}_{cfg.dataset}"
     run_dir, resume = setup_run_dir(cfg.train.output_dir, run_name)
-    cfg.to_yaml(run_dir / "config.yaml")
-    logger_t, logger_v = MetricsLogger(run_dir, "train"), MetricsLogger(run_dir, "val")
+    if main:
+        cfg.to_yaml(run_dir / "config.yaml")
+    logger_t, logger_v = split_loggers(run_dir, main)
     ckpt = CheckpointManager(run_dir)
 
     unet, sched, opt = build_dm_trainer(cfg, dev)
@@ -153,12 +168,20 @@ def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
         unet.load_state_dict(restored["params"])
         opt.load_state_dict(restored["opt"])
         step, best_loss = restored["step"], restored["best_loss"]
-    train_step = make_dm_train_step(unet, sched, opt, cfg.spectral, dtype)
+    train_step = make_dm_train_step(unet, sched, opt, cfg.spectral, dtype, mesh)
     eval_step = make_dm_eval_step(unet, sched, dtype)
 
-    def to_device(batch):
-        x, y = batch_to_device(batch, dev)
-        return x.to(dtype).float(), y
+    def batches(ds, rng, **kw):
+        """This rank's shards of the loader's global batches on ``dev``,
+        rounded through ``dtype``, with the global batch size."""
+        for batch in ds.epoch_batches(cfg.train.batch_size, rng, pad_multiple=n_dev, **kw):
+            x, y = batch if isinstance(batch, tuple) else (batch, None)
+            x, y = batch_to_device(mesh.shard(x) if y is None
+                                   else (mesh.shard(x), mesh.shard(y)), dev)
+            yield x.to(dtype).float(), y, x.shape[0] * n_dev
+
+    def shard(*tensors):
+        return tuple(None if v is None else mesh.shard(v) for v in tensors)
 
     def state() -> dict:
         return dict(step=step, params=unet.state_dict(), opt=opt.state_dict(),
@@ -179,13 +202,12 @@ def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
 
     def run_eval(epoch: int) -> float:
         def losses(bi, batch):
-            x, y = to_device(batch)
+            x, y, n = batch
             gen = make_generator(seed, dev, EVAL_STREAM, epoch, bi)
-            t, noise, _ = draw_dm_step_inputs(gen, x.shape[0], shape, sched.num_timesteps)
-            return eval_step(x, t, noise, y)
+            t, noise, _ = draw_dm_step_inputs(gen, n, shape, sched.num_timesteps)
+            return mesh.gather(eval_step(x, *shard(t, noise), y))
 
-        val = masked_epoch_mean(len(valid_ds), valid_ds.epoch_batches(
-            cfg.train.batch_size, np_rng, shuffle=True), losses)
+        val = masked_epoch_mean(len(valid_ds), batches(valid_ds, np_rng, shuffle=True), losses)
         logger_v.log(epoch, {"loss": val})
         return val
 
@@ -197,12 +219,10 @@ def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
         last_epoch = epoch
         t0 = time.perf_counter()
         losses: List[torch.Tensor] = []
-        for batch in train_ds.epoch_batches(cfg.train.batch_size, np_rng):
-            x, y = to_device(batch)
+        for x, y, n in batches(train_ds, np_rng):
             gen = make_generator(seed, dev, TRAIN_STREAM, step)
-            t, noise, drop = draw_dm_step_inputs(gen, x.shape[0], shape, sched.num_timesteps,
-                                                 drop_prob)
-            losses.append(train_step(x, t, noise, y, drop)["loss"])
+            inputs = draw_dm_step_inputs(gen, n, shape, sched.num_timesteps, drop_prob)
+            losses.append(train_step(x, *shard(*inputs[:2]), y, *shard(inputs[2]))["loss"])
             step += 1
         mean_loss = float(torch.stack(losses).mean())
         logger_t.log(epoch, {"loss": mean_loss, "seconds": time.perf_counter() - t0})
@@ -210,23 +230,25 @@ def train_dm(cfg: Config, train_ds, valid_ds, run_name: Optional[str] = None,
             stopped_on_nan = True
             break
         if (epoch + 1) % cfg.train.val_interval == 0:
-            if (epoch + 1) % (2 * cfg.train.val_interval) == 0:
+            if (epoch + 1) % (2 * cfg.train.val_interval) == 0 and main:
                 log_sample(epoch)
             val_loss = run_eval(epoch)
             improved = val_loss <= best_loss  # best before save
             if improved:
                 best_loss = val_loss
-            st = state()
-            ckpt.save(step, st)
-            if improved:
-                ckpt.save_best(unet_state_to_jax(st["params"]), cfg)
+            if main:
+                st = state()
+                ckpt.save(step, st)
+                if improved:
+                    ckpt.save_best(unet_state_to_jax(st["params"]), cfg)
 
     if stopped_on_nan:  # the final model is the last finite checkpoint, if any
         final = ckpt.restore_latest()
     else:
         final = state()
-        ckpt.save(step, final)
-    if final is not None:
+        if main:
+            ckpt.save(step, final)
+    if final is not None and main:
         ckpt.save_best(unet_state_to_jax(final["params"]), cfg, "final_model")
     logger_t.close()
     logger_v.close()

@@ -29,6 +29,13 @@ step, with the label dropout drawn last; an eval batch; the in-training
 sample; the scale factor). Crop
 offsets come from ``numpy.random.default_rng(cfg.train.seed)`` in the JAX
 package's order, so both packages train on the same windows.
+
+Data parallelism (``mesh``, ``sleepgen_torch.parallel``): every rank
+reads the same global batch, padded to a multiple of the ranks as the JAX
+loader pads it, draws the step's inputs for the whole of it from the same
+generator and keeps its shard; gradients are averaged over the ranks, the
+loss, the eval losses and the scale factor's std are the global batch's,
+and only rank 0 writes the run dir's files.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d
+from sleepgen_torch.parallel.mesh import Mesh, make_mesh
 from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl, build_unet
 from sleepgen_torch.sample.samplers import cond_model_fn, ddpm_sample_loop
 from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM,
@@ -52,8 +60,7 @@ from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREA
                                          latent_length, make_generator)
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
-from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.logging import MetricsLogger, setup_run_dir
+from sleepgen_torch.utils.logging import setup_run_dir, split_loggers
 from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state,
                                           unet_state_to_jax)
 
@@ -84,10 +91,15 @@ def posterior_sample(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor) 
         return (z_mu + enc_eps.to(z_sigma.dtype) * z_sigma).float()
 
 
-def compute_scale_factor(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor) -> float:
+def compute_scale_factor(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tensor,
+                         mesh: Optional[Mesh] = None) -> float:
     """1 / std(z) of a posterior sample of the first training batch
-    (population std, as ``jnp.std``)."""
-    return float(1.0 / posterior_sample(ae, x, enc_eps).std(correction=0))
+    (population std, as ``jnp.std``); with a ``mesh``, x and enc_eps are
+    this rank's shard and the std is the global batch's."""
+    z = posterior_sample(ae, x, enc_eps)
+    if mesh is not None:
+        z = mesh.gather(z)
+    return float(1.0 / z.std(correction=0))
 
 
 def ldm_losses(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule, scale_factor: float,
@@ -120,12 +132,16 @@ def draw_step_inputs(gen: torch.Generator, batch: int, latent_shape, num_timeste
 def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                         opt: torch.optim.Optimizer, scale_factor: float,
                         compute_dtype: torch.dtype = torch.float32,
-                        ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0):
+                        ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0,
+                        mesh: Optional[Mesh] = None):
     """``step(x, t, noise, enc_eps, y=None, drop=None) -> loss``: one Adam
     step on the mean loss, then the EMA update ``e = decay * e + (1 -
     decay) * p`` when ``ema`` (fp32 copies of the parameters, by name) is
     given. ``y`` (B,) labels of a conditional UNet; where ``drop`` (B,)
-    bool is set, the label becomes the null label -1."""
+    bool is set, the label becomes the null label -1. With a ``mesh`` the
+    inputs are this rank's equal shard of the global batch's, the gradient
+    is averaged over the ranks before Adam and the loss returned is the
+    global mean."""
     named = dict(unet.named_parameters())
 
     def train_step(x, t, noise, enc_eps, y=None, drop=None) -> torch.Tensor:
@@ -135,6 +151,9 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
         loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
                           compute_dtype, y).mean()
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(unet.parameters())
+            loss = mesh.mean(loss)
         opt.step()
         if ema is not None:
             with torch.no_grad():
@@ -161,12 +180,13 @@ def make_ldm_eval_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 def build_trainer(cfg: Config, ae_state: Mapping[str, np.ndarray], aekl_cfg: Config,
                   dev: torch.device | str):
     """(unet, ae, sched, opt) on ``dev``: the UNet with fp32 master weights
-    initialised from ``cfg.train.seed``, the frozen AEKL cast to
-    ``cfg.dtype`` without autograd, the training schedule, and Adam."""
+    initialised from ``cfg.train.seed`` and its attention on
+    ``cfg.fast_train_math``'s path, the frozen AEKL cast to ``cfg.dtype``
+    without autograd, the training schedule, and Adam."""
     lc = aekl_cfg.aekl.latent_channels
     with torch.device(dev):
         ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
-        unet = build_unet(cfg, lc, lc)
+        unet = build_unet(cfg, lc, lc, cfg.fast_train_math)
     cast_compute_dtype(ae.eval(), DTYPES[cfg.dtype]).requires_grad_(False)
     load_numpy_state(unet, init_unet_state(unet, cfg.train.seed))
     opt = torch.optim.Adam(unet.parameters(), lr=cfg.train.base_lr)
@@ -184,13 +204,17 @@ class DiffusionTrainResult:
 
 def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray],
               aekl_cfg: Optional[Config] = None, run_name: Optional[str] = None,
-              device: torch.device | str = "cuda") -> DiffusionTrainResult:
+              device: torch.device | str = "cuda",
+              mesh: Optional[Mesh] = None) -> DiffusionTrainResult:
     """Train the LDM's UNet on ``train_ds`` (a ``WindowDataset``, or a
     ``LabeledEpochDataset`` when ``cfg.unet.num_classes`` > 0) against the
     frozen AEKL whose port state dict is ``ae_state``; writes the run dir
     under ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl,
-    checkpoints/, best_model/, final_model/, in-training samples)."""
-    dev = resolve_device(device)
+    checkpoints/, best_model/, final_model/, in-training samples).
+    ``mesh``: data-parallel over its ranks, on its device (default: the
+    world of one on ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev, main, n_dev = mesh.device, mesh.is_main, mesh.n_data
     dtype = DTYPES[cfg.dtype]
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
@@ -201,18 +225,29 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
     spe = "spectral" if cfg.spectral else "no-spectral"
     run_name = run_name or f"ldm_eeg_{spe}_{cfg.dataset}"
     run_dir, resume = setup_run_dir(cfg.train.output_dir, run_name)
-    cfg.to_yaml(run_dir / "config.yaml")
-    logger_t, logger_v = MetricsLogger(run_dir, "train"), MetricsLogger(run_dir, "val")
+    if main:
+        cfg.to_yaml(run_dir / "config.yaml")
+    logger_t, logger_v = split_loggers(run_dir, main)
     ckpt = CheckpointManager(run_dir)
 
     unet, ae, sched, opt = build_trainer(cfg, ae_state, aekl_cfg, dev)
 
+    def batches(ds, rng, **kw):
+        """This rank's shards of the loader's global batches, on ``dev``."""
+        for batch in ds.epoch_batches(cfg.train.batch_size, rng, pad_multiple=n_dev, **kw):
+            x, y = batch if isinstance(batch, tuple) else (batch, None)
+            yield batch_to_device(mesh.shard(x) if y is None
+                                  else (mesh.shard(x), mesh.shard(y)), dev), x.shape[0]
+
+    def shard(*tensors):
+        return tuple(None if v is None else mesh.shard(v) for v in tensors)
+
     np_rng = np.random.default_rng(seed)
-    first = batch_to_device(next(train_ds.epoch_batches(cfg.train.batch_size, np_rng)), dev)[0]
+    (first, _), n_first = next(batches(train_ds, np_rng))
     latent_shape = (lc, latent_length(aekl_cfg, first.shape[-1]))
-    scale_eps = torch.randn((first.shape[0], *latent_shape),
+    scale_eps = torch.randn((n_first, *latent_shape),
                             generator=make_generator(seed, dev, SCALE_STREAM), device=dev)
-    scale_factor = compute_scale_factor(ae, first, scale_eps)
+    scale_factor = compute_scale_factor(ae, first, mesh.shard(scale_eps), mesh)
 
     ema_decay = cfg.diffusion.ema_decay
     ema = ({k: v.detach().clone() for k, v in unet.named_parameters()}
@@ -227,7 +262,8 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
         step, best_loss = restored["step"], restored["best_loss"]
         scale_factor = restored["scale_factor"]
 
-    train_step = make_ldm_train_step(unet, ae, sched, opt, scale_factor, dtype, ema, ema_decay)
+    train_step = make_ldm_train_step(unet, ae, sched, opt, scale_factor, dtype, ema, ema_decay,
+                                     mesh)
     eval_step = make_ldm_eval_step(unet, ae, sched, dtype)
 
     def state() -> dict:
@@ -239,15 +275,14 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
 
     def run_eval(epoch: int, sample: bool = False) -> float:
         def losses(bi, batch):
-            x, y = batch_to_device(batch, dev)
+            (x, y), n = batch
             gen = make_generator(seed, dev, EVAL_STREAM, epoch, bi)
-            return eval_step(x, scale_factor, *draw_step_inputs(
-                gen, x.shape[0], latent_shape, sched.num_timesteps), y)
+            inputs = shard(*draw_step_inputs(gen, n, latent_shape, sched.num_timesteps))
+            return mesh.gather(eval_step(x, scale_factor, *inputs, y))
 
-        val = masked_epoch_mean(len(valid_ds), valid_ds.epoch_batches(
-            cfg.train.batch_size, np_rng, shuffle=True), losses)
+        val = masked_epoch_mean(len(valid_ds), batches(valid_ds, np_rng, shuffle=True), losses)
         logger_v.log(epoch, {"loss": val})
-        if sample:
+        if sample and main:
             log_sample(epoch)
         return val
 
@@ -286,12 +321,11 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
         last_epoch = epoch
         t0 = time.perf_counter()
         losses: List[torch.Tensor] = []
-        for batch in train_ds.epoch_batches(cfg.train.batch_size, np_rng):
-            x, y = batch_to_device(batch, dev)
+        for (x, y), n in batches(train_ds, np_rng):
             gen = make_generator(seed, dev, TRAIN_STREAM, step)
-            inputs = draw_step_inputs(gen, x.shape[0], latent_shape, sched.num_timesteps)
-            losses.append(train_step(x, *inputs, y, draw_label_drop(gen, x.shape[0],
-                                                                    drop_prob)))
+            inputs = draw_step_inputs(gen, n, latent_shape, sched.num_timesteps)
+            drop = draw_label_drop(gen, n, drop_prob)
+            losses.append(train_step(x, *shard(*inputs), y, *shard(drop)))
             step += 1
         mean_loss = float(torch.stack(losses).mean())
         logger_t.log(epoch, {"loss": mean_loss, "seconds": time.perf_counter() - t0})
@@ -303,17 +337,20 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
             improved = val_loss <= best_loss  # best before save
             if improved:
                 best_loss = val_loss
-            st = state()
-            ckpt.save(step, st)
-            if improved:
-                ckpt.save_best(unet_state_to_jax(model_params(st)), cfg, scale_factor=scale_factor)
+            if main:
+                st = state()
+                ckpt.save(step, st)
+                if improved:
+                    ckpt.save_best(unet_state_to_jax(model_params(st)), cfg,
+                                   scale_factor=scale_factor)
 
     if stopped_on_nan:  # the final model is the last finite checkpoint, if any
         final = ckpt.restore_latest()
     else:
         final = state()
-        ckpt.save(step, final)
-    if final is not None:
+        if main:
+            ckpt.save(step, final)
+    if final is not None and main:
         ckpt.save_best(unet_state_to_jax(model_params(final)), cfg, "final_model",
                        final["scale_factor"])
     logger_t.close()

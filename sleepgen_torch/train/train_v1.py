@@ -32,9 +32,12 @@ them from ``common.make_generator`` on the training device, streams
 the crops from ``numpy.random.default_rng(seed)`` in the JAX trainers'
 order.
 
-Not ported: the JAX trainers' ``mesh`` (data-parallel training over
-several devices). JAX's v1 pipeline has no command line, so the port adds
-none.
+Data parallelism (``mesh``): each rank takes its shard of the global
+batch and of its draws; both discriminator BatchNorms compute the global
+batch's statistics, gradients are averaged over the ranks before the clip
+(so its norm is the global gradient's, as optax's over the sharded batch),
+the metrics are the global batch's, and only rank 0 writes files. JAX's
+v1 pipeline has no command line, so the port adds none.
 """
 from __future__ import annotations
 
@@ -52,12 +55,13 @@ from sleepgen_torch.losses import kl_gaussian
 from sleepgen_torch.nn.aekl_v1 import AutoencoderKLV1
 from sleepgen_torch.nn.discriminator import DiscriminatorV1
 from sleepgen_torch.nn.unet1d import UNet1d
+from sleepgen_torch.parallel.mesh import Mesh, make_mesh
 from sleepgen_torch.train.common import (V1_DDPM_STREAM, V1_ENCODER_STREAM, V1_EVAL_STREAM,
                                          make_generator, windows_to_device)
 from sleepgen_torch.train.train_ldm import init_unet_state
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.device import resolve_device
-from sleepgen_torch.utils.logging import MetricsLogger
+from sleepgen_torch.utils.logging import split_loggers
 from sleepgen_torch.utils.weights import (aekl_v1_state_to_jax, lecun_normal_state,
                                           load_numpy_state, unet_state_to_jax)
 
@@ -107,13 +111,20 @@ def init_v1_encoder_state(ae: AutoencoderKLV1, disc: DiscriminatorV1, seed: int,
 
 
 def make_v1_encoder_train_step(state: V1EncoderState, kl_weight: float = 1e-6,
-                               gan_weight: float = 0.01):
+                               gan_weight: float = 0.01, mesh: Optional[Mesh] = None):
     """``step(x, eps) -> metrics``: the G step, then the D step, on windows
     x (B, 1, L) with the encoder's eps (B, embed_dim, L'), updating
     ``state`` in place. Metrics (``ENCODER_METRICS``, plus each model's
     gradient norm before the clip, ``grad_norm_g`` and ``grad_norm_d``)
-    are detached 0-d tensors on x's device."""
+    are detached 0-d tensors on x's device. With a ``mesh``, x and eps are
+    this rank's equal shard of the global batch's (module docstring)."""
     ae, disc = state.ae, state.disc
+    if mesh is not None:
+        mesh.bind(disc)
+
+    def average(model):
+        if mesh is not None:
+            mesh.average_gradients(model.parameters())
 
     def train_step(x: torch.Tensor, eps: torch.Tensor) -> Dict[str, torch.Tensor]:
         ae.train()
@@ -129,6 +140,7 @@ def make_v1_encoder_train_step(state: V1EncoderState, kl_weight: float = 1e-6,
             loss.backward()
         finally:
             disc.requires_grad_(True)
+        average(ae)
         norm_g = clip_by_global_norm_(list(ae.parameters()), state.clip_norm)
         state.opt_g.step()
 
@@ -137,11 +149,14 @@ def make_v1_encoder_train_step(state: V1EncoderState, kl_weight: float = 1e-6,
         real = disc(x, update_stats=True).float()
         loss_d = gan_weight * 0.5 * (fake.square().mean() + (real - 1.0).square().mean())
         loss_d.backward()
+        average(disc)
         norm_d = clip_by_global_norm_(list(disc.parameters()), state.clip_norm)
         state.opt_d.step()
         state.step += 1
-        out = dict(loss=loss, loss_d=loss_d, loss_l1=l1, loss_kl=kl, loss_g=g_adv,
-                   grad_norm_g=norm_g, grad_norm_d=norm_d)
+        out = dict(loss=loss, loss_d=loss_d, loss_l1=l1, loss_kl=kl, loss_g=g_adv)
+        if mesh is not None:
+            out = {k: mesh.mean(v) for k, v in out.items()}
+        out.update(grad_norm_g=norm_g, grad_norm_d=norm_d)
         return {k: v.detach() for k, v in out.items()}
 
     return train_step
@@ -159,11 +174,14 @@ def draw_v1_ddpm_inputs(gen: torch.Generator, batch: int, latent_shape: Tuple[in
 
 
 def make_v1_ddpm_train_step(tbl: DDPMTables, unet: UNet1d, ae: AutoencoderKLV1,
-                            opt: torch.optim.Optimizer):
+                            opt: torch.optim.Optimizer, mesh: Optional[Mesh] = None):
     """``step(x, eps, t, noise) -> metrics``: a posterior sample z of x
     (B, 1, L) under the frozen ``ae`` (eps (B, embed_dim, L')) in fp32,
     then ``p_losses`` of the UNet at t with the noise, and one step of
-    ``opt``. Metrics (``DDPM_METRICS``) are detached 0-d tensors."""
+    ``opt``. Metrics (``DDPM_METRICS``) are detached 0-d tensors. With a
+    ``mesh`` the inputs are this rank's equal shard of the global batch's,
+    the gradient is averaged over the ranks and the metrics are the global
+    means."""
 
     def train_step(x, eps, t, noise) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
@@ -172,6 +190,9 @@ def make_v1_ddpm_train_step(tbl: DDPMTables, unet: UNet1d, ae: AutoencoderKLV1,
         opt.zero_grad(set_to_none=True)
         loss, aux = p_losses(tbl, unet, z, t, noise)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(unet.parameters())
+            aux = {k: mesh.mean(v) for k, v in aux.items()}
         opt.step()
         return {k: v.detach() for k, v in aux.items()}
 
@@ -187,50 +208,62 @@ def train_v1_encoder(train_ds: WindowDataset, valid_ds: WindowDataset, run_dir: 
                      lr_g: float = 1e-4, lr_d: float = 5e-4, kl_weight: float = 1e-6,
                      gan_weight: float = 0.01, n_channels: int = 64, embed_dim: int = 3,
                      z_channels: int = 3, ch_mult: Sequence[int] = (1, 2, 4),
-                     num_groups: int = 32, seed: int = 2,
-                     device: torch.device | str = "cuda") -> Tuple[float, V1EncoderState]:
+                     num_groups: int = 32, seed: int = 2, device: torch.device | str = "cuda",
+                     mesh: Optional[Mesh] = None) -> Tuple[float, V1EncoderState]:
     """Train the v1 VAE against ``DiscriminatorV1`` on ``train_ds``; every
     ``val_interval`` epochs the L1 of the reconstruction through a sampled
     z on ``valid_ds``, a checkpoint and, when it is no worse than the best
     so far, ``best_model/``; ``final_model/`` at the end. Both are port run
     dirs of ``params.npz`` in the JAX ``AutoencoderKLV1``'s keys, without
-    a config. Returns (best validation L1, the state)."""
-    dev = resolve_device(device)
+    a config. Returns (best validation L1, the state). ``mesh``:
+    data-parallel over its ranks (default: the world of one on
+    ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev, main = mesh.device, mesh.is_main
     window = train_ds.padded_window
     ae = AutoencoderKLV1(embed_dim=embed_dim, n_channels=n_channels, z_channels=z_channels,
                          ch_mult=tuple(ch_mult), resolution=window, num_groups=num_groups)
     state = init_v1_encoder_state(ae, DiscriminatorV1(), seed, lr_g, lr_d, device=dev)
-    step = make_v1_encoder_train_step(state, kl_weight, gan_weight)
+    step = make_v1_encoder_train_step(state, kl_weight, gan_weight, mesh)
     latent_shape = (embed_dim, window // 2 ** (len(ch_mult) - 1))
-    logger, ckpt = MetricsLogger(run_dir, "train"), CheckpointManager(run_dir)
+    logger, _ = split_loggers(run_dir, main)
+    ckpt = CheckpointManager(run_dir)
     np_rng = np.random.default_rng(seed)
     best = math.inf
     for epoch in range(n_epochs):
         metrics = None
-        for batch in train_ds.epoch_batches(batch_size, np_rng):
-            x = windows_to_device(batch, dev)
+        for batch in train_ds.epoch_batches(batch_size, np_rng, pad_multiple=mesh.n_data):
+            x = windows_to_device(mesh.shard(batch), dev)
             gen = make_generator(seed, dev, V1_ENCODER_STREAM, state.step)
-            metrics = step(x, torch.randn((x.shape[0], *latent_shape), generator=gen,
-                                          device=dev))
+            eps = torch.randn((batch.shape[0], *latent_shape), generator=gen, device=dev)
+            metrics = step(x, mesh.shard(eps))
         logger.log(epoch, _epoch_metrics(metrics))
         if (epoch + 1) % val_interval == 0:
             total, n = torch.zeros((), device=dev), 0
             with torch.no_grad():
-                for bi, batch in enumerate(valid_ds.epoch_batches(batch_size, np_rng)):
-                    x = windows_to_device(batch, dev)
-                    recon, _, _ = state.ae(x, make_generator(seed, dev, V1_EVAL_STREAM,
-                                                             epoch, bi))
-                    total += (recon - x).abs().mean()
+                for bi, batch in enumerate(valid_ds.epoch_batches(
+                        batch_size, np_rng, pad_multiple=mesh.n_data)):
+                    x = windows_to_device(mesh.shard(batch), dev)
+                    z_mu, z_sigma = state.ae.encode(x)
+                    eps = torch.randn((batch.shape[0], *z_mu.shape[1:]), device=dev,
+                                      dtype=z_sigma.dtype,
+                                      generator=make_generator(seed, dev, V1_EVAL_STREAM,
+                                                               epoch, bi))
+                    recon = state.ae.decode(state.ae.sampling(z_mu, z_sigma, mesh.shard(eps)))
+                    total += mesh.mean((recon - x).abs().mean())
                     n += 1
             val = float(total) / max(n, 1)
-            ckpt.save(epoch + 1, dict(step=state.step, params_g=state.ae.state_dict(),
-                                      opt_g=state.opt_g.state_dict(),
-                                      params_d=state.disc.state_dict(),
-                                      opt_d=state.opt_d.state_dict(), best_loss=best))
+            if main:
+                ckpt.save(epoch + 1, dict(step=state.step, params_g=state.ae.state_dict(),
+                                          opt_g=state.opt_g.state_dict(),
+                                          params_d=state.disc.state_dict(),
+                                          opt_d=state.opt_d.state_dict(), best_loss=best))
             if val <= best:
                 best = val
-                ckpt.save_best(aekl_v1_state_to_jax(state.ae.state_dict()), None)
-    ckpt.save_best(aekl_v1_state_to_jax(state.ae.state_dict()), None, "final_model")
+                if main:
+                    ckpt.save_best(aekl_v1_state_to_jax(state.ae.state_dict()), None)
+    if main:
+        ckpt.save_best(aekl_v1_state_to_jax(state.ae.state_dict()), None, "final_model")
     logger.close()
     return best, state
 
@@ -238,14 +271,17 @@ def train_v1_encoder(train_ds: WindowDataset, valid_ds: WindowDataset, run_dir: 
 def train_v1_ddpm(train_ds: WindowDataset, stage1_state, run_dir: str | Path,
                   ae: AutoencoderKLV1, n_epochs: int = 10, batch_size: int = 16,
                   base_lr: float = 2.5e-5, timesteps: int = 1000, unet: UNet1d | None = None,
-                  seed: int = 2, device: torch.device | str = "cuda") -> UNet1d:
+                  seed: int = 2, device: torch.device | str = "cuda",
+                  mesh: Optional[Mesh] = None) -> UNet1d:
     """Train a DDPM (``UNet1d`` mc 64, channel_mult (1, 2), attention at ds
     2, unless ``unet`` is given) over the latents of the frozen ``ae``,
     loaded with ``stage1_state`` (its state dict), with the tables
     ``("linear", timesteps, 0.0015, 0.0195)``; writes ``final_model/`` (a
     port run dir of ``params.npz`` in the JAX ``UNet1d``'s keys, without a
-    config). Returns the trained UNet."""
-    dev = resolve_device(device)
+    config). Returns the trained UNet. ``mesh``: data-parallel over its
+    ranks (default: the world of one on ``device``)."""
+    mesh = mesh or make_mesh(device=device)
+    dev, main = mesh.device, mesh.is_main
     window = train_ds.padded_window
     latent_shape = (ae.embed_dim, window // 2 ** (len(ae.ch_mult) - 1))
     unet = unet or UNet1d(in_channels=ae.embed_dim, out_channels=ae.embed_dim,
@@ -254,18 +290,21 @@ def train_v1_ddpm(train_ds: WindowDataset, stage1_state, run_dir: str | Path,
     ae = load_numpy_state(ae.to(dev), stage1_state).eval().requires_grad_(False)
     opt = torch.optim.Adam(unet.parameters(), lr=base_lr)
     tbl = DDPMTables.create("linear", timesteps, 0.0015, 0.0195, device=dev)
-    step = make_v1_ddpm_train_step(tbl, unet, ae, opt)
-    logger, ckpt = MetricsLogger(run_dir, "train"), CheckpointManager(run_dir)
+    step = make_v1_ddpm_train_step(tbl, unet, ae, opt, mesh)
+    logger, _ = split_loggers(run_dir, main)
     np_rng = np.random.default_rng(seed)
     i = 0
     for epoch in range(n_epochs):
         metrics = None
-        for batch in train_ds.epoch_batches(batch_size, np_rng):
-            x = windows_to_device(batch, dev)
+        for batch in train_ds.epoch_batches(batch_size, np_rng, pad_multiple=mesh.n_data):
+            x = windows_to_device(mesh.shard(batch), dev)
             gen = make_generator(seed, dev, V1_DDPM_STREAM, i)
-            metrics = step(x, *draw_v1_ddpm_inputs(gen, x.shape[0], latent_shape, timesteps))
+            draws = draw_v1_ddpm_inputs(gen, batch.shape[0], latent_shape, timesteps)
+            metrics = step(x, *(mesh.shard(v) for v in draws))
             i += 1
         logger.log(epoch, _epoch_metrics(metrics))
-    ckpt.save_best(unet_state_to_jax(unet.state_dict()), None, "final_model")
+    if main:
+        CheckpointManager(run_dir).save_best(unet_state_to_jax(unet.state_dict()), None,
+                                             "final_model")
     logger.close()
     return unet

@@ -36,3 +36,21 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NullLogger:
+    """A ``MetricsLogger`` that writes nothing: a data-parallel rank other
+    than 0 logs through it."""
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def split_loggers(run_dir: str | Path, main: bool):
+    """(train, val) loggers of ``run_dir``; ``NullLogger``s unless ``main``."""
+    if not main:
+        return NullLogger(), NullLogger()
+    return MetricsLogger(run_dir, "train"), MetricsLogger(run_dir, "val")

@@ -89,8 +89,9 @@ def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Laye
     """(kind, port prefix, flax path) of every layer of a UNet1d with
     ``levels`` levels and ``nrb`` resblocks per level, in order; kind is
     conv, dense, gn or embed. ``has(flax name, port prefix)`` says whether
-    an optional layer (attention, a skip conv, the label embedding) is
-    there. Both directions of the bridge walk this one layout."""
+    an optional layer (attention, a skip conv, the label embedding, a
+    resampling resblock, or else a resampling conv) is there. Both
+    directions of the bridge walk this one layout."""
 
     def res(port, name):
         yield "gn", f"{port}.in_layers.0", (name, "GroupNorm32_0")
@@ -119,7 +120,10 @@ def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Laye
                 yield from attn(f"input_blocks.{blk}.1", f"down_{level}_attn_{i}")
             blk += 1
         if level != levels - 1:
-            yield from res(f"input_blocks.{blk}.0", f"down_{level}_downres")
+            if has(f"down_{level}_downres", f"input_blocks.{blk}.0.in_layers.0"):
+                yield from res(f"input_blocks.{blk}.0", f"down_{level}_downres")
+            elif has(f"down_{level}_downconv", f"input_blocks.{blk}.0.op"):
+                yield "conv", f"input_blocks.{blk}.0.op", (f"down_{level}_downconv",)
             blk += 1
     yield from res("middle_block.0", "mid_res_1")
     yield from attn("middle_block.1", "mid_attn")
@@ -133,7 +137,10 @@ def _unet_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Laye
                 yield from attn(f"output_blocks.{blk}.1", f"up_{level}_attn_{i}")
                 nxt = 2
             if level > 0 and i == nrb:
-                yield from res(f"output_blocks.{blk}.{nxt}", f"up_{level}_upres")
+                if has(f"up_{level}_upres", f"output_blocks.{blk}.{nxt}.in_layers.0"):
+                    yield from res(f"output_blocks.{blk}.{nxt}", f"up_{level}_upres")
+                elif has(f"up_{level}_upconv", f"output_blocks.{blk}.{nxt}.conv"):
+                    yield "conv", f"output_blocks.{blk}.{nxt}.conv", (f"up_{level}_upconv",)
             blk += 1
     yield "gn", "out.0", ("GroupNorm32_0",)
     yield "conv", "out.2", ("conv_out",)
@@ -169,9 +176,26 @@ def _split_qkv(sd, prefix, node) -> None:
                                        "bias": bias[i * c:(i + 1) * c]})
 
 
+def _linear1x1(sd, prefix, node) -> None:
+    """A 1x1 conv (1, C_in, C_out) -> a linear weight (C_out, C_in)."""
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"], np.float32)[0].T)
+    sd[f"{prefix}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+def _split_qkv_linear(sd, prefix, node) -> None:
+    """A fused 1x1 qkv conv (1, C, 3C) -> MONAI's three linear layers
+    ``to_q``, ``to_k``, ``to_v``."""
+    kernel, bias = np.asarray(node["kernel"], np.float32), np.asarray(node["bias"], np.float32)
+    c = kernel.shape[-1] // 3
+    for i, name in enumerate(("to_q", "to_k", "to_v")):
+        _linear1x1(sd, f"{prefix}.{name}", {"kernel": kernel[..., i * c:(i + 1) * c],
+                                            "bias": bias[i * c:(i + 1) * c]})
+
+
 def _state_from_tree(p: Tree, layers: Layers) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    convert = {"conv": _conv, "dense": _dense, "gn": _gn, "qkv": _split_qkv}
+    convert = {"conv": _conv, "dense": _dense, "gn": _gn, "qkv": _split_qkv,
+               "qkv_linear": _split_qkv_linear, "linear1x1": _linear1x1}
     for kind, port, path in layers:
         if kind == "embed":
             sd[f"{port}.weight"] = np.asarray(_node(p, path)["embedding"], np.float32)
@@ -180,20 +204,32 @@ def _state_from_tree(p: Tree, layers: Layers) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _as_conv_weight(w: np.ndarray) -> np.ndarray:
+    """A conv weight (C_out, C_in, k), or a linear weight (C_out, C_in) as
+    a 1x1 conv's, in fp32."""
+    w = np.asarray(w, np.float32)
+    return w[:, :, None] if w.ndim == 2 else w
+
+
 def _tree_from_state(sd: Mapping[str, np.ndarray], layers: Layers) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for kind, port, path in layers:
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        if kind == "qkv":  # three convs q, k, v -> one fused qkv
+        if kind in ("qkv", "qkv_linear"):  # three convs or linears -> one fused qkv
+            names = tuple("qkv") if kind == "qkv" else ("to_q", "to_k", "to_v")
             node["kernel"] = np.concatenate(
-                [sd[f"{port}.{n}.weight"].astype(np.float32).transpose(2, 1, 0) for n in "qkv"],
+                [_as_conv_weight(sd[f"{port}.{n}.weight"]).transpose(2, 1, 0) for n in names],
                 axis=-1)
             node["bias"] = np.concatenate([sd[f"{port}.{n}.bias"].astype(np.float32)
-                                           for n in "qkv"])
+                                           for n in names])
             continue
         w = sd[f"{port}.weight"].astype(np.float32)
+        if kind == "linear1x1":
+            node["kernel"] = np.ascontiguousarray(_as_conv_weight(w).transpose(2, 1, 0))
+            node["bias"] = sd[f"{port}.bias"].astype(np.float32)
+            continue
         if kind == "embed":
             node["embedding"] = w
             continue
@@ -219,10 +255,18 @@ def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     of ``unet_state_from_jax``: a run dir the port trains samples with
     either package."""
     sd = _numpy_state(state)
-    ups = {k.split(".")[1] for k in sd
-           if re.fullmatch(r"output_blocks\.\d+\.[12]\.in_layers\.0\.weight", k)}
-    levels = len(ups) + 1
-    nrb = len({k.split(".")[1] for k in sd if k.startswith("output_blocks.")}) // levels - 1
+
+    def blocks(pattern):
+        return {k.split(".")[1] for k in sd if re.fullmatch(pattern, k)}
+
+    # resblocks that resample (one per level boundary), or else resampling
+    # layers outside the resblocks: then the input column has one resblock
+    # fewer than the output column per level
+    ups = blocks(r"output_blocks\.\d+\.[12]\.in_layers\.0\.weight")
+    n_out = len(blocks(r"output_blocks\.\d+\..*"))
+    n_in_res = len(blocks(r"input_blocks\.\d+\.0\.in_layers\.0\.weight"))
+    levels = len(ups) + 1 if ups else n_out - n_in_res
+    nrb = n_out // levels - 1
 
     def has(_name, port):
         return f"{port}.weight" in sd or f"{port}.qkv.weight" in sd
@@ -233,30 +277,56 @@ def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
 def _aekl_layers(shape: Callable[[str, str], Tuple[int, int]],
                  has: Callable[[str, str], bool]) -> Layers:
     """(kind, port prefix, flax path) of every layer of an AutoencoderKL, in
-    order; kind is conv or gn. ``shape(side, tag)`` gives a column's
-    (levels, resblocks per level); ``has(flax name, port prefix)`` says
-    whether a resblock has its 1x1 shortcut. MONAI's block list: conv_in,
-    the resblocks with a resampling conv between levels, norm_out,
-    conv_out."""
+    order; kind is conv, gn, qkv_linear or linear1x1. ``shape(side, tag)``
+    gives a column's (levels, resblocks per level); ``has(flax name, port
+    prefix)`` says whether a resblock has its 1x1 shortcut and whether an
+    attention block is there (an attention level's, or the non-local
+    ``mid_attn``). MONAI's block list: conv_in, [mid], the resblocks, each
+    followed by its attention on an attention level, with a resampling conv
+    between levels, [mid], norm_out, conv_out; the mid block (resblock,
+    attention, resblock) comes first in the decoder, last in the
+    encoder."""
+    def res(side, name, port):
+        yield "gn", f"{port}.norm1", (side, name, "GroupNorm32_0")
+        yield "conv", f"{port}.conv1.conv", (side, name, "conv1")
+        yield "gn", f"{port}.norm2", (side, name, "GroupNorm32_1")
+        yield "conv", f"{port}.conv2.conv", (side, name, "conv2")
+        if has(f"{side}/{name}/nin_shortcut", f"{port}.nin_shortcut.conv"):
+            yield "conv", f"{port}.nin_shortcut.conv", (side, name, "nin_shortcut")
+
+    def attn(side, name, port):
+        yield "gn", f"{port}.norm", (side, name, "GroupNorm32_0")
+        yield "qkv_linear", port, (side, name, "SelfAttention1d_0", "qkv")
+        yield "linear1x1", f"{port}.proj_attn", (side, name, "SelfAttention1d_0", "proj_out")
+
+    def mid(side, pre, b):
+        yield from res(side, "mid_res_1", f"{pre}.{b}")
+        yield from attn(side, "mid_attn", f"{pre}.{b + 1}")
+        yield from res(side, "mid_res_2", f"{pre}.{b + 2}")
+
     for side, tag, resample in (("encoder", "down", "downsample"),
                                 ("decoder", "up", "upsample")):
         levels, nrb = shape(side, tag)
         pre = f"{side}.blocks"
+        has_mid = has(f"{side}/mid_attn", side)
         yield "conv", f"{pre}.0.conv", (side, "conv_in")
         b = 1
+        if has_mid and side == "decoder":
+            yield from mid(side, pre, b)
+            b += 3
         for i in range(levels):
             for j in range(nrb):
-                name, port = f"{tag}_{i}_res_{j}", f"{pre}.{b}"
-                yield "gn", f"{port}.norm1", (side, name, "GroupNorm32_0")
-                yield "conv", f"{port}.conv1.conv", (side, name, "conv1")
-                yield "gn", f"{port}.norm2", (side, name, "GroupNorm32_1")
-                yield "conv", f"{port}.conv2.conv", (side, name, "conv2")
-                if has(f"{side}/{name}/nin_shortcut", f"{port}.nin_shortcut.conv"):
-                    yield "conv", f"{port}.nin_shortcut.conv", (side, name, "nin_shortcut")
+                yield from res(side, f"{tag}_{i}_res_{j}", f"{pre}.{b}")
                 b += 1
+                if has(f"{side}/{tag}_{i}_attn_{j}", f"{pre}.{b}.norm"):
+                    yield from attn(side, f"{tag}_{i}_attn_{j}", f"{pre}.{b}")
+                    b += 1
             if i != levels - 1:
                 yield "conv", f"{pre}.{b}.conv.conv", (side, f"{tag}_{i}_{resample}", "conv")
                 b += 1
+        if has_mid and side == "encoder":
+            yield from mid(side, pre, b)
+            b += 3
         yield "gn", f"{pre}.{b}", (side, "norm_out")
         yield "conv", f"{pre}.{b + 1}.conv", (side, "conv_out")
     for name in ("quant_conv_mu", "quant_conv_log_sigma", "post_quant_conv"):
@@ -280,17 +350,34 @@ def aekl_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     ``train-ldm --best_model_path`` and ``sample`` read."""
     sd = _numpy_state(state)
 
-    def shape(side, _tag):
-        def n(pattern):
-            return sum(bool(re.fullmatch(rf"{side}\.blocks\.\d+\.{pattern}\.weight", k))
-                       for k in sd)
-        levels = n(r"conv\.conv") + 1  # a resampling conv between levels
-        return levels, n("norm1") // levels
+    def kinds(side):
+        """Each block's kind, in order."""
+        out = []
+        while True:
+            p = f"{side}.blocks.{len(out)}"
+            for kind, key in (("res", "norm1.weight"), ("attn", "norm.weight"),
+                              ("resample", "conv.conv.weight"), ("conv", "conv.weight"),
+                              ("norm", "weight")):
+                if f"{p}.{key}" in sd:
+                    out.append(kind)
+                    break
+            else:
+                return out
 
-    def has(_name, port):
+    enc, dec = kinds("encoder"), kinds("decoder")
+    levels = enc.count("resample") + 1  # a resampling conv between levels
+    # the encoder's non-local block is the last resblock, attention,
+    # resblock; an encoder level with attention ends in an attention block
+    mid = {"encoder": enc[-5:-2] == ["res", "attn", "res"]}
+    nrb = (enc.count("res") - 2 * mid["encoder"]) // levels
+    mid["decoder"] = dec.count("res") > levels * nrb
+
+    def has(name, port):
+        if name.endswith("/mid_attn"):
+            return mid[port]
         return f"{port}.weight" in sd
 
-    return _tree_from_state(sd, _aekl_layers(shape, has))
+    return _tree_from_state(sd, _aekl_layers(lambda side, tag: (levels, nrb), has))
 
 
 def _aekl_v1_layers(levels: int, nrb: int, has: Callable[[str, str], bool]) -> Layers:

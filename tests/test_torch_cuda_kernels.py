@@ -531,6 +531,64 @@ def test_gn_silu_conv3_kernel_at_the_long_window(cin, cout, l, dtype):
         assert bool((err <= tol).all()), err.max()
 
 
+# The options UNet (ldm.yaml with use_scale_shift_norm, resblock_updown
+# False; sampler batch 64): chain 2 of every resblock is K1 without SiLU
+# at each level's (C, L), G 32; chain 1 of every resblock runs K2, the
+# resampling now outside the resblocks.
+OPT_K1_SHAPES = [(128, 768), (256, 384), (512, 192)]
+OPT_K2_SHAPES = [(128, 128, 768), (128, 256, 384), (256, 512, 192), (1024, 512, 192),
+                 (768, 256, 384), (384, 128, 768)]
+OPT_BATCH = 64
+# The attention AEKL (aekl_eeg.yaml with attention_levels [F, F, T] and both
+# non-local attentions): each attention's norm is K1 without SiLU at G 1 on
+# (64, 768), 49,152 elements a group, the streaming path; K3 in training.
+AEKL_ATTN_SHAPE = (64, 768)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,l", OPT_K1_SHAPES)
+def test_group_norm_kernels_at_the_scale_shift_chain(c, l, dtype):
+    x, scale, bias = _inputs(30, OPT_BATCH, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, 32, 1e-6, False)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, 32, 1e-6, False)
+    _hold(got, want, dtype, 1e-5, 2e-6)
+    dx, dx_want = _backward_case(31, 4, c, l, 32, False, dtype)
+    _hold(dx, dx_want, dtype, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("cin,cout,l", OPT_K2_SHAPES)
+def test_gn_silu_conv3_kernel_at_the_options_unet(cin, cout, l, dtype):
+    x, scale, bias, w, bb = _inputs(32, OPT_BATCH, cin, l, cout)
+    x, w, bb = x.to(dtype), w.to(dtype), bb.to(dtype)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x.float(), scale, bias, w.float(),
+                                                  bb.float(), 32)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        err = (got.float() - want).abs()
+        tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+        assert bool((err <= tol).all()), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_group_norm_kernels_at_the_aekl_attention_norm(dtype):
+    c, l = AEKL_ATTN_SHAPE
+    assert c * l > group_norm.ON_CHIP_MAX  # the streaming path
+    x, scale, bias = _inputs(33, 16, c, l)
+    x = x.to(dtype)
+    got = group_norm.group_norm_silu(x, scale, bias, 1, 1e-6, False)
+    torch.cuda.synchronize()
+    want = group_norm.group_norm_silu_reference(x.float(), scale, bias, 1, 1e-6, False)
+    _hold(got, want, dtype, 1e-5, 2e-6)
+    dx, dx_want = _backward_case(34, 16, c, l, 1, False, dtype)
+    _hold(dx, dx_want, dtype, 1e-4, 1e-5)
+
+
 def test_int8_products_on_the_card_equal_the_cpu():
     """``torch._int_mm`` on the card at QuantConv1d's padded shapes (k C_in
     = 3, C_out = 1, an M of 16) gives the CPU's int32 accumulators."""
