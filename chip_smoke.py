@@ -26,23 +26,23 @@ parallelism over ``torch.distributed``. Phases, one line each:
      the first after the step re-lays out each K2 weight once, the second
      none; one full-width stage-1 step at ``aekl_eeg.yaml``'s batch 2048,
      bf16, whose K1 and K3 launches, 26 each, must equal those derived
-     from the configuration, K2 none, with the strided dy copies K3's
-     wrapper made; one ``compute-mmds`` reconstruction batch of 64
+     from the configuration, K2 none, and must all take the cluster form
+     (``form_launches``), with the strided dy copies K3's wrapper made; one ``compute-mmds`` reconstruction batch of 64
      windows, fp32, whose 26 K1 launches must equal those derived from the
-     configuration; one DDIM step of the full-width DM (``dm.yaml``) at
+     configuration and take the cluster form; one DDIM step of the full-width DM (``dm.yaml``) at
      batch 64 through ``sample_dm_trials``, and one full-width DM training
      step at ``dm.yaml``'s batch 512, bf16, each with its launch counts
      equal to those derived from the configuration (the step: K1 and K3
      49 each, K2 none; its groups of exactly 12,288 elements run K1 and K3
-     on chip, those of 18,432-36,864 on K1's streaming path and K3's
-     three-pass form at G 32)); one full-width step of each v1 path at
+     on chip, those of 18,432-36,864 in K1's and K3's cluster form at
+     G 32)); one full-width step of each v1 path at
      the trainers' batch 16, fp32 (an encoder step: K1 and K3 at each of
      the VAE's 36 GroupNorms, G 32, groups of 3,072-12,288 elements, on
      chip; a DDPM step: K1 53, K3 35; an ancestral step: K1 9 and K2 26
      on K2's fp32 path at C_out 64 and 128; the decode: K1 18); one DDIM
      step of the long window (``benches/long_window.py``: the default
-     UNet on windows of 12288 at batch 16, bf16, block 512: K1 streaming
-     49,152-element groups at G 32, K2 at L 12288) and one of the flagship
+     UNet on windows of 12288 at batch 16, bf16, block 512: K1 at
+     49,152-element groups at G 32, in the cluster form, K2 at L 12288) and one of the flagship
      int8 sampler at batch 64 (K1 at each of the UNet's 49 GroupNorms and
      the decoder's 13, no K2), each with its counts as derived; at every one of
      them, each kernel is held to its plain PyTorch version, in fp32 (TF32
@@ -151,7 +151,7 @@ parallelism over ``torch.distributed``. Phases, one line each:
   M1. tiny DM, card against CPU, same seeds and weights, fp32 with TF32
      off: ``sample_dm_trials`` with 4 DDIM steps at UNet mc 32, [1, 2],
      attention [2], G 8 on windows of 4096 (groups of 16,384-49,152
-     elements: K1's streaming path at G 8), at the model bound, launch
+     elements: K1's and K3's cluster form at G 8), at the model bound, launch
      counts as derived; two DM training steps, and one conditional step
      (5 classes, two labels dropped to the null label, the spectral term
      on), each held by ``hold_tiny_stage1`` (metrics, each step's
@@ -195,8 +195,9 @@ parallelism over ``torch.distributed``. Phases, one line each:
      aekl_eeg.yaml's AEKL (seeded weights) at batch 64, 26 K1 launches a
      batch, reconstruction windows/s; K1 held to its plain version at
      ``band-eval``'s batch-512 reconstruction shapes (fp32 and bf16),
-     then ``band-eval`` in each of its four modes with MS-SSIM (26 K1
-     launches in the reconstruction mode) and once with both metrics (FID
+     their 26 launches all in the cluster form, then ``band-eval`` in
+     each of its four modes with MS-SSIM (26 K1 launches in the
+     reconstruction mode) and once with both metrics (FID
      on seeded USleep weights), each's seconds; where matplotlib is
      present, the figures ``sample-ae`` and the tiny ``train_aekl`` run
      wrote, else ``sample-ae --no_figures``;
@@ -241,9 +242,10 @@ parallelism over ``torch.distributed``. Phases, one line each:
      each gradient within 2e-3 of its leaf's largest) and one stage-1
      step (``hold_tiny_stage1``, the AEKL's leaves in the JAX layout);
      then at full width one DDIM step at batch 64, one stage-2 step at
-     batch 1024 and one stage-1 step at batch 2048 (halved until it fits),
-     each with its launches as derived from the modules (a scale-shift
-     chain 2 runs K1 without SiLU, every chain 1 K2), their new kernel
+     batch 1024 and one stage-1 step at batch 2048 (halved until it fits;
+     its 40 K1 and 40 K3 launches all in the cluster form), each with its
+     launches as derived from the modules (a scale-shift chain 2 runs K1
+     without SiLU, every chain 1 K2), their new kernel
      shapes held in fp32 and bf16 as phase 3's; then DDIM-200 batches of
      64, three of each sampler in turns (median windows/s each), and each
      training step's median ms and peak memory;
@@ -287,7 +289,9 @@ batch (fp32), a long-window DDIM-50 batch and an options DDIM-200 batch;
 K3: a stage-2, a stage-1, a DM, a v1 encoder, a v1 DDPM, an options
 stage-2 and an attention stage-1 training step; B2, B3: on no
 path), its error and
-its times (each shape's time times its launches in that run, summed);
+its times (each shape's time times its launches in that run, summed),
+and for K1, K3 and B2 its launches by form (``forms``: on_chip, cluster,
+streaming or three_pass, as the launchers report them);
 the last line is
 {"ok": true, "device": {...}}. Per-shape details go to
 chiprun_out/chip_smoke_report.json. Any failure raises and the script
@@ -303,18 +307,23 @@ times the step's measured launches at it) and B3. It prints the kernels' JSON li
 chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
 and exits non-zero on any failure.
 
-``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2:
-phases 1 and 2, the sampler's warm-up call (one DDIM step and the
-decode), one full-width training step of each stage and of the DM, one
-DDIM step of the DM and one reconstruction batch, whose K1 and K3
-launches are checked against the configuration; K1's, K3's and B2's fp32
-and bf16 checks at those shapes and at B2's (with the v1 steps', the
-long window's and the int8 step's); the phase-8 timings of K1
-(paths "DDIM step", "train step", "stage-1 step", "reconstruction
-batch", "DM train step", the v1 paths, "int8 DDIM step" and
-"long-window DDIM step"), K3 ("train step", "stage-1 step", "DM train
-step", the v1 steps) and B2, and of K3's strided-dy copies. Report in
-chiprun_out/chip_smoke_gn_report.json; no {"ok": ...} line.
+``python3 chip_smoke.py --only GN`` is the same loop for K1, K3 and B2,
+and the quick loop of their cluster form: phases 1 and 2, the sampler's
+warm-up call (one DDIM step and the decode), one full-width training
+step of each stage and of the DM, one DDIM step of the DM and one
+reconstruction batch, whose K1 and K3 launches are checked against the
+configuration, and the attention AEKL's stage-1 step of OPT at batch
+2048; the stage-1 steps and the reconstruction batch must take the
+cluster form at every K1 and K3 launch (``form_launches``); K1's, K3's
+and B2's fp32 and bf16 checks at those shapes and at B2's (with the v1
+steps', the long window's and the int8 step's); the phase-8 timings of
+K1 (paths "DDIM step", "train step", "stage-1 step", "reconstruction
+batch", "DM train step", the v1 paths, "int8 DDIM step", "long-window
+DDIM step" and "attention stage-1 step"), K3 ("train step", "stage-1
+step", "DM train step", the v1 steps, "attention stage-1 step") and B2,
+each K1, K3 and B2 row with its launches by form (``forms``), and of
+K3's strided-dy copies. The report goes to chip_smoke_gn_report.json in
+the output directory, as the other loops'; no {"ok": ...} line.
 
 ``python3 chip_smoke.py --only OPT``: phases 1 and 2, OPT (its new
 shapes checked from scratch) and MESH, then the phase-8 timings of OPT's
@@ -323,6 +332,7 @@ line.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import csv
 import itertools
@@ -560,12 +570,27 @@ def read_counts() -> dict:
             "K3": group_norm.backward_launches}
 
 
+def read_forms() -> dict:
+    """K1's and K3's launches by the form each launcher reported:
+    {"K1_cluster": n, "K3_three_pass": m, ...}."""
+    return {f"{kid}_{form}": n for (kid, form), n in sorted(group_norm.form_launches.items())}
+
+
 def read_shapes() -> dict:
-    """Launches by shape of each kernel, and (``K3_strided_dy``) K3's calls
-    whose dy came strided, by shape and dy's strides."""
+    """Launches by shape of each kernel, (``K3_strided_dy``) K3's calls
+    whose dy came strided, by shape and dy's strides, and (``forms``) K1's
+    and K3's launches by form."""
     return {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes),
             "K3": dict(group_norm.backward_launch_shapes),
-            "K3_strided_dy": dict(group_norm.strided_dy_shapes)}
+            "K3_strided_dy": dict(group_norm.strided_dy_shapes), "forms": read_forms()}
+
+
+def require_forms(path: str, counts: dict, forms: dict, form: str = "cluster") -> None:
+    """Raise unless every K1 and K3 launch of the path (``counts``) took
+    ``form``, as ``read_forms()`` read after it (``forms``)."""
+    want = {f"{kid}_{form}": counts[kid] for kid in ("K1", "K3") if counts[kid]}
+    if forms != want:
+        raise AssertionError(f"{path}: launches by form {forms}, expected {want}")
 
 
 # -- kernel inputs, references, yardsticks ------------------------------------
@@ -892,7 +917,7 @@ def phase_train_step() -> tuple:
                              f"loss {float(loss)}")
     say("train-step", batch=TRAIN_BATCH, loss=f"{float(loss):.5f}", k1_launches=counts["K1"],
         k3_launches=counts["K3"], k2_launches=counts["K2"],
-        k1_shapes=len(shapes["K1"]), k3_shapes=len(shapes["K3"]))
+        k1_shapes=len(shapes["K1"]), k3_shapes=len(shapes["K3"]), **shapes["forms"])
     evals = eval_relayouts(step, (x, *inputs), evaluate, sched, latent_shape, cfg)
     del step, evaluate, x
     free_card()
@@ -933,9 +958,10 @@ def phase_stage1_step() -> tuple:
     if counts != want or not all(np.isfinite(v) for v in values.values()):
         raise AssertionError(f"stage-1 step: launches {counts}, expected {want}, "
                              f"metrics {values}")
+    require_forms("stage-1 step", counts, shapes["forms"])
     say("stage1-step", batch=cfg.train.batch_size, k1_launches=counts["K1"],
         k3_launches=counts["K3"], k2_launches=counts["K2"], k1_shapes=len(shapes["K1"]),
-        k3_shapes=len(shapes["K3"]),
+        k3_shapes=len(shapes["K3"]), **shapes["forms"],
         k3_strided_dy=sum(shapes["K3_strided_dy"].values()),
         **{k: f"{v:.5g}" for k, v in values.items()})
     del step, x, eps, metrics
@@ -972,8 +998,9 @@ def phase_recon_batch() -> tuple:
     if counts != want or scores.shape != (BATCH,) or not np.isfinite(scores).all():
         raise AssertionError(f"reconstruction batch: launches {counts}, expected {want}, "
                              f"scores {scores.shape}")
+    require_forms("reconstruction batch", counts, shapes["forms"])
     say("recon-batch", batch=BATCH, k1_launches=counts["K1"], k1_shapes=len(shapes["K1"]),
-        mean_ms_ssim=f"{scores.mean():.5f}")
+        mean_ms_ssim=f"{scores.mean():.5f}", **shapes["forms"])
     del ae
     free_card()
     return counts, shapes
@@ -982,20 +1009,21 @@ def phase_recon_batch() -> tuple:
 def say_dm_checks(results: dict, sample_shapes: dict, train_shapes: dict) -> None:
     """The DM's share of phase 3's checks: its shapes of each kernel, how
     many of K1's and K3's groups hold exactly ON_CHIP_MAX elements (the
-    largest on-chip case) and how many stream at G > 1, and their largest
-    errors. Raises if the DM's training step gave neither kind."""
+    largest on-chip case) and how many more at G > 1 (the cluster form),
+    and their largest errors. Raises if the DM's training step gave
+    neither kind."""
     keys = {"K1": {**sample_shapes["K1"], **train_shapes["K1"]}, "K2": sample_shapes["K2"],
             "K3": train_shapes["K3"]}
     keys = {kid: ks for kid, ks in keys.items() if kid in results}
     sizes = [k[1] // k[3] * k[2] for kid in ("K1", "K3") for k in keys.get(kid, ())
              if k[3] > 1]
     at_max = sum(n == group_norm.ON_CHIP_MAX for n in sizes)
-    streaming = sum(n > group_norm.ON_CHIP_MAX for n in sizes)
-    if train_shapes["K3"] and not (at_max and streaming):
-        raise AssertionError(f"DM shapes: {at_max} groups of ON_CHIP_MAX, {streaming} streaming")
+    above = sum(n > group_norm.ON_CHIP_MAX for n in sizes)
+    if train_shapes["K3"] and not (at_max and above):
+        raise AssertionError(f"DM shapes: {at_max} groups of ON_CHIP_MAX, {above} above")
     errs = [results[kid][k] for kid, ks in keys.items() for k in ks]
     say("check-dm", **{f"{kid.lower()}_shapes": len(ks) for kid, ks in keys.items()},
-        groups_at_on_chip_max=at_max, streaming_groups_g_gt_1=streaming,
+        groups_at_on_chip_max=at_max, groups_above_g_gt_1=above,
         fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in errs):.3e}",
         bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in errs):.3e}")
 
@@ -1233,7 +1261,7 @@ def phase_train_full(tmp: Path) -> dict:
     result = T.train_ldm(cfg, train_ds, valid_ds, ae_sd, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts, forms = read_counts(), read_forms()
     peak = torch.cuda.max_memory_allocated()
     want = expected_train_launches(cfg, steps=TRAIN_EPOCHS, eval_batches=1, encodes=1)
     log = [json.loads(line) for line in
@@ -1247,13 +1275,13 @@ def phase_train_full(tmp: Path) -> dict:
     median = statistics.median(ms)
     out = dict(batch=TRAIN_BATCH, losses=losses, step_ms=ms, median_step_ms=median,
                windows_per_s=TRAIN_BATCH / median * 1e3, peak_bytes=peak, wall_s=wall,
-               launches=counts, scale_factor=result.scale_factor,
+               launches=counts, forms=forms, scale_factor=result.scale_factor,
                loss_falls=losses[-1] < losses[0])
     say("train", batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, losses=[f"{v:.4f}" for v in losses],
         loss_falls=out["loss_falls"])
     say("train", median_ms_per_step=f"{median:.2f}", min_ms=f"{min(ms):.2f}",
         max_ms=f"{max(ms):.2f}", windows_per_s=f"{out['windows_per_s']:.2f}",
-        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts)
+        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts, **forms)
     free_card()
     return out
 
@@ -1420,7 +1448,7 @@ def phase_stage1_full(tmp: Path) -> dict:
     result = A.train_aekl(cfg, train_ds, valid_ds, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts, forms = read_counts(), read_forms()
     peak = torch.cuda.max_memory_allocated()
     want = expected_stage1_launches(cfg, steps=TRAIN_EPOCHS, eval_batches=1)
     log = [json.loads(line) for line in
@@ -1428,6 +1456,7 @@ def phase_stage1_full(tmp: Path) -> dict:
     ms = [r["seconds"] * 1e3 for r in log[1:]]
     if counts != want:
         raise AssertionError(f"train_aekl launches {counts}, expected {want}")
+    require_forms("train_aekl", counts, forms)
     finite = all(np.isfinite(r[k]) for r in log for k in A.METRICS)
     if len(log) != TRAIN_EPOCHS or not finite or result.stopped_on_nan or not (
             Path(result.run_dir) / "best_model" / "params.npz").exists():
@@ -1435,14 +1464,14 @@ def phase_stage1_full(tmp: Path) -> dict:
     median = statistics.median(ms)
     out = dict(batch=AEKL_BATCH, log=log, step_ms=ms, median_step_ms=median,
                windows_per_s=AEKL_BATCH / median * 1e3, peak_bytes=peak, wall_s=wall,
-               launches=counts, best_loss=result.best_loss)
+               launches=counts, forms=forms, best_loss=result.best_loss)
     say("stage1", batch=AEKL_BATCH, epochs=TRAIN_EPOCHS,
         g_losses=[f"{r['g_loss']:.4f}" for r in log],
         recons_losses=[f"{r['recons_loss']:.4f}" for r in log],
         disc_losses=[f"{r['disc_loss']:.4f}" for r in log], val_l1=f"{result.best_loss:.4f}")
     say("stage1", median_ms_per_step=f"{median:.2f}", min_ms=f"{min(ms):.2f}",
         max_ms=f"{max(ms):.2f}", windows_per_s=f"{out['windows_per_s']:.2f}",
-        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts)
+        peak_gib=f"{peak / 2**30:.2f}", wall_s=f"{wall:.1f}", **counts, **forms)
     free_card()
     return out
 
@@ -1996,8 +2025,8 @@ def dm_config() -> Config:
 def tiny_dm_config(num_classes: int = 0) -> Config:
     """The tiny UNet (mc 32, [1, 2], attention [2], G 8, fp32) on windows of
     4096: the first level's groups hold 16,384 elements and the skip
-    concatenations' up to 49,152, so K1's streaming path and K3's
-    three-pass form run at G 8."""
+    concatenations' up to 49,152, so K1's and K3's cluster form runs at
+    G 8."""
     cfg = tiny_config(steps=4)
     cfg.unet.image_size, cfg.unet.num_classes = 4096, num_classes
     return cfg
@@ -2032,7 +2061,7 @@ def phase_dm_sample_step(tmp: Path) -> tuple:
         raise AssertionError(f"DM DDIM step: launches {counts}, expected {want}, "
                              f"output {out.shape}")
     say("dm-step", batch=BATCH, k1_launches=counts["K1"], k2_launches=counts["K2"],
-        k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]))
+        k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]), **shapes["forms"])
     free_card()
     return counts, shapes
 
@@ -2061,7 +2090,7 @@ def phase_dm_train_step() -> tuple:
                              f"loss {float(metrics['loss'])}")
     say("dm-train-step", batch=DM_TRAIN_BATCH, loss=f"{float(metrics['loss']):.5f}",
         k1_launches=counts["K1"], k3_launches=counts["K3"], k2_launches=counts["K2"],
-        k1_shapes=len(shapes["K1"]), peak_gib=f"{peak / 2**30:.2f}")
+        k1_shapes=len(shapes["K1"]), peak_gib=f"{peak / 2**30:.2f}", **shapes["forms"])
     del unet, opt, step, x, t, noise, metrics
     free_card()
     return counts, shapes
@@ -2097,7 +2126,7 @@ def repaint_noises(shape: tuple, steps: int, num_resample: int, seed: int) -> li
 def phase_tiny_dm(tmp: Path) -> dict:
     """M1: the DM path at tiny widths on the card against the CPU, same
     seeds and weights, fp32 with TF32 off: ``sample_dm_trials`` with 4 DDIM
-    steps on windows of 4096 (K1's streaming path at G 8), launch counts as
+    steps on windows of 4096 (K1's cluster form at G 8), launch counts as
     derived; two DM training steps, and one conditional step with label
     dropout and the spectral term, each held by ``hold_tiny_stage1``
     (metrics at the model bound, gradients within 2e-3 of each leaf's
@@ -2120,8 +2149,8 @@ def phase_tiny_dm(tmp: Path) -> dict:
             counts, shapes = read_counts(), read_shapes()
             cpu = sample_dm_trials(cfg, sd, tmp / "d1_cpu", device="cpu", **kw)
             want = expected_dm_launches(cfg, forwards=4)
-            streaming = [k for k in shapes["K1"] if k[1] // k[3] * k[2] > group_norm.ON_CHIP_MAX]
-            if counts != want or not streaming:
+            cluster = shapes["forms"].get("K1_cluster", 0)
+            if counts != want or not cluster:
                 raise AssertionError(f"tiny DM sampler: launches {counts}, expected {want}; "
                                      f"K1 shapes {sorted(shapes['K1'])}")
             errs["sample"] = hold("DM DDIM-4", card, cpu, 2e-3, 2e-4)
@@ -2184,7 +2213,7 @@ def phase_tiny_dm(tmp: Path) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     say("tiny-dm", k1_launches=counts["K1"], k2_launches=counts["K2"],
-        streaming_k1_shapes=len(streaming),
+        k1_cluster_launches=cluster,
         train_grad_err_ratio=f"{held['train']['grad_err_ratio']:.3e}",
         cond_grad_err_ratio=f"{held['conditional']['grad_err_ratio']:.3e}",
         repaint_k1_launches=repaint_counts["cuda"]["K1"],
@@ -2686,6 +2715,8 @@ def band_eval_batch(cfg: Config, run: Path, ids: Path, npy: Path) -> tuple:
     want = recon_launches(cfg, batches=1)
     if counts != want or recon.shape != x.shape or not bool(torch.isfinite(recon).all()):
         raise AssertionError(f"band-eval batch: launches {counts}, expected {want}")
+    require_forms("band-eval batch", counts, shapes["forms"])
+    say("band-eval-batch", windows=BAND_EVAL_WINDOWS, k1_launches=counts["K1"], **shapes["forms"])
     del ae, x, recon
     free_card()
     return counts, shapes
@@ -2925,13 +2956,14 @@ def long_window_inputs(cfg: Config) -> tuple:
 def phase_long_window_step() -> tuple:
     """One DDIM step of the long window (batch 16, bf16, block 512) with the
     counts held to ``unet_launches``: the shapes phase 3 checks (K1
-    streaming groups of 49,152 elements at G 32, K2 at L 12288)."""
+    groups of 49,152 elements at G 32, K2 at L 12288)."""
     unet, sched, x_T = long_window_inputs(long_window_config(LONG_BLOCK))
     with torch.inference_mode():
         _, counts, shapes = counted("long-window DDIM step", unet_launches(unet),
                                     lambda: ddim_sample_loop(unet, sched, x_T, 1))
     say("long-step", batch=LONG_BATCH, window=LONG_WINDOW, k1_launches=counts["K1"],
-        k2_launches=counts["K2"], k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]))
+        k2_launches=counts["K2"], k1_shapes=len(shapes["K1"]), k2_shapes=len(shapes["K2"]),
+        **shapes["forms"])
     del unet, x_T
     free_card()
     return counts, shapes
@@ -2956,7 +2988,7 @@ def phase_quant_step(tmp: Path) -> tuple:
         lambda: sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "q_warmup", 0, BATCH, BATCH,
                                   compute_psd=False, quantized=True))
     say("int8-step", batch=BATCH, k1_launches=counts["K1"], k2_launches=counts["K2"],
-        k1_shapes=len(shapes["K1"]))
+        k1_shapes=len(shapes["K1"]), **shapes["forms"])
     free_card()
     return counts, shapes
 
@@ -3628,6 +3660,9 @@ def opt_stage1_step(cfg: Config) -> tuple:
     values = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in values.values()):
         raise AssertionError(f"attention stage-1 step: metrics {values}")
+    require_forms("attention stage-1 step", counts, shapes["forms"])
+    say("opt-stage1", batch=batch, k1_launches=counts["K1"], k3_launches=counts["K3"],
+        **shapes["forms"])
     return batch, counts, shapes
 
 
@@ -3712,13 +3747,15 @@ def phase_opt(tmp: Path, checks: dict) -> dict:
 
     step, inputs = stage2_step()
     step(*inputs)
-    out["stage2"] = dict(batch=TRAIN_BATCH, launches=train_counts, **timed_steps(step, inputs))
+    out["stage2"] = dict(batch=TRAIN_BATCH, launches=train_counts, forms=train_shapes["forms"],
+                         **timed_steps(step, inputs))
     step = inputs = None
     free_card()
     step = stage1_trainer(s1_cfg)
     inputs = stage1_inputs(s1_cfg, SEED)
     step(*inputs)
-    out["stage1"] = dict(batch=s1_batch, launches=s1_counts, **timed_steps(step, inputs))
+    out["stage1"] = dict(batch=s1_batch, launches=s1_counts, forms=s1_shapes["forms"],
+                         **timed_steps(step, inputs))
     step = inputs = None
     free_card()
     for tag in ("stage2", "stage1"):
@@ -3908,9 +3945,13 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
     autograd backward, the graph holds the aten ops it runs,
     ``k3_library_ops``). ``paths`` maps a row to (kernel id, path name,
     {shape: launches in the run}, launches[, dtype]): a dtype other than
-    bf16 (the reconstruction's fp32) is timed and bounded in it."""
+    bf16 (the reconstruction's fp32) is timed and bounded in it. Each shape
+    of K1, K3 and B2 records the form its launches took (``form``, as the
+    launcher reported it while it was timed), each of their rows its
+    launches by form (``forms``)."""
     rows, per_shape = [], []
     timed = {}  # (kernel, shape, dtype, reps) -> its times: a shape on several paths is timed once
+    form_of = {}  # (kernel, shape, dtype) -> the form K1's or K3's launcher took there
     for kid, path, shapes, launches, *dtype in paths.values():
         dtype = dtype[0] if dtype else torch.bfloat16
         spec = KERNELS[kid]
@@ -3923,6 +3964,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         tot = dict.fromkeys(names, 0.0)
         relayout = dict(relayout_ms=0.0, relayout_graph_ms=0.0)
         bound_kinds = set()
+        forms = collections.Counter()
         for key, count in sorted(shapes.items()):
             args = spec["inputs"](key, dtype, seed=3)
             # fewer calls at the training steps' tensors of 25-400 M elements,
@@ -3935,9 +3977,15 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                              library_ms=(spec["library"](*args), ()) if kid == "K3"
                              else (spec["library"], args))
+                group_norm.form_launches.clear()
                 for name, (fn, fn_args) in calls.items():
                     t[name], t[name.replace("ms", "graph_ms")] = time_ms(
                         fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
+                    if name == "ms" and kid not in ("K2", "B3"):
+                        took = {form for (_, form), n in group_norm.form_launches.items() if n}
+                        if len(took) != 1:
+                            raise AssertionError(f"{spec['name']} at {key}: forms {took}")
+                        form_of[kid, key, dtype] = took.pop()
                 if kid == "K3":  # autograd cannot be captured: its aten ops can
                     t["library_graph_ms"] = time_ms(k3_library_ops(*args), (), reps)[1]
             t = dict(t)
@@ -3955,9 +4003,12 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                          for k in ("relayout_ms", "relayout_graph_ms"))
                 for k in relayout:
                     relayout[k] += t[k] * count
+            form = form_of.get((kid, key, dtype))
+            if form:
+                forms[form] += count
             per_shape.append(dict(kernel=spec["name"], path=path, shape=list(key),
-                                  launches=count, bound_by=kind, **t))
-            say("time", kernel=spec["name"], path=path, shape=key, launches=count,
+                                  launches=count, bound_by=kind, form=form, **t))
+            say("time", kernel=spec["name"], path=path, shape=key, launches=count, form=form,
                 **{k: "null" if v is None else f"{v:.4f}" for k, v in t.items()})
             del args
         free_card()
@@ -3971,7 +4022,8 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
         rows.append(dict(
             name=spec["name"], route="cuda", source=spec["src"], replaces=spec["replaces"],
             path=path, launches=launches, max_abs_err=max(r[err_key] for r in errs),
-            bound_by="operations" if "operations" in bound_kinds else "bytes", **tot))
+            bound_by="operations" if "operations" in bound_kinds else "bytes",
+            **({"forms": dict(forms)} if forms else {}), **tot))
     return rows, per_shape
 
 
@@ -4144,9 +4196,14 @@ def gn_only(smi: str, build_logs: dict) -> int:
     per DDIM step (the warm-up call's measured launches, decode included),
     per training step and per reconstruction batch, K3 per
     training step, B2; and the cost of K3's strided-dy copies per step; no
-    {"ok": ...} line."""
+    {"ok": ...} line. The attention AEKL's stage-1 step (OPT's) runs too,
+    its 40 K1 and 40 K3 launches held to the cluster form and its new
+    shapes checked, for its rows."""
     with tempfile.TemporaryDirectory() as td:
         shapes, checks = phase_checks(Path(td), only="GN")
+    _, s1_counts, s1_shapes = opt_stage1_step(with_options(stage1_config()))
+    check_new_shapes(checks, "attention stage-1 step",
+                     {kid: s1_shapes[kid] for kid in ("K1", "K3")})
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
     (quant_counts, quant_shapes), (long_counts, long_shapes) = shapes["quant_step"], shapes["long"]
     rows, per_shape = phase_timings(
@@ -4155,6 +4212,8 @@ def gn_only(smi: str, build_logs: dict) -> int:
          **{k: v for k, v in v1_paths(shapes).items() if not k.startswith("K2")},
          "K1 int8": ("K1", "int8 DDIM step", quant_shapes["K1"], quant_counts["K1"]),
          "K1 long": ("K1", "long-window DDIM step", long_shapes["K1"], long_counts["K1"]),
+         "K1 opt stage-1": ("K1", "attention stage-1 step", s1_shapes["K1"], s1_counts["K1"]),
+         "K3 opt stage-1": ("K3", "attention stage-1 step", s1_shapes["K3"], s1_counts["K3"]),
          "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0)}, checks)
     strided = time_strided_dy(shapes["train"]["K3_strided_dy"], step["K3"])
     strided_stage1 = time_strided_dy(shapes["stage1"]["K3_strided_dy"], stage1["K3"])

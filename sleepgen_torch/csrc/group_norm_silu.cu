@@ -24,17 +24,32 @@
 // launch with no scratch. (x - mean) a_c + bias_c rather than x a_c + d_c
 // keeps the reference's rounding when |mean| is large against the spread.
 //
-// Streaming path, larger groups (the AEKL's G = 1, B2's long window), three
-// launches: the split reduction of gn_stats.cuh (pass 1, one block per
-// 2048-element chunk: (count, mean, M2)); gn_finalize, one warp per group
-// merging its chunks with Chan's formula in a fixed tree order and writing
-// (mean, rstd); gn_apply, one block per chunk, which reads those two floats
-// and normalises with 16-byte vectors. The merge runs once per group, so
-// its work grows with the chunk count, not with its square as a merge in
-// every block would. x is read twice: the AEKL's activations at a training
-// batch of 1024 (up to 200 MB) do not stay in the 50 MB L2 between the
-// passes.
-#include "gn_group.cuh"
+// Cluster form, aligned groups of kOnChipMax < n <= kClusterMax elements
+// (gn_cluster.cuh; every stage-1 GroupNorm at G 1, 24,576-98,304 elements,
+// the DM's and the long window's G 32 groups of 18,432-49,152 and the
+// attention AEKL's 49,152): one launch of cs = ceil(n / kOnChipMax) blocks
+// per group as one thread-block cluster. Each block loads its slice of the
+// group once into registers, in the on-chip path's layout; the statistics
+// are the same exact two-pass ones, each block's sum exchanged through
+// distributed shared memory and added in rank order (cluster_sums), then
+// the same for the squared deviations; rank 0 writes (mean, rstd); each
+// block applies the affine (and SiLU) from its registers with 16-byte
+// stores. x is read once and y written once, with no scratch.
+//
+// Streaming path, what is left: groups above kClusterMax (B2's long window
+// at G 1, the long-window AEKL decode) and ragged or unaligned groups above
+// kOnChipMax, three launches: the split reduction of gn_stats.cuh (pass 1,
+// one block per 2048-element chunk: (count, mean, M2)); gn_finalize, one
+// warp per group merging its chunks with Chan's formula in a fixed tree
+// order and writing (mean, rstd); gn_apply, one block per chunk, which
+// reads those two floats and normalises with 16-byte vectors. The merge
+// runs once per group, so its work grows with the chunk count, not with
+// its square as a merge in every block would. x is read twice on this
+// path: such groups do not stay in the 50 MB L2 between the passes.
+//
+// The launcher reports the form it took (Form, gn_cluster.cuh); the rule
+// is the group's size, L and the bases' alignment, nothing else.
+#include "gn_cluster.cuh"
 
 namespace sg {
 
@@ -117,6 +132,81 @@ static cudaError_t launch_on_chip(const T* x, const float* scale, const float* b
   return cudaGetLastError();
 }
 
+// grid B * G * cs as clusters of cs blocks, OnChip<T>::kThreads threads;
+// dynamic shared memory one float2 per channel row the block's slice
+// touches. Cluster bg normalises group bg; rank 0 writes stats[bg] =
+// (mean, rstd).
+template <typename T, int kVPT>
+__global__ void __launch_bounds__(OnChip<T>::kThreads)
+gn_fwd_cluster(const T* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, int n, int L, int cpg, int G, float eps,
+               int apply_silu, T* __restrict__ y, float2* __restrict__ stats) {
+  constexpr int kVec = OnChip<T>::kVec, kThreads = OnChip<T>::kThreads;
+  extern __shared__ float2 affine[];  // (rstd * scale_c, bias_c) per row of the slice
+  __shared__ float red[33], slot[2], total[1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int64_t bg = blockIdx.x / cs;
+  const ClusterSlice sl(n / kVec, cs, rank);
+  const int e0 = sl.v0 * kVec, m = sl.count * kVec;  // the slice: elements [e0, e0 + m)
+  const T* xs = x + bg * n + e0;
+  uint4 r[kVPT];
+  float v[1] = {0.f};
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    r[k] = load_vec<T, true>(xs, (k * kThreads + threadIdx.x) * kVec, m);  // 0 past m
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[0] += elem<T>(r[k], j);
+  }
+  cluster_sums<1>(v, red, &slot[0], total, cluster);
+  const float mean = v[0] / n;
+  v[0] = 0.f;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    if ((k * kThreads + threadIdx.x) * kVec >= m) break;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float d = elem<T>(r[k], j) - mean;
+      v[0] += d * d;
+    }
+  }
+  cluster_sums<1>(v, red, &slot[1], total, cluster);
+  const float rstd = rsqrtf(v[0] / n + eps);
+  if (rank == 0 && threadIdx.x == 0) stats[bg] = make_float2(mean, rstd);
+  const int row0 = e0 / L, rows = (e0 + m - 1) / L - row0 + 1;
+  const int c0 = (int)(bg % G) * cpg + row0;
+  for (int c = threadIdx.x; c < rows; c += kThreads)
+    affine[c] = make_float2(rstd * scale[c0 + c], bias[c0 + c]);
+  __syncthreads();
+  T* ys = y + bg * n + e0;
+#pragma unroll
+  for (int k = 0; k < kVPT; ++k) {
+    const int e = (k * kThreads + threadIdx.x) * kVec;
+    if (e >= m) break;
+    const float2 ad = affine[(e0 + e) / L - row0];
+    float f[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) f[j] = fmaf(elem<T>(r[k], j) - mean, ad.x, ad.y);
+    if (apply_silu) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) f[j] = silu_fast(f[j]);
+    }
+    store_vec<T, true>(ys, e, m, f);
+  }
+  cluster.sync();  // the other blocks have read this block's slots
+}
+
+template <typename T, int kVPT>
+static cudaError_t launch_cluster(const T* x, const float* scale, const float* bias, T* y,
+                                  float2* stats, int B, int L, int cpg, int G, float eps,
+                                  int apply_silu, cudaStream_t stream) {
+  const int n = cpg * L, cs = cluster_blocks(n);
+  const int per = ClusterSlice(n / OnChip<T>::kVec, cs, 0).count * OnChip<T>::kVec;
+  const size_t smem = (size_t)((per + L - 1) / L + 1) * sizeof(float2);  // rows a slice touches
+  return launch_clusters(gn_fwd_cluster<T, kVPT>, B * G, cs, OnChip<T>::kThreads, smem, stream,
+                         x, scale, bias, n, L, cpg, G, eps, apply_silu, y, stats);
+}
+
 // Chan et al.'s merge of two (count, mean, M2) states; an empty b leaves a
 // as it is, an empty a gives b.
 __device__ __forceinline__ float3 chan_merge(float3 a, float3 b) {
@@ -190,10 +280,17 @@ gn_apply(const T* __restrict__ x, const float2* __restrict__ stats,
   }
 }
 
+// K1's form for a group of n = (C / G) * L elements of x into y.
+template <typename T>
+static int forward_form(const void* x, const void* y, int n, int L) {
+  if (n <= kOnChipMax) return kFormOnChip;
+  return takes_cluster<T>(n, L, aligned16(x) && aligned16(y)) ? kFormCluster : kFormStreaming;
+}
+
 template <typename T>
 static cudaError_t launch(const void* xv, const void* scalev, const void* biasv, void* yv,
                           void* statsv, void* partial, int B, int C, int L, int G, float eps,
-                          int apply_silu, cudaStream_t stream) {
+                          int apply_silu, cudaStream_t stream, int* form) {
   const int cpg = C / G;
   const int n = cpg * L;
   const T* x = static_cast<const T*>(xv);
@@ -201,7 +298,8 @@ static cudaError_t launch(const void* xv, const void* scalev, const void* biasv,
   const float* bias = static_cast<const float*>(biasv);
   T* y = static_cast<T*>(yv);
   float2* stats = static_cast<float2*>(statsv);
-  if (n <= kOnChipMax) {
+  *form = forward_form<T>(xv, yv, n, L);
+  if (*form == kFormOnChip) {
 #define SG_ON_CHIP(V) \
   launch_on_chip<T, V>(x, scale, bias, y, stats, B, L, cpg, G, eps, apply_silu, stream)
     switch (vecs_per_thread<T>(n)) {
@@ -213,6 +311,20 @@ static cudaError_t launch(const void* xv, const void* scalev, const void* biasv,
       default: return SG_ON_CHIP(6);
     }
 #undef SG_ON_CHIP
+  }
+  if (*form == kFormCluster) {
+#define SG_CLUSTER(V) \
+  launch_cluster<T, V>(x, scale, bias, y, stats, B, L, cpg, G, eps, apply_silu, stream)
+    const int per = ClusterSlice(n / OnChip<T>::kVec, cluster_blocks(n), 0).count;
+    switch (vecs_per_thread<T>(per * OnChip<T>::kVec)) {
+      case 1: return SG_CLUSTER(1);
+      case 2: return SG_CLUSTER(2);
+      case 3: return SG_CLUSTER(3);
+      case 4: return SG_CLUSTER(4);
+      case 5: return SG_CLUSTER(5);
+      default: return SG_CLUSTER(6);
+    }
+#undef SG_CLUSTER
   }
   if (partial == nullptr) return cudaErrorInvalidValue;
   const int groups = B * G, nchunks = stats_chunks(n);
@@ -237,27 +349,33 @@ static cudaError_t launch(const void* xv, const void* scalev, const void* biasv,
 
 extern "C" {
 
-// Floats of scratch sg_group_norm_silu needs: 0 on the on-chip path.
-int sg_group_norm_silu_scratch_floats(int B, int C, int L, int G) {
+// Floats of scratch sg_group_norm_silu needs for x into y (B, C, L) of
+// dtype 0 = fp32, 1 = bf16: 0 unless the group takes the streaming path.
+int sg_group_norm_silu_scratch_floats(const void* x, const void* y, int B, int C, int L, int G,
+                                      int dtype) {
+  if (G <= 0 || C % G != 0) return 0;
   const int n = (C / G) * L;
-  return n <= sg::kOnChipMax ? 0 : 3 * B * G * sg::stats_chunks(n);
+  const int form = dtype == sg::kBFloat16 ? sg::forward_form<__nv_bfloat16>(x, y, n, L)
+                                          : sg::forward_form<float>(x, y, n, L);
+  return form == sg::kFormStreaming ? 3 * B * G * sg::stats_chunks(n) : 0;
 }
 
 // x, y: (B, C, L) contiguous, dtype 0 = fp32, 1 = bf16; scale, bias: (C,) fp32;
 // stats: (B * G) x (mean, rstd) fp32, written; partial: scratch of
-// sg_group_norm_silu_scratch_floats floats (may be null when that is 0).
-// Returns the cudaError_t of the launches (0 = success).
+// sg_group_norm_silu_scratch_floats floats (may be null when that is 0);
+// form: written with the form launched (sg::Form: 0 on chip, 1 cluster,
+// 2 streaming). Returns the cudaError_t of the launches (0 = success).
 int sg_group_norm_silu(const void* x, const void* scale, const void* bias, void* y,
                        void* stats, void* partial, int B, int C, int L, int G, float eps,
-                       int apply_silu, int dtype, void* stream) {
+                       int apply_silu, int dtype, void* stream, int* form) {
   if (G <= 0 || C % G != 0 || B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sg::kFloat32)
     return (int)sg::launch<float>(x, scale, bias, y, stats, partial, B, C, L, G, eps,
-                                  apply_silu, s);
+                                  apply_silu, s, form);
   if (dtype == sg::kBFloat16)
     return (int)sg::launch<__nv_bfloat16>(x, scale, bias, y, stats, partial, B, C, L, G, eps,
-                                          apply_silu, s);
+                                          apply_silu, s, form);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,13 +28,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_TIMEOUT_S = 900
 
 _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)  # an output int, passed as ctypes.byref(c_int)
 # The library's C entry points: (argument types, result type).
 SIGNATURES = {
     "sg_error_string": ([_i], ctypes.c_char_p),
     "sg_gn_scratch_floats": ([_i] * 4, _i),
-    "sg_group_norm_silu_scratch_floats": ([_i] * 4, _i),
-    "sg_group_norm_silu": ([_p] * 6 + [_i, _i, _i, _i, _f, _i, _i, _p], _i),
-    "sg_group_norm_silu_bwd": ([_p] * 9 + [_i] * 6 + [_p], _i),
+    "sg_group_norm_silu_scratch_floats": ([_p, _p] + [_i] * 5, _i),
+    "sg_group_norm_silu": ([_p] * 6 + [_i, _i, _i, _i, _f, _i, _i, _p, _ip], _i),
+    "sg_group_norm_silu_bwd": ([_p] * 9 + [_i] * 6 + [_p, _ip], _i),
     "sg_gn_silu_conv3": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p], _i),
 }
 

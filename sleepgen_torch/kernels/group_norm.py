@@ -6,12 +6,25 @@ K1 is the counterpart of the Pallas TPU kernel
 in CUDA C++ for Hopper: ``sleepgen_torch/csrc/group_norm_silu.cu``. K3 is
 the counterpart of that kernel's VJP, with the closed form of
 ``sleepgen/nn/fused_norm.py``: ``sleepgen_torch/csrc/group_norm_silu_bwd.cu``.
-Each source note gives the kernel's bound and design: a group of at most
-``ON_CHIP_MAX`` elements is held by one block on chip (one launch for K1,
-two for K3), a larger one streams in 2048-element chunks. Statistics are
-fp32 for either input dtype, eps defaults to 1e-6 (not torch's 1e-5),
-outputs and dx have the input's dtype, and the parameter gradients are
-fp32.
+Each source note gives the kernel's bound and design. Both kernels are
+bound by bytes, and each picks its form by the group's shape alone:
+
+* a group of at most ``ON_CHIP_MAX`` elements is held by one block on
+  chip (one launch for K1, two for K3);
+* an aligned group (L a multiple of a 16-byte vector, 16-byte aligned
+  bases) of up to ``CLUSTER_MAX`` elements is held by one thread-block
+  cluster of up to 8 blocks that exchange their partial sums through
+  distributed shared memory (``csrc/gn_cluster.cuh``; one launch for K1,
+  two for K3), so x (and dy) are read once;
+* only a larger group, or a ragged or unaligned one, still streams in
+  2048-element chunks and reads its input twice (K1's streaming path,
+  K3's three-pass form).
+
+The launchers report the form they took, counted in ``form_launches``;
+a launch the card refuses raises and is never run in another form.
+Statistics are fp32 for either input dtype, eps defaults to 1e-6 (not
+torch's 1e-5), outputs and dx have the input's dtype, and the parameter
+gradients are fp32.
 
 ``group_norm_silu`` is a ``torch.autograd.Function``: its forward saves
 x, scale, bias and the per-(batch row, group) mean and rstd, and its
@@ -22,6 +35,7 @@ fall back.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -40,11 +54,19 @@ backward_launch_shapes: collections.Counter = collections.Counter()
 # K3 calls whose dy came strided and was copied to a contiguous tensor
 # first, by the same key plus dy's strides
 strided_dy_shapes: collections.Counter = collections.Counter()
+# The same launches by (kernel, form), the form as the launcher reports it:
+# ("K1", "on_chip" | "cluster" | "streaming"), ("K3", "on_chip" | "cluster"
+# | "three_pass")
+form_launches: collections.Counter = collections.Counter()
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Largest group, (C / G) * L elements, that one block holds on chip
-# (kOnChipMax in csrc/gn_group.cuh)
+# (kOnChipMax in csrc/gn_group.cuh), and that one cluster of 8 blocks holds
+# (kClusterMax in csrc/gn_cluster.cuh)
 ON_CHIP_MAX = 12288
+CLUSTER_MAX = 8 * ON_CHIP_MAX
+# The launchers' form codes (sg::Form in csrc/gn_cluster.cuh) by kernel
+FORMS = {"K1": ("on_chip", "cluster", "streaming"), "K3": ("on_chip", "cluster", "three_pass")}
 
 
 def reset_counts() -> None:
@@ -53,6 +75,7 @@ def reset_counts() -> None:
     launch_shapes.clear()
     backward_launch_shapes.clear()
     strided_dy_shapes.clear()
+    form_launches.clear()
 
 
 def group_stats_reference(x: torch.Tensor, num_groups: int,
@@ -148,16 +171,20 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     lib = _build.load()
     y = torch.empty_like(x)
     stats = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
-    floats = lib.sg_group_norm_silu_scratch_floats(b, c, l, num_groups)  # 0 on chip
+    floats = lib.sg_group_norm_silu_scratch_floats(  # 0 unless the group streams
+        x.data_ptr(), y.data_ptr(), b, c, l, num_groups, DTYPE_CODES[x.dtype])
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
+    form = ctypes.c_int(-1)
     code = lib.sg_group_norm_silu(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
         None if scratch is None else scratch.data_ptr(), b, c, l, num_groups, eps,
-        int(apply_silu), DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+        int(apply_silu), DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
+        ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu")
     global launches
     launches += 1
     launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
+    form_launches["K1", FORMS["K1"][form.value]] += 1
     return y, stats
 
 
@@ -190,15 +217,17 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
     dscale = torch.empty_like(scale)
     dbias = torch.empty_like(bias)
     row_sums = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    form = ctypes.c_int(-1)
     code = lib.sg_group_norm_silu_bwd(
         x.data_ptr(), dy.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), row_sums.data_ptr(),
         b, c, l, num_groups, int(apply_silu), DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu_bwd")
     global backward_launches
     backward_launches += 1
     backward_launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
+    form_launches["K3", FORMS["K3"][form.value]] += 1
     return dx, dscale, dbias
 
 
@@ -237,9 +266,10 @@ def group_norm_silu_tiled(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     """Counterpart of the Pallas ``group_norm_silu_tiled``
     (``sleepgen/pallas_kernels/group_norm.py:159``), the long-window form:
     forward only, any L. ``tile`` sets the Pallas kernel's VMEM block
-    (shrunk there to a divisor of L); K1 already takes any L (a long
-    group streams in 2048-element chunks), so the launch is K1's and the
-    tile is only checked: a tile of 0 fails in JAX too."""
+    (shrunk there to a divisor of L); K1 already takes any L (a group
+    above ``CLUSTER_MAX``, as the long window's, streams in 2048-element
+    chunks), so the launch is K1's and the tile is only checked: a tile
+    of 0 fails in JAX too."""
     if tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
     return group_norm_silu_forward(x, scale, bias, num_groups, eps, apply_silu)[0]

@@ -236,6 +236,7 @@ def test_launch_counters_count_kernel_launches():
     assert group_norm.launches == 2
     assert group_norm.backward_launches == 1
     assert group_norm.backward_launch_shapes[(2, 16, 32, 4, True, "torch.float32")] == 1
+    assert dict(group_norm.form_launches) == {("K1", "on_chip"): 2, ("K3", "on_chip"): 1}
     assert fused_resblock.launches == 2
     assert fused_resblock.launch_shapes[(2, 16, 16, 32, 4, "torch.float32")] == 2
 
@@ -299,13 +300,37 @@ def test_group_norm_silu_is_deterministic(dtype, b, c, l, g):
     assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
 
 
+def _scratch_floats(b, c, l, g, dtype=torch.float32):
+    """K1's scratch for x (b, c, l) into a fresh y: 0 unless the group streams."""
+    x = torch.empty((b, c, l), dtype=dtype, device="cuda")
+    return _build.load().sg_group_norm_silu_scratch_floats(
+        x.data_ptr(), torch.empty_like(x).data_ptr(), b, c, l, g, group_norm.DTYPE_CODES[dtype])
+
+
+def _forms(b, c, l, g, dtype=torch.float32):
+    """{kernel: the form it took} for one K1 and one K3 launch at the shape."""
+    x, scale, bias = _inputs(40, b, c, l)
+    x = x.to(dtype)
+    group_norm.reset_counts()
+    y, stats = group_norm.group_norm_silu_forward(x, scale, bias, g)
+    group_norm.group_norm_silu_backward(x, torch.ones_like(y), scale, bias, stats, g)
+    torch.cuda.synchronize()
+    return {kid: form for (kid, form), n in group_norm.form_launches.items() if n}
+
+
 def test_group_norm_path_switch_at_on_chip_max():
-    """A group of ON_CHIP_MAX elements takes the on-chip path (no scratch),
-    one of ON_CHIP_MAX + 8 the streaming path."""
-    lib = _build.load()
-    n = group_norm.ON_CHIP_MAX
-    assert lib.sg_group_norm_silu_scratch_floats(2, 16, n // 16, 1) == 0
-    assert lib.sg_group_norm_silu_scratch_floats(2, 1, n + 8, 1) > 0
+    """A group of ON_CHIP_MAX elements takes the on-chip path, one of
+    ON_CHIP_MAX + 8 the cluster form (neither needs scratch), one of
+    CLUSTER_MAX the cluster form and one of CLUSTER_MAX + 8 the streaming
+    path and the three-pass form."""
+    n, top = group_norm.ON_CHIP_MAX, group_norm.CLUSTER_MAX
+    assert _scratch_floats(2, 16, n // 16, 1) == 0
+    assert _forms(2, 16, n // 16, 1) == {"K1": "on_chip", "K3": "on_chip"}
+    assert _scratch_floats(2, 1, n + 8, 1) == 0
+    assert _forms(2, 1, n + 8, 1) == {"K1": "cluster", "K3": "cluster"}
+    assert _forms(2, 32, top // 32, 1) == {"K1": "cluster", "K3": "cluster"}
+    assert _scratch_floats(2, 1, top + 8, 1) > 0
+    assert _forms(2, 1, top + 8, 1) == {"K1": "streaming", "K3": "three_pass"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -379,20 +404,22 @@ def test_group_norm_tiled_long_window():
 # The signal-space DM's GroupNorm groups (sleepgen/configs/dm.yaml: mc 128,
 # channel_mult [1, 2, 4], L 3072; G 32): the encoder's are exactly
 # ON_CHIP_MAX (12,288) elements, the largest on-chip case; the decoder's
-# skip concatenations give G 32 groups of 18,432-36,864, on the streaming
-# path (K1) and the three-pass form (K3)
+# skip concatenations give G 32 groups of 18,432-36,864, the cluster form
+# of K1 and K3
 DM_ON_CHIP = [(128, 3072), (256, 1536), (512, 768)]
-DM_STREAMING = [(256, 3072), (384, 3072), (384, 1536), (768, 1536)]
+DM_CLUSTER = [(256, 3072), (384, 3072), (384, 1536), (768, 1536)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("c,l", DM_ON_CHIP + DM_STREAMING)
+@pytest.mark.parametrize("c,l", DM_ON_CHIP + DM_CLUSTER)
 def test_group_norm_kernels_at_the_dm_groups(c, l, dtype):
-    """K1 and K3 at batch 4 against their plain versions, each group on the
-    path its size picks: no scratch at 12,288 elements, scratch above."""
+    """K1 and K3 at batch 4 against their plain versions, each group in the
+    form its size picks: on chip at 12,288 elements, the cluster above; no
+    scratch either way."""
     b, g = 4, 32
-    scratch = _build.load().sg_group_norm_silu_scratch_floats(b, c, l, g)
-    assert (scratch == 0) == ((c, l) in DM_ON_CHIP)
+    assert _scratch_floats(b, c, l, g, dtype) == 0
+    form = "on_chip" if (c, l) in DM_ON_CHIP else "cluster"
+    assert _forms(b, c, l, g, dtype) == {"K1": form, "K3": form}
     assert (c // g * l == group_norm.ON_CHIP_MAX) == ((c, l) in DM_ON_CHIP)
     x, scale, bias = _inputs(18, b, c, l)
     x = x.to(dtype)
@@ -412,7 +439,7 @@ def test_group_norm_kernels_at_the_dm_groups(c, l, dtype):
 # band-eval's reconstruction: the AEKL of aekl_eeg.yaml ([32, 32, 64], G 1)
 # reconstructs its --max_windows 512 test windows (L 3072) in one call.
 # Each (C, L, SiLU) K1 gets there, 26 launches in all; groups of 24,576 to
-# 98,304 elements, on the streaming path
+# 98,304 elements, the cluster form (the stage-1 step's shapes too)
 BAND_EVAL_BATCH = 512
 RECON_GN_SHAPES = [(32, 3072, True), (32, 1536, True), (32, 768, True), (64, 768, True),
                    (64, 768, False), (64, 1536, True), (32, 3072, False)]
@@ -457,7 +484,7 @@ def _hold(got, want, dtype, rtol, atol):
 def test_group_norm_kernels_at_the_v1_aekl_groups(c, l, silu, dtype):
     """K1 and K3 at batch 16, G 32, each group on chip (no scratch)."""
     g = 32
-    assert _build.load().sg_group_norm_silu_scratch_floats(V1_BATCH, c, l, g) == 0
+    assert _scratch_floats(V1_BATCH, c, l, g, dtype) == 0
     assert c // g * l <= group_norm.ON_CHIP_MAX
     x, scale, bias = _inputs(24, V1_BATCH, c, l)
     x = x.to(dtype)
@@ -496,7 +523,9 @@ def test_gn_silu_conv3_kernel_at_the_v1_unet(cin, cout, l, dtype):
 
 
 # The long window (benches/long_window.py: the default UNet at window 12288,
-# batch 16): K1 streams groups of 49,152 elements at G 32 (C 128), K2 runs at
+# batch 16): K1 takes groups of 49,152 elements at G 32 (C 128 at L 12288),
+# the cluster form, and here also C 256 and 384 at L 12288 (98,304
+# elements, the cluster form; 147,456, the streaming path); K2 runs at
 # L 12288 (its first level and the skip concatenations of the last).
 LONG_K1_SHAPES = [(128, 12288), (256, 12288), (384, 12288)]
 LONG_K2_SHAPES = [(128, 128, 12288), (256, 128, 12288), (384, 128, 12288)]
@@ -506,7 +535,7 @@ LONG_K2_SHAPES = [(128, 128, 12288), (256, 128, 12288), (384, 128, 12288)]
 @pytest.mark.parametrize("c,l", LONG_K1_SHAPES)
 def test_group_norm_silu_kernel_at_the_long_window(c, l, dtype):
     x, scale, bias = _inputs(27, V1_BATCH, c, l)
-    assert c // 32 * l > group_norm.ON_CHIP_MAX  # the streaming path
+    assert c // 32 * l > group_norm.ON_CHIP_MAX  # the cluster form or the streaming path
     x = x.to(dtype)
     got = group_norm.group_norm_silu(x, scale, bias, 32)
     torch.cuda.synchronize()
@@ -541,7 +570,7 @@ OPT_K2_SHAPES = [(128, 128, 768), (128, 256, 384), (256, 512, 192), (1024, 512, 
 OPT_BATCH = 64
 # The attention AEKL (aekl_eeg.yaml with attention_levels [F, F, T] and both
 # non-local attentions): each attention's norm is K1 without SiLU at G 1 on
-# (64, 768), 49,152 elements a group, the streaming path; K3 in training.
+# (64, 768), 49,152 elements a group, the cluster form; K3 in training.
 AEKL_ATTN_SHAPE = (64, 768)
 
 
@@ -578,7 +607,7 @@ def test_gn_silu_conv3_kernel_at_the_options_unet(cin, cout, l, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_group_norm_kernels_at_the_aekl_attention_norm(dtype):
     c, l = AEKL_ATTN_SHAPE
-    assert c * l > group_norm.ON_CHIP_MAX  # the streaming path
+    assert _forms(16, c, l, 1, dtype) == {"K1": "cluster", "K3": "cluster"}
     x, scale, bias = _inputs(33, 16, c, l)
     x = x.to(dtype)
     got = group_norm.group_norm_silu(x, scale, bias, 1, 1e-6, False)
@@ -587,6 +616,95 @@ def test_group_norm_kernels_at_the_aekl_attention_norm(dtype):
     _hold(got, want, dtype, 1e-5, 2e-6)
     dx, dx_want = _backward_case(34, 16, c, l, 1, False, dtype)
     _hold(dx, dx_want, dtype, 1e-4, 1e-5)
+
+
+# The cluster form (csrc/gn_cluster.cuh): aligned groups of ON_CHIP_MAX + 8 to
+# CLUSTER_MAX elements, cs = ceil(n / ON_CHIP_MAX) blocks a group. One row
+# of ON_CHIP_MAX + 8 straddles the two slices; each cs from 2 to 8 with
+# whole slices (4 cs rows of 3072) and with a short last slice (8 rows of
+# 1536 cs - 8, rows straddling); rows of 5000 (a row cut by the slice
+# boundary between whole ones), one row over four slices, rows of 8 (many
+# rows a slice); every (C, L) of the stage-1 step (aekl_eeg.yaml at G 1)
+# and the attention AEKL's norm, at batch 2
+STAGE1_GN_SHAPES = sorted({(c, l) for c, l, _ in RECON_GN_SHAPES} | {AEKL_ATTN_SHAPE})
+CLUSTER_CASES = ([(2, 1, group_norm.ON_CHIP_MAX + 8, 1)]
+                 + [(2, 4 * cs, 3072, 1) for cs in range(2, 9)]
+                 + [(2, 8, 1536 * cs - 8, 1) for cs in range(2, 9)]
+                 + [(2, 3, 5000, 1), (2, 1, 40000, 1), (2, 2048, 8, 1), (3, 256, 3072, 32)]
+                 + [(2, c, l, 1) for c, l in STAGE1_GN_SHAPES])
+# What stays on the streaming path and the three-pass form: a group of
+# CLUSTER_MAX + 8, a ragged row (L % 4 != 0), and L 3076 (a multiple of
+# fp32's 4-element vector, not of bf16's 8: the cluster form in fp32 only)
+STREAMING_CASES = [(2, 1, group_norm.CLUSTER_MAX + 8, 1), (2, 1, 12290, 1), (2, 4, 3076, 1)]
+
+
+def _expected_forms(c, l, g, dtype):
+    n, vec = c // g * l, 16 // dtype.itemsize
+    if group_norm.ON_CHIP_MAX < n <= group_norm.CLUSTER_MAX and l % vec == 0:
+        return {"K1": "cluster", "K3": "cluster"}
+    return {"K1": "streaming", "K3": "three_pass"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,c,l,g", CLUSTER_CASES + STREAMING_CASES)
+def test_group_norm_kernels_in_the_cluster_form(b, c, l, g, dtype):
+    """K1 and K3 against their plain versions on each side of ON_CHIP_MAX
+    and CLUSTER_MAX, each cs, the stage-1 shapes and the straddling rows,
+    in the form ``form_launches`` names."""
+    assert _forms(b, c, l, g, dtype) == _expected_forms(c, l, g, dtype)
+    x, scale, bias = _inputs(41, b, c, l)
+    x = x.to(dtype)
+    for silu in (True, False):
+        got = group_norm.group_norm_silu(x, scale, bias, g, 1e-6, silu)
+        torch.cuda.synchronize()
+        want = group_norm.group_norm_silu_reference(x.float(), scale, bias, g, 1e-6, silu)
+        _hold(got, want, dtype, 1e-5, 2e-6)
+        dx, dx_want = _backward_case(42, b, c, l, g, silu, dtype)
+        _hold(dx, dx_want, dtype, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,c,l,g", [(2, 1, group_norm.ON_CHIP_MAX + 8, 1), (4, 32, 3072, 1),
+                                     (2, 3, 5000, 1), (4, 256, 3072, 32)])
+def test_group_norm_cluster_form_is_deterministic(b, c, l, g, dtype):
+    """Two launches of each cluster kernel give equal bits: y and stats, dx,
+    dscale and dbias (rank-ordered sums, no atomics)."""
+    assert _forms(b, c, l, g, dtype) == {"K1": "cluster", "K3": "cluster"}
+    x, scale, bias = _inputs(43, b, c, l)
+    x = x.to(dtype)
+    dy = torch.randn_like(x)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    (y1, s1), (y2, s2) = (group_norm.group_norm_silu_forward(x, scale, bias, g) for _ in "12")
+    assert torch.equal(y1.view(ints), y2.view(ints))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+    a, b2 = (group_norm.group_norm_silu_backward(x, dy, scale, bias, s1, g) for _ in "12")
+    assert torch.equal(a[0].view(ints), b2[0].view(ints))
+    for u, v in zip(a[1:], b2[1:]):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_group_norm_cluster_sized_group_on_an_unaligned_base_streams(dtype):
+    """A group of cluster size (24,576 elements) whose x is not 16-byte
+    aligned takes the streaming path and the three-pass form, same results."""
+    b, c, l, g = 2, 4, 6144, 1
+    x, scale, bias = _inputs(44, b, c, l)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    buf[1:].copy_(x.flatten())
+    xs = buf[1:].view(b, c, l)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    dy = torch.randn(b, c, l, device="cuda").to(dtype)
+    group_norm.reset_counts()
+    y, stats = group_norm.group_norm_silu_forward(xs, scale, bias, g)
+    got = group_norm.group_norm_silu_backward(xs, dy, scale, bias, stats, g)
+    torch.cuda.synchronize()
+    assert dict(group_norm.form_launches) == {("K1", "streaming"): 1, ("K3", "three_pass"): 1}
+    xf = xs.float()
+    _hold(y, group_norm.group_norm_silu_reference(xf, scale, bias, g), dtype, 1e-5, 2e-6)
+    want = group_norm.group_norm_silu_backward_reference(xf, dy.float(), scale, bias, stats, g)
+    _hold(got[0], want[0], dtype, 1e-4, 1e-5)
+    for gv, wv in zip(got[1:], want[1:]):
+        torch.testing.assert_close(gv, wv, rtol=1e-4, atol=1e-5 * (b * l) ** 0.5)
 
 
 def test_int8_products_on_the_card_equal_the_cpu():
