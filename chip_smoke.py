@@ -214,8 +214,9 @@ parallelism over ``torch.distributed``. Phases, one line each:
      one-step epochs with one validation (best L1, run dir, peak memory),
      ``train_v1_ddpm`` over its final_model for five one-step epochs, one
      ``p_sample_loop`` of 1000 steps and ``reconstruct_ldm_outputs``
-     (seconds, windows/s, ms per step), each call's launches as derived;
-     then the encoder, DDPM and ancestral steps each on the host clock
+     (seconds, windows/s, ms per step), each call's launches as derived,
+     the chain's K2 weight re-layouts one per K2 weight (26), not one per
+     launch; then the encoder, DDPM and ancestral steps each on the host clock
      (median of five) and under torch.profiler (device ms, busy share);
   Q1. int8 sampling: tiny, every int8 layer of one UNet forward on the
      card against the same layer on the CPU on the card's input (int8
@@ -303,7 +304,10 @@ that record K2's shapes and launches (the counts checked against the
 configuration), K2's fp32 and bf16 checks at those shapes and at B3's,
 and the phase-8 timings of K2 (paths "DDIM step", "DM DDIM step", "v1
 ancestral step" in fp32 and "long-window DDIM step": each shape's time
-times the step's measured launches at it) and B3. It prints the kernels' JSON line and writes
+times the step's measured launches at it) and B3, then one ``k2-shape``
+line per shape of each path (fp32 at every v1 ancestral shape, bf16 at
+the others): device us per call from the CUDA graph, eager us, the bound
+and the share of the bound. It prints the kernels' JSON line and writes
 chiprun_out/chip_smoke_k2_report.json, but never the {"ok": ...} line,
 and exits non-zero on any failure.
 
@@ -3166,7 +3170,8 @@ def phase_v1_full(tmp: Path) -> dict:
     peak memory, best L1, run dir); ``train_v1_ddpm`` over its final_model
     for five one-step epochs; one ``p_sample_loop`` of 1000 steps at batch
     16 and ``reconstruct_ldm_outputs`` (seconds, windows/s, ms per step,
-    peak memory); then each step timed on the host clock and profiled on
+    peak memory; K2's weight re-layouts over the chain held to one per K2
+    weight); then each step timed on the host clock and profiled on
     the device (encoder step, DDPM step, ancestral step)."""
     train_ds, valid_ds = write_split(tmp, "v1_npy", V1_BATCH, V1_BATCH, SEED + 90)
     with torch.device("meta"):
@@ -3221,6 +3226,13 @@ def phase_v1_full(tmp: Path) -> dict:
     signal, z = run_entry("ancestral", times(want["sample_step"], V1_TIMESTEPS, want["decode"]),
                        ancestral)
     anc = out["ancestral"]
+    # each K2 launch of a forward has its own weight, laid out once for the
+    # whole chain (the weights were made outside inference mode)
+    anc["relayouts"] = fused_resblock.relayouts
+    if anc["relayouts"] != want["sample_step"]["K2"]:
+        raise AssertionError(f"v1 ancestral batch: {anc['relayouts']} K2 weight re-layouts "
+                             f"over {anc['launches']['K2']} launches, expected one per "
+                             f"weight, {want['sample_step']['K2']}")
     if signal.shape != (V1_BATCH, 1, 3072) or not bool(torch.isfinite(signal).all()):
         raise AssertionError(f"v1 ancestral batch: {tuple(signal.shape)}, finite "
                              f"{bool(torch.isfinite(signal).all())}")
@@ -3231,7 +3243,7 @@ def phase_v1_full(tmp: Path) -> dict:
         best_l1=f"{best:.5f}", ddpm_seconds=f"{out['train_v1_ddpm']['seconds']:.2f}",
         ddpm_loss=f"{log[-1]['loss']:.5f}", ancestral_seconds=f"{anc['seconds']:.2f}",
         windows_per_s=f"{anc['windows_per_s']:.3f}",
-        host_ms_per_step=f"{anc['host_ms_per_step']:.3f}",
+        host_ms_per_step=f"{anc['host_ms_per_step']:.3f}", relayouts=anc["relayouts"],
         peak_gib=",".join(f"{out[k]['peak_bytes'] / 2**30:.2f}" for k in
                           ("train_v1_encoder", "train_v1_ddpm", "ancestral")),
         **{f"{k}_launches": out[k]["launches"] for k in out})
@@ -3993,12 +4005,12 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             bound_kinds.add(kind)
             for k in tot:
                 tot[k] = None if tot[k] is None or t[k] is None else tot[k] + t[k] * count
-            if kid in ("K2", "B3") and dtype == torch.bfloat16:
-                # the bf16 weight re-layout, apart (cached per weight; fp32 has none)
+            if kid in ("K2", "B3"):
+                # the weight re-layout, apart (made once per weight and version)
                 if "relayout_ms" not in timed[kid, key, dtype, reps]:
                     timed[kid, key, dtype, reps]["relayout_ms"], timed[
                         kid, key, dtype, reps]["relayout_graph_ms"] = time_ms(
-                            fused_resblock.conv_tiles, (args[3],), reps)
+                            fused_resblock.weight_tiles, (args[3], dtype), reps)
                 t.update((k, timed[kid, key, dtype, reps][k])
                          for k in ("relayout_ms", "relayout_graph_ms"))
                 for k in relayout:
@@ -4012,7 +4024,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 **{k: "null" if v is None else f"{v:.4f}" for k, v in t.items()})
             del args
         free_card()
-        if kid in ("K2", "B3") and dtype == torch.bfloat16:
+        if kid in ("K2", "B3"):
             say("time", kernel=spec["name"], path=path,
                 **{f"{k}_per_run": f"{v:.4f}" for k, v in relayout.items()},
                 kernel_ms_per_run=f"{tot['ms']:.4f}",
@@ -4185,6 +4197,12 @@ def k2_only(smi: str, build_logs: dict) -> int:
          "K2 v1": ("K2", "v1 ancestral step", v1_shapes["K2"], v1_counts["K2"], torch.float32),
          "K2 long": ("K2", "long-window DDIM step", long_shapes["K2"], long_counts["K2"]),
          "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}, checks)
+    for r in per_shape:  # each shape of each path: device us per call against its bound
+        if r["kernel"] == KERNELS["K2"]["name"]:
+            say("k2-shape", path=r["path"], shape=tuple(r["shape"]), launches=r["launches"],
+                us=f"{r['graph_ms'] * 1e3:.3f}", eager_us=f"{r['ms'] * 1e3:.3f}",
+                bound_us=f"{r['bound_ms'] * 1e3:.3f}",
+                share_of_bound=f"{r['bound_ms'] / r['graph_ms']:.3f}")
     return write_only_report("k2", smi, build_logs, rows, per_shape, checks)
 
 

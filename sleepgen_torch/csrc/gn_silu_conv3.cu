@@ -10,7 +10,8 @@
 // Bound on the card: operations. A chain does 3 * C_in * C_out * L
 // multiply-adds per batch row; at the UNet's widths that is far above the
 // 295 operations per byte where the bf16 tensor cores stop waiting for
-// memory. The GroupNorm statistics come from the shared split reduction
+// memory, and above the 20 per byte of the fp32 FMA units (67 TFLOP/s).
+// The GroupNorm statistics come from the shared split reduction
 // (gn_stats.cuh); the convolution kernels apply normalise, affine and SiLU
 // while they stage their input, so h never goes to device memory.
 //
@@ -47,104 +48,53 @@
 //    long in its two barriers and the copies' issue as in the products,
 //    and a block's prologue and epilogue overlap nothing (one block per
 //    SM); next come a producer warp and a persistent grid.
-//  * fp32: the fp32 FMA units, a 4 x 4 register tile per thread, staged
-//    synchronously.
+//  * fp32 (the first-generation ancestral sampler's dtype, and every fp32
+//    call): exact fp32 products and sums (fmaf) on the CUDA cores, no TF32,
+//    so its bound is the fp32 FMA rate. The same tap formulation, as an
+//    implicit GEMM of positions x output channels x (taps, input channels):
+//      - a block owns TN output channels (64 for C_out <= 64, else 128) x
+//        TL positions (96 or 48) of one batch row, 256 threads in two
+//        K-groups; each K-group takes half of every chunk's 32 input
+//        channels, and its threads own 12 positions x 4 output channels;
+//        the two K-groups' sums are added in a fixed order at the end, so
+//        the result does not depend on timing;
+//      - weights: laid out once per weight and version by the wrapper
+//        (fp32_conv_tiles in kernels/fused_resblock.py) so that a chunk's
+//        32 channels x 3 taps x TN is one contiguous run, copied with
+//        16-byte cp.async into a two-stage ring and read as float4 along
+//        the output channels: no bank conflicts;
+//      - raw x[ci][l0 - 4 .. l0 + TL + 4) (zero outside [0, L)), scale and
+//        bias: cp.async into two buffers, two chunks ahead (4-byte element
+//        copies where rows are not 16-byte aligned, L % 4 != 0);
+//      - h: the per-channel affine a_c = rstd scale_c, d_c = bias_c -
+//        mean a_c is folded once per chunk, and h = silu(a_c x + d_c) is
+//        made once per block and chunk for all TN output channels and the
+//        three taps, while the other buffer's products run: one barrier
+//        a chunk;
+//      - products: per input channel a thread loads 14 h values (its 12
+//        positions and the +-1 halo, serving all three taps) and 3 x 4
+//        weights, and issues 144 FMAs; the next channel's values load
+//        while they run.
+//    Tiles at the v1 UNet's K2 shapes (batch 16; one block of 101 or 125
+//    KiB of shared memory an SM, 132 SMs): (C_in, C_out, L) = (64, 64,
+//    768), (192, 64, 768), (128, 64, 768): TN 64 x TL 96, 128 blocks, 0.97
+//    of a wave; (64, 64, 384): 64 blocks, 0.48; (64, 128, 384), (128, 128,
+//    384), (256, 128, 384), (192, 128, 384): TN 128 x TL 48, 128 blocks,
+//    0.97; (128, 128, 768): 256 blocks, 1.94 waves.
+//    What bounds it now (PERF.md, PR 14): a chunk takes about twice its
+//    FMAs' time at the fp32 peak, and neither the tile, the number of
+//    warps, the unroll nor halving the shared-memory loads per FMA moved
+//    it; the compiler's register allocation, which puts both register-file
+//    operands of many of the loop's FFMAs in one bank, is the likely cause
+//    (read from the SASS, not traced: no profiler on the card's machine).
+//    Outside the chunks, a block's prologue (the first chunk's copies and
+//    h) and epilogue overlap nothing, and the statistics are a launch of
+//    their own.
 #include <type_traits>
 
 #include "gn_stats.cuh"
 
 namespace sg {
-
-constexpr int kConvThreads = 256;
-
-// -- fp32: FMA units ------------------------------------------------------------
-
-// One element of h = SiLU(GN(x)), or 0 outside the row.
-__device__ __forceinline__ float h_value(const float* __restrict__ xb, int ci, int l, int Cin,
-                                         int L, int cpg, const float* mean_s, const float* rstd_s,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ bias) {
-  if (ci >= Cin || l < 0 || l >= L) return 0.f;
-  const int g = ci / cpg;
-  return silu((xb[(int64_t)ci * L + l] - mean_s[g]) * rstd_s[g] * scale[ci] + bias[ci]);
-}
-
-constexpr int kTCO = 64;   // output channels per block
-constexpr int kTL = 64;    // positions per block
-constexpr int kTCI = 16;   // input channels per shared-memory stage
-
-__global__ void __launch_bounds__(kConvThreads)
-gn_silu_conv3_fma(const float* __restrict__ x, const float3* __restrict__ partial,
-                  int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
-                  const float* __restrict__ w, const float* __restrict__ b,
-                  float* __restrict__ y, int Cin, int Cout, int L, int G, float eps) {
-  __shared__ float hs[kTCI][kTL + 2];
-  __shared__ __align__(16) float ws[kTCI][3][kTCO];
-  __shared__ float mean_s[kMaxGroups], rstd_s[kMaxGroups];
-
-  const int l0 = blockIdx.x * kTL;
-  const int co0 = blockIdx.y * kTCO;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // positions tx + 16 j
-  const int ty = tid >> 4;  // output channels 4 ty + i
-
-  for (int g = tid; g < G; g += kConvThreads)
-    merge_group(partial + ((int64_t)bi * G + g) * nchunks, nchunks, eps, &mean_s[g], &rstd_s[g]);
-  __syncthreads();
-
-  const int cpg = Cin / G;
-  const float* xb = x + (int64_t)bi * Cin * L;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += kTCI) {
-    for (int i = tid; i < kTCI * (kTL + 2); i += kConvThreads) {
-      const int cl = i / (kTL + 2), p = i % (kTL + 2);
-      hs[cl][p] = h_value(xb, ci0 + cl, l0 - 1 + p, Cin, L, cpg, mean_s, rstd_s, scale, bias);
-    }
-    for (int i = tid; i < kTCO * kTCI * 3; i += kConvThreads) {
-      const int col = i / (kTCI * 3), r = i % (kTCI * 3);
-      const int cl = r / 3, k = r % 3;
-      const int co = co0 + col, ci = ci0 + cl;
-      ws[cl][k][col] = (co < Cout && ci < Cin) ? w[((int64_t)co * Cin + ci) * 3 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int cl = 0; cl < kTCI; ++cl) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[cl][k][ty * 4]);
-        float hv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) hv[j] = hs[cl][tx + 16 * j + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[0][j] = fmaf(wv.x, hv[j], acc[0][j]);
-          acc[1][j] = fmaf(wv.y, hv[j], acc[1][j]);
-          acc[2][j] = fmaf(wv.z, hv[j], acc[2][j]);
-          acc[3][j] = fmaf(wv.w, hv[j], acc[3][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = co0 + ty * 4 + i;
-    if (co >= Cout) continue;
-    float* yrow = y + ((int64_t)bi * Cout + co) * L;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int l = l0 + tx + 16 * j;
-      if (l < L) yrow[l] = acc[i][j] + b[co];
-    }
-  }
-}
 
 // -- bf16: tensor cores ---------------------------------------------------------
 
@@ -537,10 +487,288 @@ static cudaError_t launch_tc(const __nv_bfloat16* x, const float3* part, int nch
   return cudaSuccess;
 }
 
+// -- fp32: CUDA cores -----------------------------------------------------------
+
+namespace fp {
+
+constexpr int KC = 32;         // input channels per chunk
+constexpr int KG = 2;          // K-groups a block
+constexpr int CK = KC / KG;    // input channels of a chunk per K-group
+constexpr int PT = 12;         // positions per thread
+constexpr int QT = 4;          // output channels per thread (one float4 of weights)
+constexpr int THREADS = 256;   // KG K-groups of KTH threads
+constexpr int KTH = THREADS / KG;
+constexpr int kVecX = 1;       // x rows are 16-byte aligned: 16-byte cp.async
+static_assert(THREADS == 8 * KC, "the transform runs eight threads a channel");
+static_assert(KG == 2, "the epilogue adds two K-groups' sums");
+
+// A block: TN output channels x TL positions of one batch row. Per K-group,
+// QG = TN / QT channel groups x PG position groups of PT, one thread each.
+template <int TN>
+struct Tile {
+  static constexpr int QG = TN / QT;
+  static constexpr int PG = KTH / QG;
+  static constexpr int TL = PT * PG;         // 48 (TN 128) or 96 (TN 64)
+  static constexpr int XP = TL + 8;          // raw x row: positions l0 - 4 .. l0 + TL + 4
+  static constexpr int XSEG = XP / 4;        // 16-byte segments per raw x row
+  static constexpr int HR = TL + 2;          // h rows: positions l0 - 1 .. l0 + TL
+  static constexpr int HP = TL + 8;          // h pitch: 4 channels of a warp on 4 bank octets
+  static constexpr int YP = TL + 1;          // output row pitch (epilogue)
+  static constexpr int W_STAGE = KC * 3 * TN;  // floats: one chunk's weights, three taps
+  static constexpr int X_STAGE = KC * XP;
+  static constexpr int H_STAGE = KC * HP;
+  static constexpr int OFF_X = 2 * W_STAGE;  // float offsets into shared memory
+  static constexpr int OFF_H = OFF_X + 2 * X_STAGE;
+  static constexpr int OFF_SB = OFF_H + 2 * H_STAGE;  // [2][scale, bias][KC]
+  static constexpr int OFF_STATS = OFF_SB + 4 * KC;
+  static constexpr int SMEM = (OFF_STATS + 2 * kMaxGroups) * 4;
+  static_assert(QG * PG == KTH && HR <= HP && XP % 4 == 0, "tile");
+  static_assert(TN * YP <= 2 * W_STAGE, "the output tile fits the weight stages");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// 4-byte copy, zero-filled when !valid (element loads of unaligned rows).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace fp
+
+// x (B, Cin, L), b (Cout,), y (B, Cout, L), all fp32; wt: the weights as
+// tiles (ceil(Cout / TN), ceil(Cin / KC), KC, 3, TN) fp32, zero padded (the
+// wrapper's fp32_conv_tiles), so one chunk's three taps are one contiguous
+// run. Grid (ceil(L / TL), ceil(Cout / TN), B), fp::THREADS threads.
+//
+// Per chunk kc of 32 input channels, one barrier: the copies of chunk
+// kc + 1's weights and chunk kc + 2's raw x, scale and bias go into the
+// buffers the previous chunk freed; every thread turns chunk kc + 1's raw x
+// into h[kc + 1]; then each K-group runs its 16 channels of chunk kc: per
+// channel 14 h values and 3 x 4 weights from shared memory as float4, 144
+// FMAs into the thread's 12 x 4 sums, the next channel's values loaded
+// while these run.
+template <int TN>
+__global__ void __launch_bounds__(fp::THREADS, 1)
+gn_silu_conv3_fp32(const float* __restrict__ x, const float3* __restrict__ partial,
+                   int nchunks, const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ wt, const float* __restrict__ b,
+                   float* __restrict__ y, int Cin, int Cout, int L, int G, float eps,
+                   int flags) {
+  using namespace fp;
+  using T = Tile<TN>;
+  constexpr int TL = T::TL;
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                        // [2][KC][3][TN]
+  float* xs = smem + T::OFF_X;             // [2][KC][XP]
+  float* hs = smem + T::OFF_H;             // [2][KC][HP]
+  const float* sb = smem + T::OFF_SB;      // [2][2][KC]
+  float* mean_s = smem + T::OFF_STATS;
+  float* rstd_s = mean_s + kMaxGroups;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int l0 = blockIdx.x * TL, co0 = blockIdx.y * TN, bi = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int cpg = Cin / G;
+  const int nk = (Cin + KC - 1) / KC;
+  const float* xb = x + (int64_t)bi * Cin * L;
+  const float* wtile = wt + (int64_t)blockIdx.y * nk * T::W_STAGE;
+
+  auto load_w = [&](int kc) {
+    const uint32_t dst = sbase + (kc & 1) * T::W_STAGE * 4;
+    const float* src = wtile + (int64_t)kc * T::W_STAGE;
+    for (int i = tid; i < T::W_STAGE / 4; i += THREADS)
+      tc::cp_async16(dst + 16 * i, src + 4 * i, true);
+  };
+  // Chunk kc's raw x, xs[kc % 2][ci][e] = x[kc KC + ci][l0 - 4 + e] (zeros
+  // outside the row and past Cin), and its scale and bias (zeros past Cin).
+  auto load_x = [&](int kc) {
+    const int ci0 = kc * KC;
+    const uint32_t dst = sbase + (T::OFF_X + (kc & 1) * T::X_STAGE) * 4;
+    if (flags & kVecX) {
+      for (int i = tid; i < KC * T::XSEG; i += THREADS) {
+        const int row = i / T::XSEG, s = i % T::XSEG;
+        const int ci = ci0 + row, l = l0 - 4 + 4 * s;
+        const bool ok = ci < Cin && l >= 0 && l < L;  // L % 4 == 0: all or none
+        tc::cp_async16(dst + (row * T::XP + 4 * s) * 4, ok ? xb + (int64_t)ci * L + l : xb, ok);
+      }
+    } else {
+      for (int i = tid; i < KC * T::HR; i += THREADS) {
+        const int row = i / T::HR, j = i % T::HR;
+        const int ci = ci0 + row, l = l0 - 1 + j;
+        const bool ok = ci < Cin && l >= 0 && l < L;
+        cp_async4(dst + (row * T::XP + j + 3) * 4, ok ? xb + (int64_t)ci * L + l : xb, ok);
+      }
+    }
+    if (tid < 2 * KC) {
+      const int c = ci0 + tid % KC;
+      const float* src = tid < KC ? scale : bias;
+      cp_async4(sbase + (T::OFF_SB + (kc & 1) * 2 * KC + tid) * 4, c < Cin ? src + c : src,
+                c < Cin);
+    }
+  };
+  // h[kc % 2][ci][j] = silu(a_c x + d_c) at position l0 - 1 + j, 0 outside
+  // [0, L), with a_c = rstd scale_c and d_c = bias_c - mean a_c (0 past
+  // Cin): eight threads a channel, each every eighth position.
+  auto transform = [&](int kc) {
+    const int ci = tid >> 3, c = kc * KC + ci;
+    const float* sbb = sb + (kc & 1) * 2 * KC;
+    float a = 0.f, d = 0.f;
+    if (c < Cin) {
+      const int g = c / cpg;
+      a = rstd_s[g] * sbb[ci];
+      d = fmaf(-mean_s[g], a, sbb[KC + ci]);
+    }
+    const float* xr = xs + (kc & 1) * T::X_STAGE + ci * T::XP + 3;
+    float* hr = hs + (kc & 1) * T::H_STAGE + ci * T::HP;
+    for (int j = tid & 7; j < T::HR; j += 8) {
+      const int l = l0 - 1 + j;
+      hr[j] = l >= 0 && l < L ? silu(fmaf(a, xr[j], d)) : 0.f;
+    }
+  };
+
+  // K-group kg = tid / 128 sums input channels 16 kg .. 16 kg + 15 of every
+  // chunk; its thread (q, pg) output channels co0 + 4 q .. + 3 at positions
+  // l0 + 12 pg .. + 11, as sums over channels in order, then taps 0, 1, 2.
+  const int kg = tid / KTH, q = tid % KTH % T::QG, pg = tid % KTH / T::QG;
+  const int p0 = PT * pg;
+  float acc[PT][QT];
+#pragma unroll
+  for (int i = 0; i < PT; ++i)
+#pragma unroll
+    for (int j = 0; j < QT; ++j) acc[i][j] = 0.f;
+
+  auto products = [&](int kc) {
+    const float* hrow = hs + (kc & 1) * T::H_STAGE + CK * kg * T::HP + p0;
+    const float* wrow = ws + (kc & 1) * T::W_STAGE + CK * kg * 3 * TN + QT * q;
+    float hv[2][PT + 2];  // h at positions l0 + p0 - 1 .. l0 + p0 + 12: all three taps
+    float4 wv[2][3];
+    auto fetch = [&](int s, int c) {
+      const float* hp = hrow + c * T::HP;
+#pragma unroll
+      for (int v = 0; v < PT / 4; ++v) {
+        const float4 h4 = *reinterpret_cast<const float4*>(hp + 4 * v);
+        hv[s][4 * v] = h4.x;
+        hv[s][4 * v + 1] = h4.y;
+        hv[s][4 * v + 2] = h4.z;
+        hv[s][4 * v + 3] = h4.w;
+      }
+      const float2 h2 = *reinterpret_cast<const float2*>(hp + PT);
+      hv[s][PT] = h2.x;
+      hv[s][PT + 1] = h2.y;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        wv[s][k] = *reinterpret_cast<const float4*>(wrow + (c * 3 + k) * TN);
+    };
+    auto step = [&](int s) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int i = 0; i < PT; ++i) {
+          const float h = hv[s][i + k];
+          acc[i][0] = fmaf(wv[s][k].x, h, acc[i][0]);
+          acc[i][1] = fmaf(wv[s][k].y, h, acc[i][1]);
+          acc[i][2] = fmaf(wv[s][k].z, h, acc[i][2]);
+          acc[i][3] = fmaf(wv[s][k].w, h, acc[i][3]);
+        }
+    };
+    fetch(0, 0);
+#pragma unroll 2
+    for (int c = 0; c < CK; c += 2) {
+      fetch(1, c + 1);
+      step(0);
+      if (c + 2 < CK) fetch(0, c + 2);
+      step(1);
+    }
+  };
+
+  // prologue: chunk 0's copies (and chunk 1's raw x) fly while the group
+  // statistics merge
+  load_w(0);
+  load_x(0);
+  tc::cp_async_commit();
+  if (nk > 1) load_x(1);
+  tc::cp_async_commit();
+  for (int g = tid; g < G; g += THREADS)
+    merge_group(partial + ((int64_t)bi * G + g) * nchunks, nchunks, eps, &mean_s[g], &rstd_s[g]);
+  cp_async_wait_all();  // chunk 0's copies, and chunk 1's raw x that transform(1) reads
+  __syncthreads();
+  transform(0);
+  __syncthreads();
+
+  for (int kc = 0; kc < nk; ++kc) {
+    // into the buffers chunk kc - 1 freed: chunk kc + 1's weights, chunk
+    // kc + 2's raw x, scale and bias
+    if (kc + 1 < nk) load_w(kc + 1);
+    if (kc + 2 < nk) load_x(kc + 2);
+    tc::cp_async_commit();
+    if (kc + 1 < nk) transform(kc + 1);
+    products(kc);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // epilogue: y = (sums of K-group 0 + sums of K-group 1) + b, in that
+  // order, through ys[co][m] over the weight stages (no copy in flight), then
+  // stored along l
+  float* ys = smem;
+  if (kg == 1) {
+#pragma unroll
+    for (int i = 0; i < PT; ++i)
+#pragma unroll
+      for (int j = 0; j < QT; ++j) ys[(QT * q + j) * T::YP + p0 + i] = acc[i][j];
+  }
+  __syncthreads();
+  if (kg == 0) {
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      const int co = co0 + QT * q + j;
+      const float bj = co < Cout ? b[co] : 0.f;
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        float* o = ys + (QT * q + j) * T::YP + p0 + i;
+        *o = (acc[i][j] + *o) + bj;
+      }
+    }
+  }
+  __syncthreads();
+  float* yb = y + ((int64_t)bi * Cout + co0) * L + l0;
+  for (int i = tid; i < TN * TL; i += THREADS) {
+    const int n = i / TL, m = i % TL;
+    if (co0 + n < Cout && l0 + m < L) yb[(int64_t)n * L + m] = ys[n * T::YP + m];
+  }
+}
+
+template <int TN>
+static cudaError_t launch_fp32(const float* x, const float3* part, int nchunks, const float* sc,
+                               const float* bs, const float* wt, const float* b, float* y,
+                               int B, int Cin, int Cout, int L, int G, float eps,
+                               cudaStream_t stream) {
+  using T = fp::Tile<TN>;
+  auto kernel = gn_silu_conv3_fp32<TN>;
+  constexpr int kMaxDevices = 64;  // the shared-memory opt-in, once per device
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) smem_set[dev] = true;
+  }
+  const int flags = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? fp::kVecX : 0;
+  const dim3 grid((L + T::TL - 1) / T::TL, (Cout + TN - 1) / TN, B);
+  kernel<<<grid, fp::THREADS, T::SMEM, stream>>>(x, part, nchunks, sc, bs, wt, b, y, Cin, Cout,
+                                                 L, G, eps, flags);
+  return cudaSuccess;
+}
 template <typename T>
 static cudaError_t launch(const void* x, const void* scale, const void* bias, const void* w,
                           const void* b, void* y, void* partial, int B, int Cin, int Cout, int L,
-                          int G, float eps, cudaStream_t stream) {
+                          int G, float eps, int tile_n, cudaStream_t stream) {
   const int n = (Cin / G) * L;
   const int nchunks = stats_chunks(n);
   cudaError_t err = launch_partial_stats(static_cast<const T*>(x), B * G, n,
@@ -549,17 +777,25 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
   const float3* part = static_cast<const float3*>(partial);
   const float* sc = static_cast<const float*>(scale);
   const float* bs = static_cast<const float*>(bias);
+  if (reinterpret_cast<uintptr_t>(w) % 16 != 0) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, float>::value) {
-    const dim3 grid((L + kTL - 1) / kTL, (Cout + kTCO - 1) / kTCO, B);
-    gn_silu_conv3_fma<<<grid, kConvThreads, 0, stream>>>(
-        static_cast<const float*>(x), part, nchunks, sc, bs, static_cast<const float*>(w),
-        static_cast<const float*>(b), static_cast<float*>(y), Cin, Cout, L, G, eps);
+    const auto* xp = static_cast<const float*>(x);
+    const auto* wp = static_cast<const float*>(w);
+    const auto* bp = static_cast<const float*>(b);
+    auto* yp = static_cast<float*>(y);
+    if (tile_n == 128)
+      err = launch_fp32<128>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G, eps, stream);
+    else if (tile_n == 64)
+      err = launch_fp32<64>(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G, eps, stream);
+    else
+      return cudaErrorInvalidValue;
+    if (err != cudaSuccess) return err;
   } else {
-    if (reinterpret_cast<uintptr_t>(w) % 16 != 0) return cudaErrorMisalignedAddress;
     const auto* xp = static_cast<const __nv_bfloat16*>(x);
     const auto* wp = static_cast<const __nv_bfloat16*>(w);
     const auto* bp = static_cast<const __nv_bfloat16*>(b);
     auto* yp = static_cast<__nv_bfloat16*>(y);
+    if (tile_n != tc::KC) return cudaErrorInvalidValue;
     err = launch_tc(xp, part, nchunks, sc, bs, wp, bp, yp, B, Cin, Cout, L, G, eps, stream);
     if (err != cudaSuccess) return err;
   }
@@ -571,22 +807,25 @@ static cudaError_t launch(const void* x, const void* scale, const void* bias, co
 extern "C" {
 
 // x: (B, Cin, L), b: (Cout,), y: (B, Cout, L), all contiguous in one dtype
-// (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32. w: fp32 in torch's
-// (Cout, Cin, 3) layout; bf16 as the kernel's swizzled tiles (see
-// gn_silu_conv3_tc), 16-byte aligned. Returns the cudaError_t of the
+// (0 = fp32, 1 = bf16); scale, bias: (Cin,) fp32. w: the kernel's tiles
+// (fp32: see gn_silu_conv3_fp32; bf16: the swizzled tiles of
+// gn_silu_conv3_tc), 16-byte aligned; tile_n: the tiles' last dimension,
+// which for fp32 is the block's TN (64 or 128) and picks the kernel that
+// reads them, and for bf16 is tc::KC. Returns the cudaError_t of the
 // launches (0 = success).
 int sg_gn_silu_conv3(const void* x, const void* scale, const void* bias, const void* w,
                      const void* b, void* y, void* partial, int B, int Cin, int Cout, int L,
-                     int G, float eps, int dtype, void* stream) {
+                     int G, float eps, int dtype, int tile_n, void* stream) {
   if (G <= 0 || G > sg::kMaxGroups || Cin % G != 0 || B <= 0 || L <= 0 || Cout <= 0 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sg::kFloat32)
-    return (int)sg::launch<float>(x, scale, bias, w, b, y, partial, B, Cin, Cout, L, G, eps, s);
+    return (int)sg::launch<float>(x, scale, bias, w, b, y, partial, B, Cin, Cout, L, G, eps,
+                                  tile_n, s);
   if (dtype == sg::kBFloat16)
     return (int)sg::launch<__nv_bfloat16>(x, scale, bias, w, b, y, partial, B, Cin, Cout, L, G,
-                                          eps, s);
+                                          eps, tile_n, s);
   return (int)cudaErrorInvalidValue;
 }
 

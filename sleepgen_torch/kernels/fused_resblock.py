@@ -10,8 +10,9 @@ the working dtype before the convolution, the convolution accumulates in
 fp32, and the output has x's dtype. The weight is in torch's
 (C_out, C_in, 3) layout, in fp32 or bf16 (an fp32 master under autocast),
 and is rounded to x's dtype; the bf16 kernel reads it as
-``conv_tiles(w, torch.bfloat16)``, which the wrapper makes once per weight
-and version (see ``_cached_tiles``).
+``conv_tiles(w, torch.bfloat16)``, the fp32 kernel as
+``fp32_conv_tiles(w)``, which the wrapper makes once per weight, dtype and
+version (see ``_cached_tiles``).
 
 ``gn_silu_conv3`` runs the plain PyTorch version only for a tensor on the
 CPU. For a CUDA tensor it launches the kernel or raises; it never falls
@@ -34,13 +35,14 @@ from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs,
 # Launches of the CUDA kernel in this process, and the same launches by
 # (B, C_in, C_out, L, G, dtype). chip_smoke.py zeroes both before it
 # drives the main path and reads them after. ``relayouts`` counts the
-# weight re-layouts the bf16 path made (misses of ``_cached_tiles``).
+# weight re-layouts the kernels' paths made (misses of ``_cached_tiles``).
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 relayouts = 0
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
 TILE_N, CHUNK = 128, 64  # tc::TN and tc::KC in csrc/gn_silu_conv3.cu
+FP32_CHUNK = 32  # fp::KC; the fp32 tile's output channels are fp32_tile_n(C_out)
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -83,7 +85,32 @@ def conv_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tenso
     return t.view(nt, nk, 3, TILE_N, CHUNK)
 
 
-# conv_tiles of each weight the kernel has seen: (id(w), dtype) -> (weak
+def fp32_tile_n(c_out: int) -> int:
+    """Output channels of an fp32 block (TN of gn_silu_conv3_fp32): 64 for
+    C_out <= 64, else 128. The rule lives only here: the wrapper passes the
+    tiles' last dimension to the library, which picks the kernel by it."""
+    return 64 if c_out <= 64 else 128
+
+
+def fp32_conv_tiles(w: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's weight layout: (C_out, C_in, 3) -> (ceil(C_out / TN),
+    ceil(C_in / 32), 32, 3, TN) fp32, zero padded, TN = fp32_tile_n(C_out).
+    Entry [t, c, i, k, n] is W[TN t + n, 32 c + i, k], so a block's chunk of
+    32 input channels, all three taps and its TN output channels, is one
+    contiguous run, read as float4 along the output channels."""
+    c_out, c_in, _ = w.shape
+    tn = fp32_tile_n(c_out)
+    nt, nk = -(-c_out // tn), -(-c_in // FP32_CHUNK)
+    w = F.pad(w.float(), (0, 0, 0, nk * FP32_CHUNK - c_in, 0, nt * tn - c_out))
+    return w.reshape(nt, tn, nk, FP32_CHUNK, 3).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def weight_tiles(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The layout the kernel of ``dtype`` reads w in."""
+    return conv_tiles(w, dtype) if dtype == torch.bfloat16 else fp32_conv_tiles(w)
+
+
+# weight_tiles of each weight the kernel has seen: (id(w), dtype) -> (weak
 # reference to w, w._version, tiles). Keyed by the tensor object, not its
 # data_ptr, since a freed weight's memory may come back as another tensor at
 # version 0; an entry goes when its weight is freed, and an in-place update
@@ -99,13 +126,13 @@ def _cached_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Te
     dtype = dtype or w.dtype
     if w.is_inference():  # no version counter: re-laid out on every call
         relayouts += 1
-        return conv_tiles(w, dtype)
+        return weight_tiles(w, dtype)
     key = (id(w), dtype)
     hit = _tiles_cache.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
     relayouts += 1
-    tiles = conv_tiles(w, dtype)
+    tiles = weight_tiles(w, dtype)
     _tiles_cache[key] = (weakref.ref(w, lambda _, k=key: _tiles_cache.pop(k, None)),
                          w._version, tiles)
     return tiles
@@ -142,17 +169,14 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"b must be a contiguous ({c_out},) {x.dtype} tensor "
                          f"on {x.device}")
     lib = _build.load()
-    if x.dtype == torch.bfloat16:
-        w = _cached_tiles(w, x.dtype)
-    else:
-        w = w.to(x.dtype).contiguous()
+    w = _cached_tiles(w, x.dtype)
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
     scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
                           dtype=torch.float32, device=x.device)
     code = lib.sg_gn_silu_conv3(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), scratch.data_ptr(), bsz, c_in, c_out, l,
-        num_groups, eps, DTYPE_CODES[x.dtype],
+        num_groups, eps, DTYPE_CODES[x.dtype], w.shape[-1],
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "gn_silu_conv3")
     global launches

@@ -178,12 +178,13 @@ def test_gn_silu_conv3_is_deterministic(dtype):
                        b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
-def test_gn_silu_conv3_sees_weight_updates():
-    """The bf16 path caches each weight's re-layout; an in-place update of
-    the weight, or a new weight, must not reuse it."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_gn_silu_conv3_sees_weight_updates(dtype):
+    """Each path caches each weight's re-layout; an in-place update of the
+    weight, or a new weight, must not reuse it."""
     x, scale, bias, w, _ = _inputs(14, 2, 64, 96, 128)
-    x, w = x.bfloat16(), w.bfloat16()
-    bb = torch.zeros(128, dtype=torch.bfloat16, device="cuda")
+    x, w = x.to(dtype), w.to(dtype)
+    bb = torch.zeros(128, dtype=dtype, device="cuda")
     before = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
     with torch.no_grad():
         w.neg_()  # with a zero bias, y changes sign exactly
@@ -209,6 +210,50 @@ def test_gn_silu_conv3_takes_fp32_master_weights():
         w.mul_(0.5)
     fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
     assert fused_resblock.relayouts == 2
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
+def test_gn_silu_conv3_lays_out_fp32_weights_once(mode):
+    """The fp32 path reads the weight as fp32_conv_tiles, made once per
+    weight and version: a 1000-step ancestral chain re-lays out each of its
+    weights once, not at every launch."""
+    x, scale, bias, w, bb = _inputs(16, 2, 64, 96, 128)
+    want = fused_resblock.gn_silu_conv3_reference(x, scale, bias, w, bb, 8)
+    fused_resblock.reset_counts()
+    with getattr(torch, mode)():
+        got = [fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8) for _ in range(3)]
+    torch.testing.assert_close(got[0], want, rtol=2e-4, atol=2e-4)
+    assert all(torch.equal(g, got[0]) for g in got)
+    assert fused_resblock.relayouts == 1 and fused_resblock.launches == 3
+    with torch.no_grad():
+        w.mul_(0.5)
+    with getattr(torch, mode)():
+        fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
+    assert fused_resblock.relayouts == 2
+
+
+# The fp32 tile's edges (TN 64 for C_out <= 64, else 128; TL 96 or 48;
+# chunks of 32 input channels): C_out 40, 136, 192; L 8, 37, 130, 1000
+# (37 and 130 not a whole number of 16-byte vectors: element copies);
+# C_in 24 and 96; G 4 to 64; batch 1 and 16; (B, C_in, C_out, L, G, x's
+# offset in floats from an aligned base: 1 forces element copies at L 96)
+FP32_EDGE_CASES = [(1, 24, 40, 37, 4, 0), (16, 96, 136, 130, 8, 0), (1, 96, 192, 1000, 32, 0),
+                   (16, 24, 40, 8, 4, 0), (1, 64, 192, 8, 64, 0), (16, 128, 40, 1000, 64, 0),
+                   (1, 96, 136, 37, 16, 0), (16, 96, 192, 130, 32, 0), (1, 24, 136, 1000, 8, 0),
+                   (16, 64, 64, 96, 32, 1)]
+
+
+@pytest.mark.parametrize("b,cin,cout,l,g,offset", FP32_EDGE_CASES)
+def test_gn_silu_conv3_fp32_at_the_tile_edges(b, cin, cout, l, g, offset):
+    x, scale, bias, w, bb = _inputs(17, b, cin, l, cout)
+    if offset:
+        x = torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape)
+    got = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, g)
+    again = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, g)
+    torch.cuda.synchronize()
+    want = fused_resblock.gn_silu_conv3_reference(x, scale, bias, w, bb, g)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_wrappers_reject_bad_inputs():

@@ -90,19 +90,20 @@ def test_kernel_silu_form_equals_silu():
 
 
 def test_tiles_cache_follows_the_weight():
+    """An fp32 weight's entry holds the fp32 kernel's layout."""
     w = torch.randn(16, 24, 3)
     first = fused_resblock._cached_tiles(w)
     assert fused_resblock._cached_tiles(w) is first
     w.mul_(2.0)  # in place: the version moves, the entry is stale
     again = fused_resblock._cached_tiles(w)
-    assert again is not first and torch.equal(again, fused_resblock.conv_tiles(w))
+    assert again is not first and torch.equal(again, fused_resblock.fp32_conv_tiles(w))
     key = id(w)
     del w
     gc.collect()
     assert key not in fused_resblock._tiles_cache
     with torch.inference_mode():
         wi = torch.randn(16, 24, 3)
-        assert torch.equal(fused_resblock._cached_tiles(wi), fused_resblock.conv_tiles(wi))
+        assert torch.equal(fused_resblock._cached_tiles(wi), fused_resblock.fp32_conv_tiles(wi))
     assert id(wi) not in fused_resblock._tiles_cache
 
 
