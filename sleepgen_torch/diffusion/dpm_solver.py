@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
+from sleepgen_torch.utils.profiling import span
 
 
 def dpm_timesteps(sched: NoiseSchedule, num_inference_steps: int) -> np.ndarray:
@@ -51,30 +52,33 @@ def dpm_solver_pp_2m_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor]
     """DPM-Solver++(2M) from x_T (any layout the model takes) with
     ``num_inference_steps`` model calls; returns the final data prediction
     x0 in fp32. ``model_fn(x, t_batch)`` is the network, read under
-    ``sched.prediction_type``."""
+    ``sched.prediction_type``. Each model call is a ``sampler.step`` span;
+    its data prediction and the solver's move to the next timestep (none
+    after the last call) a ``sampler.update`` span inside it."""
     ts = dpm_timesteps(sched, num_inference_steps).tolist()
     acp = sched.alphas_cumprod_host.astype(np.float64)
     alphas = np.sqrt(acp)  # x_t = alpha_t x0 + sigma_t eps
     sigmas = np.sqrt(1.0 - acp)
     lambdas = np.log(alphas) - np.log(sigmas)  # log-SNR
 
-    def x0_at(x: torch.Tensor, t: int) -> torch.Tensor:
-        t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        return sched.to_x0_eps(model_fn(x, t_b).float(), x, t)[0]
-
     x = x_T.float()
-    x0_cur = x0_at(x, ts[0])
-    x0_older, h_prev = x0_cur, 1.0
-    for i, (t_cur, t_next) in enumerate(zip(ts[:-1], ts[1:])):
-        h = float(lambdas[t_next] - lambdas[t_cur])
-        if i == 0:  # first order on the warm-up step
-            d = x0_cur
-        else:  # second-order extrapolation from the last two predictions
-            c = h / (2.0 * h_prev)
-            d = (1.0 + c) * x0_cur - c * x0_older
-        x = float(sigmas[t_next] / sigmas[t_cur]) * x \
-            - float(alphas[t_next] * math.expm1(-h)) * d
-        x0_older, x0_cur = x0_cur, x0_at(x, t_next)
-        h_prev = h
+    x0_older, h_prev = None, 1.0
+    for i, t_cur in enumerate(ts):
+        with span("sampler.step"):
+            t_b = torch.full((x.shape[0],), t_cur, dtype=torch.int64, device=x.device)
+            out = model_fn(x, t_b).float()
+            with span("sampler.update"):
+                x0_cur = sched.to_x0_eps(out, x, t_cur)[0]
+                if i + 1 < len(ts):
+                    t_next = ts[i + 1]
+                    h = float(lambdas[t_next] - lambdas[t_cur])
+                    if i == 0:  # first order on the warm-up step
+                        d = x0_cur
+                    else:  # second-order extrapolation from the last two predictions
+                        c = h / (2.0 * h_prev)
+                        d = (1.0 + c) * x0_cur - c * x0_older
+                    x = float(sigmas[t_next] / sigmas[t_cur]) * x \
+                        - float(alphas[t_next] * math.expm1(-h)) * d
+                    x0_older, h_prev = x0_cur, h
     # denoise-to-zero: the data prediction at the final (t = 0) state
     return x0_cur

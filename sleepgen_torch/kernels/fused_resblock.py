@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from sleepgen_torch.kernels import _build
 from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs,
                                                group_norm_silu_reference)
+from sleepgen_torch.utils import profiling
 
 # Launches of the CUDA kernel in this process, and the same launches by
 # (B, C_in, C_out, L, G, dtype). chip_smoke.py zeroes both before it
@@ -39,6 +40,9 @@ from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs,
 launches = 0
 launch_shapes: collections.Counter = collections.Counter()
 relayouts = 0
+# While the tracer records (``profiling.recording()``): nanoseconds from the
+# wrapper's entry to its return, the launches they cover, and the re-layouts
+host_ns = traced_launches = traced_relayouts = 0
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
 TILE_N, CHUNK = 128, 64  # tc::TN and tc::KC in csrc/gn_silu_conv3.cu
@@ -47,8 +51,8 @@ WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
-    global launches, relayouts
-    launches = relayouts = 0
+    global launches, relayouts, host_ns, traced_launches, traced_relayouts
+    launches = relayouts = host_ns = traced_launches = traced_relayouts = 0
     launch_shapes.clear()
 
 
@@ -121,17 +125,23 @@ def weight_tiles(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 _tiles_cache: dict = {}
 
 
+def _count_relayout() -> None:
+    global relayouts, traced_relayouts
+    relayouts += 1
+    if profiling.recording():
+        traced_relayouts += 1
+
+
 def _cached_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
-    global relayouts
     dtype = dtype or w.dtype
     if w.is_inference():  # no version counter: re-laid out on every call
-        relayouts += 1
+        _count_relayout()
         return weight_tiles(w, dtype)
     key = (id(w), dtype)
     hit = _tiles_cache.get(key)
     if hit is not None and hit[0]() is w and hit[1] == w._version:
         return hit[2]
-    relayouts += 1
+    _count_relayout()
     tiles = weight_tiles(w, dtype)
     _tiles_cache[key] = (weakref.ref(w, lambda _, k=key: _tiles_cache.pop(k, None)),
                          w._version, tiles)
@@ -146,6 +156,7 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     x (B, C_in, L); scale, bias (C_in,) fp32; w (C_out, C_in, 3) in fp32
     or bf16, rounded to x's dtype; b (C_out,) in x's dtype. Returns
     (B, C_out, L) in x's dtype."""
+    t0 = profiling.clock_ns() if profiling.recording() else 0
     if x.device.type == "cpu":
         return gn_silu_conv3_reference(x, scale, bias, w, b, num_groups, eps)
     if x.device.type != "cuda":
@@ -179,9 +190,12 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         num_groups, eps, DTYPE_CODES[x.dtype], w.shape[-1],
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "gn_silu_conv3")
-    global launches
+    global launches, host_ns, traced_launches
     launches += 1
     launch_shapes[(bsz, c_in, c_out, l, num_groups, str(x.dtype))] += 1
+    if t0:
+        host_ns += profiling.clock_ns() - t0
+        traced_launches += 1
     return y
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from sleepgen_torch.kernels import _build
+from sleepgen_torch.utils import profiling
 
 # Launches of the CUDA kernels in this process, and the same launches by
 # (B, C, L, G, apply_silu, dtype): K1 (``launches``) and K3
@@ -58,6 +59,11 @@ strided_dy_shapes: collections.Counter = collections.Counter()
 # ("K1", "on_chip" | "cluster" | "streaming"), ("K3", "on_chip" | "cluster"
 # | "three_pass")
 form_launches: collections.Counter = collections.Counter()
+# While the tracer records (``profiling.recording()``): nanoseconds from a
+# launcher's entry to its return, and the launches they cover, of K1
+# (``host_ns``, ``traced_launches``) and K3 (``backward_*``)
+host_ns = traced_launches = 0
+backward_host_ns = backward_traced_launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Largest group, (C / G) * L elements, that one block holds on chip
@@ -70,8 +76,10 @@ FORMS = {"K1": ("on_chip", "cluster", "streaming"), "K3": ("on_chip", "cluster",
 
 
 def reset_counts() -> None:
-    global launches, backward_launches
+    global launches, backward_launches, host_ns, traced_launches
+    global backward_host_ns, backward_traced_launches
     launches = backward_launches = 0
+    host_ns = traced_launches = backward_host_ns = backward_traced_launches = 0
     launch_shapes.clear()
     backward_launch_shapes.clear()
     strided_dy_shapes.clear()
@@ -160,6 +168,7 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     """(y, stats) of GroupNorm (+SiLU) without a gradient: y in x's dtype,
     stats (B, G, 2) fp32 [mean, rstd]. K1 on a CUDA tensor, the plain
     version on a CPU one."""
+    t0 = profiling.clock_ns() if profiling.recording() else 0
     if x.device.type == "cpu":
         stats = group_stats_reference(x, num_groups, eps)
         y = _normalized(x, stats, num_groups) * scale.float()[:, None] + bias.float()[:, None]
@@ -181,10 +190,13 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
         int(apply_silu), DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
         ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu")
-    global launches
+    global launches, host_ns, traced_launches
     launches += 1
     launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
     form_launches["K1", FORMS["K1"][form.value]] += 1
+    if t0:
+        host_ns += profiling.clock_ns() - t0
+        traced_launches += 1
     return y, stats
 
 
@@ -194,6 +206,7 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
     """(dx, dscale, dbias) of ``group_norm_silu`` at x for the output
     gradient dy, from the forward's stats (B, G, 2). K3 on CUDA tensors,
     the plain closed form on CPU tensors."""
+    t0 = profiling.clock_ns() if profiling.recording() else 0
     if x.device.type == "cpu":
         return group_norm_silu_backward_reference(x, dy, scale, bias, stats, num_groups,
                                                   apply_silu)
@@ -224,10 +237,13 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
         b, c, l, num_groups, int(apply_silu), DTYPE_CODES[x.dtype],
         torch.cuda.current_stream().cuda_stream, ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu_bwd")
-    global backward_launches
+    global backward_launches, backward_host_ns, backward_traced_launches
     backward_launches += 1
     backward_launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
     form_launches["K3", FORMS["K3"][form.value]] += 1
+    if t0:
+        backward_host_ns += profiling.clock_ns() - t0
+        backward_traced_launches += 1
     return dx, dscale, dbias
 
 

@@ -57,6 +57,7 @@ from sleepgen_torch.nn.layers import (AttentionBlock1d, GroupNorm32, cast_comput
                                       check_kv_block, conv1d, set_fast_math,
                                       timestep_embedding)
 from sleepgen_torch.nn.quant import QuantConv1d, quantize_unet_params
+from sleepgen_torch.utils.profiling import span
 
 
 def _chain(norm: GroupNorm32, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -243,6 +244,11 @@ class UNet1d(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: torch.Tensor | None = None) -> torch.Tensor:
+        with span("unet.forward"):
+            return self._forward(x, timesteps, y)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                 y: torch.Tensor | None) -> torch.Tensor:
         if x.shape[-1] % 2 ** (self.levels - 1):
             raise ValueError(f"length {x.shape[-1]} must divide 2**{self.levels - 1}")
         for ds in self.attention_ds:

@@ -41,6 +41,7 @@ from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_lo
                                              ddpm_sample_loop, sample_dm_conditional,
                                              seed_noise, validate_stage)
 from sleepgen_torch.utils.device import resolve_device
+from sleepgen_torch.utils.profiling import span
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,
                                           load_params_npz, unet_state_from_jax)
 
@@ -139,7 +140,10 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     strict fp32 GroupNorm numerics. The call returns once the work is
     queued on the card; it reads nothing back (with a ``mesh``, the ranks'
     windows are gathered: each call samples this rank's share of the seeds
-    and of the labels, and returns the whole batch)."""
+    and of the labels, and returns the whole batch). A call is a
+    ``sampler.call`` span, holding ``sampler.noise``, the loop's
+    ``sampler.step`` spans, ``sampler.decode`` (decode and crop) and, with
+    a mesh, ``sampler.gather``."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler '{sampler}'; one of {sorted(SAMPLERS)}")
     if guided and not conditional:
@@ -157,14 +161,18 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
             raise ValueError("a guided sampler needs guidance_scale")
         if mesh is not None and labels is not None:
             labels = mesh.shard(labels)
-        with torch.inference_mode():
+        with span("sampler.call"), torch.inference_mode():
             x_T = seed_noise(split_seeds(mesh, seeds), (latent_len, latent_channels), dev)
             model_fn = cond_model_fn(unet, labels if conditional else None, guidance_scale,
                                      guided=guided)
             z = loop(model_fn, sched, x_T.transpose(1, 2), num_inference_steps)
-            signal = ae.decode_stage_2_outputs(z / scale_factor).float()
-            out = signal[:, :, border_pad:-border_pad].transpose(1, 2)
-            return out if mesh is None else mesh.gather(out.contiguous())
+            with span("sampler.decode"):
+                signal = ae.decode_stage_2_outputs(z / scale_factor).float()
+                out = signal[:, :, border_pad:-border_pad].transpose(1, 2)
+            if mesh is None:
+                return out
+            with span("sampler.gather"):
+                return mesh.gather(out.contiguous())
 
     return sample
 
@@ -189,7 +197,7 @@ def make_dm_sampler(unet: UNet1d, sched: NoiseSchedule, signal_len: int = 3072,
     dev = resolve_device(device)
 
     def sample(seeds: Sequence[int], noise: Noise) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("sampler.call"), torch.inference_mode():
             x_T = seed_noise(seeds, (signal_len, 1), dev).transpose(1, 2)
             x = ddpm_sample_loop(unet, sched, x_T, noise, clip_sample=True)
             return x[:, :, BORDER_PAD:-BORDER_PAD].transpose(1, 2)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_step, ddim_timesteps,
                                                 ddpm_step)
+from sleepgen_torch.utils.profiling import span
 
 Noise = Union[torch.Generator, Iterator[torch.Tensor]]
 
@@ -47,12 +48,13 @@ def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...],
     To a CUDA device the noise goes from pinned memory without waiting: a
     copy from pageable memory would wait for the work already queued on
     the stream, such as the previous request's sampler."""
-    noise = torch.stack([torch.randn(shape, generator=torch.Generator().manual_seed(int(s)))
-                         for s in seeds])
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return noise.pin_memory().to(dev, non_blocking=True)
-    return noise.to(dev)
+    with span("sampler.noise"):
+        noise = torch.stack([torch.randn(shape, generator=torch.Generator().manual_seed(int(s)))
+                             for s in seeds])
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            return noise.pin_memory().to(dev, non_blocking=True)
+        return noise.to(dev)
 
 
 def validate_stage(num_classes: int, stage, guidance_scale: float = 1.0) -> None:
@@ -117,13 +119,16 @@ def ddim_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tens
                      sched: NoiseSchedule, x_T: torch.Tensor,
                      num_inference_steps: int = 200, eta: float = 0.0) -> torch.Tensor:
     """Full deterministic DDIM reverse process from x_T (any layout the
-    model takes); returns x_0 in fp32."""
+    model takes); returns x_0 in fp32. Each iteration is a ``sampler.step``
+    span, its DDIM update a ``sampler.update`` span inside it."""
     ratio = sched.num_timesteps // num_inference_steps
     x = x_T.float()
     for t in ddim_timesteps(sched.num_timesteps, num_inference_steps).tolist():
-        t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        out = model_fn(x, t_b)
-        x, _ = ddim_step(sched, out.float(), t, t - ratio, x, eta=eta)
+        with span("sampler.step"):
+            t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+            out = model_fn(x, t_b)
+            with span("sampler.update"):
+                x, _ = ddim_step(sched, out.float(), t, t - ratio, x, eta=eta)
     return x
 
 
@@ -134,13 +139,16 @@ def ddpm_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tens
     each step draws one noise of x's shape from ``generator`` (a
     ``Noise``), t = 0 included. Returns x_0 in fp32. JAX splits a threefry
     key instead, so the two packages draw different noise; parity tests
-    inject it step by step."""
+    inject it step by step. Spans as ``ddim_sample_loop``'s; the update
+    holds the step's noise draw."""
     x = x_T.float()
     for t in range(sched.num_timesteps - 1, -1, -1):
-        t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-        out = model_fn(x, t_b)
-        x, _ = ddpm_step(sched, out.float(), t, x, draw_noise(generator, x),
-                         clip_sample=clip_sample)
+        with span("sampler.step"):
+            t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+            out = model_fn(x, t_b)
+            with span("sampler.update"):
+                x, _ = ddpm_step(sched, out.float(), t, x, draw_noise(generator, x),
+                                 clip_sample=clip_sample)
     return x
 
 

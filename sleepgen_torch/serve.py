@@ -31,6 +31,7 @@ from sleepgen_torch.sample.sample_ldm import (build_models, make_ldm_sampler, pa
                                               read_run_dirs, sampling_schedule, stage_labels)
 from sleepgen_torch.sample.samplers import validate_stage
 from sleepgen_torch.utils.device import resolve_device
+from sleepgen_torch.utils.profiling import span
 
 
 def _queue_host_copy(out: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
@@ -65,10 +66,11 @@ class PendingSample:
         if self._chunks is None:  # idempotent: a second call returns the same array
             return self._out
         outs = []
-        for (host, done), n in zip(self._chunks, self._lens):
-            if done is not None:
-                done.synchronize()
-            outs.append(host.numpy()[:n])
+        with span("service.wait"):
+            for (host, done), n in zip(self._chunks, self._lens):
+                if done is not None:
+                    done.synchronize()
+                outs.append(host.numpy()[:n])
         self._chunks = None
         self._out = np.concatenate(outs, axis=0)
         dt = time.perf_counter() - self._t0
@@ -161,7 +163,12 @@ class SamplerService:
         padded with its last seed), each followed by its copy to the host.
         Arguments are validated here, before anything is queued, so a bad
         request raises ValueError at once. ``PendingSample.result()``
-        waits."""
+        waits. A request is a ``service.enqueue`` span over its samplers'
+        ``sampler.call`` spans; its waits a ``service.wait`` span."""
+        with span("service.enqueue"):
+            return self._enqueue(seeds, stage, guidance_scale)
+
+    def _enqueue(self, seeds, stage, guidance_scale) -> PendingSample:
         guidance_scale = float(guidance_scale)
         validate_stage(self.cfg.unet.num_classes, stage, guidance_scale)
         guided = self.conditional and guidance_scale != 1.0

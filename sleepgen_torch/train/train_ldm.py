@@ -61,6 +61,7 @@ from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREA
 from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.logging import setup_run_dir, split_loggers
+from sleepgen_torch.utils.profiling import span
 from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state,
                                           unet_state_to_jax)
 
@@ -109,14 +110,19 @@ def ldm_losses(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule, scale_fact
     """Per-sample diffusion losses (B,) of windows x (B, C, L) at timesteps
     t (B,), with the latent noise and the encoder's eps given (the tests
     inject them; ``draw_step_inputs`` draws them in training); ``y`` (B,)
-    the labels of a conditional UNet."""
-    z = posterior_sample(ae, x, enc_eps) * scale_factor
-    noisy = sched.add_noise(z, noise, t)
-    target = sched.velocity(z, noise, t) if sched.prediction_type == "v_prediction" else noise
-    with torch.autocast(x.device.type, dtype=compute_dtype,
-                        enabled=compute_dtype != torch.float32):
-        pred = unet(noisy, t, y)
-    return (pred.float() - target).square().mean(dim=(1, 2))
+    the labels of a conditional UNet. The frozen encode is a
+    ``trainer.encode`` span, the rest a ``trainer.forward`` span."""
+    with span("trainer.encode"):
+        z = posterior_sample(ae, x, enc_eps)
+    with span("trainer.forward"):
+        z = z * scale_factor
+        noisy = sched.add_noise(z, noise, t)
+        target = (sched.velocity(z, noise, t) if sched.prediction_type == "v_prediction"
+                  else noise)
+        with torch.autocast(x.device.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
+            pred = unet(noisy, t, y)
+        return (pred.float() - target).square().mean(dim=(1, 2))
 
 
 def draw_step_inputs(gen: torch.Generator, batch: int, latent_shape, num_timesteps: int):
@@ -141,25 +147,31 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     bool is set, the label becomes the null label -1. With a ``mesh`` the
     inputs are this rank's equal shard of the global batch's, the gradient
     is averaged over the ranks before Adam and the loss returned is the
-    global mean."""
+    global mean. A step is a ``trainer.step`` span over ``trainer.encode``,
+    ``trainer.forward``, ``trainer.backward``, ``trainer.allreduce`` (with
+    a mesh), ``trainer.optimizer`` and ``trainer.ema`` (with ``ema``)."""
     named = dict(unet.named_parameters())
 
     def train_step(x, t, noise, enc_eps, y=None, drop=None) -> torch.Tensor:
-        if drop is not None:
-            y = torch.where(drop, torch.full_like(y, -1), y)
-        opt.zero_grad(set_to_none=True)
-        loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
-                          compute_dtype, y).mean()
-        loss.backward()
-        if mesh is not None:
-            mesh.average_gradients(unet.parameters())
-            loss = mesh.mean(loss)
-        opt.step()
-        if ema is not None:
-            with torch.no_grad():
-                for name, e in ema.items():
-                    e.mul_(ema_decay).add_(named[name], alpha=1.0 - ema_decay)
-        return loss.detach()
+        with span("trainer.step"):
+            if drop is not None:
+                y = torch.where(drop, torch.full_like(y, -1), y)
+            opt.zero_grad(set_to_none=True)
+            loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
+                              compute_dtype, y).mean()
+            with span("trainer.backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("trainer.allreduce"):
+                    mesh.average_gradients(unet.parameters())
+                    loss = mesh.mean(loss)
+            with span("trainer.optimizer"):
+                opt.step()
+            if ema is not None:
+                with span("trainer.ema"), torch.no_grad():
+                    for name, e in ema.items():
+                        e.mul_(ema_decay).add_(named[name], alpha=1.0 - ema_decay)
+            return loss.detach()
 
     return train_step
 

@@ -2,25 +2,55 @@
 ``sleepgen/utils/profiling.py``.
 
 ``trace`` writes a ``torch.profiler`` trace (CPU and, where there is one,
-CUDA activity) into a directory; ``flops_of`` counts a function's
-floating-point operations with ``torch.utils.flop_counter``; ``time_step``
-times a step with the card synchronised before each reading of the clock;
-``device_memory_report`` gives each card's allocator statistics under the
-JAX package's keys; ``enable_nan_debugging`` turns on autograd's anomaly
-mode; ``maybe_initialize_multihost`` brings up ``torch.distributed`` from
+CUDA activity) into a directory; ``time_step`` times a step with the card
+synchronised before each reading of the clock; ``device_memory_report``
+gives each card's allocator statistics under the JAX package's keys;
+``enable_nan_debugging`` turns on autograd's anomaly mode;
+``maybe_initialize_multihost`` brings up ``torch.distributed`` from
 torchrun's environment when ``SLEEPGEN_MULTIHOST=1``. The JAX package's
 persistent compilation cache and its TPU contact line have no counterpart
 (the kernels' library is the only build that outlives a process, and it
 is cached by ``kernels/_build.py``).
+
+The program's own tracer: ``span(name)`` marks a layer of the work (the
+sampler's call, noise, steps, update and decode, the UNet's forward, the
+training step's phases, the service's enqueue and wait). A span records
+only while a ``torch.profiler`` session records in this process, or
+inside ``tracing()``; otherwise it costs one check of a flag. A recorded
+span lands in the profiler's trace as a ``record_function`` annotation,
+on the kernels' timeline, and in an in-memory list that ``spans()``
+returns: its name, id, parent's id, trace id (the outermost open span's
+id), its start and end on the host in nanoseconds on the profiler's clock
+(``clock_ns``), and on a CUDA process its device milliseconds between two
+CUDA events recorded on the current stream at its open and close.
+``counters()`` is one snapshot of the kernels' launch counters and their
+host time while the tracer records.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# The clock of the profiler's own events: torch.profiler stamps them with
+# c10::getTime(), CLOCK_REALTIME (through its approximate clock, converted
+# back), and its Chrome trace gives them in microseconds after the trace's
+# ``baseTimeNanoseconds``
+clock_ns = time.time_ns
+# Finished spans kept in memory; those past the cap are counted, not kept
+MAX_SPANS = 65536
+
+_forced = 0  # depth of open tracing() blocks
+_records: List["_Span"] = []
+_dropped = 0
+_ids = itertools.count(1)
+_local = threading.local()  # each thread's stack of open spans
 
 
 @contextlib.contextmanager
@@ -36,15 +66,129 @@ def trace(log_dir: str):
         yield p
 
 
-def flops_of(fn: Callable, *args, **kwargs) -> Optional[float]:
-    """Floating-point operations of one call of ``fn`` (a multiply-add
-    counts two), or None if no operation it runs is counted."""
-    from torch.utils.flop_counter import FlopCounterMode
+def recording() -> bool:
+    """Whether the tracer records: a torch.profiler session records in this
+    process (``torch.profiler.profile`` sets autograd's flag while it
+    records), or a ``tracing()`` block is open."""
+    return bool(_forced or _autograd_profiler._is_profiler_enabled)
 
-    with FlopCounterMode(display=False) as counter:
-        fn(*args, **kwargs)
-    total = counter.get_total_flops()
-    return float(total) if total else None
+
+@contextlib.contextmanager
+def tracing():
+    """Record spans and the kernels' host time in the body without a
+    profiler (blocks may nest)."""
+    global _forced
+    _forced += 1
+    try:
+        yield
+    finally:
+        _forced -= 1
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """One recorded span; see ``span``."""
+
+    __slots__ = ("name", "id", "parent", "trace", "start_ns", "end_ns", "device_ms",
+                 "_annotation", "_events")
+
+    def __init__(self, name: str):
+        self.name, self.id = name, next(_ids)
+        self.device_ms = self._annotation = self._events = None
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1].id if stack else None
+        self.trace = stack[0].id if stack else self.id
+        stack.append(self)
+        self.start_ns = clock_ns()
+        if _autograd_profiler._is_profiler_enabled:
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
+            # the annotation stamps its start inside that call
+            self.start_ns = (self.start_ns + clock_ns()) // 2
+        if torch.cuda.is_initialized():
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        global _dropped
+        if self._events is not None:
+            self._events[1].record()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+            self._annotation = None
+        _stack().pop()
+        self.end_ns = clock_ns()
+        if len(_records) < MAX_SPANS:
+            _records.append(self)
+        else:
+            _dropped += 1
+            self._events = None
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the body as the span ``name`` while
+    the tracer records (``recording()``), and does nothing otherwise."""
+    if _forced or _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def spans() -> List[Dict[str, Any]]:
+    """The finished spans in the order they closed: ``name``, ``id``,
+    ``parent`` (None for a root), ``trace``, ``start_ns`` and ``end_ns``
+    (``clock_ns``), and ``device_ms`` (None off CUDA), resolved here once
+    the card has reached each span's close."""
+    for r in _records:
+        if r._events is not None:
+            r._events[1].synchronize()
+            r.device_ms = r._events[0].elapsed_time(r._events[1])
+            r._events = None
+    return [{"name": r.name, "id": r.id, "parent": r.parent, "trace": r.trace,
+             "start_ns": r.start_ns, "end_ns": r.end_ns, "device_ms": r.device_ms}
+            for r in _records]
+
+
+def counters() -> Dict[str, int]:
+    """One snapshot: the kernels' launch counters since their last
+    ``reset_counts()`` (``k1.launches``, ``k2.launches``, ``k3.launches``,
+    ``k2.relayouts``, ``k1.form.<form>``, ``k3.form.<form>``); the
+    nanoseconds from each wrapper's entry to its return and the launches
+    and K2 weight re-layouts made while the tracer recorded
+    (``k1.host_ns``, ``k1.traced_launches``, ..., ``k2.traced_relayouts``);
+    and ``spans.dropped``, the spans past ``MAX_SPANS``."""
+    from sleepgen_torch.kernels import fused_resblock as k2, group_norm as gn
+
+    out = {"k1.launches": gn.launches, "k2.launches": k2.launches,
+           "k3.launches": gn.backward_launches, "k2.relayouts": k2.relayouts,
+           "k1.host_ns": gn.host_ns, "k2.host_ns": k2.host_ns, "k3.host_ns": gn.backward_host_ns,
+           "k1.traced_launches": gn.traced_launches, "k2.traced_launches": k2.traced_launches,
+           "k3.traced_launches": gn.backward_traced_launches,
+           "k2.traced_relayouts": k2.traced_relayouts, "spans.dropped": _dropped}
+    for (kernel, form), n in sorted(gn.form_launches.items()):
+        out[f"{kernel.lower()}.form.{form}"] = n
+    return out
+
+
+def reset() -> None:
+    """Forget the finished spans and the count of dropped ones (the
+    kernels' counters are zeroed by their modules' ``reset_counts``)."""
+    global _dropped
+    _records.clear()
+    _dropped = 0
 
 
 def _sync() -> None:

@@ -765,3 +765,83 @@ def test_int8_products_on_the_card_equal_the_cpu():
         want = quant.int8_conv_accumulate(xq, quant.weight_matrix(wq), k, cout)
         got = quant.int8_conv_accumulate(xq.cuda(), quant.weight_matrix(wq.cuda()), k, cout)
         assert torch.equal(got.cpu(), want)
+
+
+def _kernel_calls(x, scale, bias, w, bb):
+    """K1 forward and backward (one GroupNorm + SiLU with a gradient) and two K2 launches."""
+    fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+    fused_resblock.gn_silu_conv3(x.bfloat16(), scale, bias, w, bb.bfloat16(), 32)
+    xg = x.clone().requires_grad_()
+    group_norm.group_norm_silu(xg, scale, bias, 32).sum().backward()
+    torch.cuda.synchronize()
+
+
+def test_kernel_host_counters_count_only_while_tracing():
+    """Under ``tracing()`` each wrapper adds its host nanoseconds and the
+    launches they cover; the launch counters read as without tracing, and
+    nothing is added with the tracer off."""
+    from sleepgen_torch.utils import profiling
+
+    inputs = _inputs(51, 4, 64, 768, 64)
+    _kernel_calls(*inputs)  # the library built and the weight's tiles laid out
+    counts = []
+    for traced in (False, True):
+        group_norm.reset_counts()
+        fused_resblock.reset_counts()
+        if traced:
+            with profiling.tracing():
+                _kernel_calls(*inputs)
+        else:
+            _kernel_calls(*inputs)
+        counts.append(profiling.counters())
+    off, on = counts
+    for key in ("k1.launches", "k2.launches", "k3.launches", "k2.relayouts", "k1.form.on_chip",
+                "k3.form.on_chip"):
+        assert off[key] == on[key], key
+    assert (on["k1.launches"], on["k2.launches"], on["k3.launches"]) == (1, 2, 1)
+    for k in ("k1", "k2", "k3"):
+        assert off[f"{k}.host_ns"] == off[f"{k}.traced_launches"] == 0
+        assert on[f"{k}.host_ns"] > 0 and on[f"{k}.traced_launches"] == on[f"{k}.launches"]
+    assert on["k2.traced_relayouts"] == 0
+
+
+def test_traced_stage2_step_phases_sum_to_the_step():
+    """A stage-2 step at the LDM's widths and batch 256 in bf16 (card-bound):
+    the device ms of its four phases, between the tracer's CUDA events, are
+    each >= 0 and sum to within 5 % of the step's synchronised time."""
+    import time
+
+    from sleepgen_torch.diffusion.schedules import NoiseSchedule
+    from sleepgen_torch.nn.aekl import AutoencoderKL
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+    from sleepgen_torch.nn.unet1d import UNet1d
+    from sleepgen_torch.train.train_ldm import make_ldm_train_step
+    from sleepgen_torch.utils import profiling
+
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        ae = cast_compute_dtype(AutoencoderKL().eval(), torch.bfloat16).requires_grad_(False)
+        unet = UNet1d(attention_resolutions=(4,))
+    sched = NoiseSchedule.create("linear_beta", 1000, 0.0015, 0.0195, device="cuda")
+    step = make_ldm_train_step(unet, ae, sched, torch.optim.Adam(unet.parameters(), lr=1e-4),
+                               1.0, torch.bfloat16)
+    b = 256
+    x = torch.randn((b, 1, 3072), device="cuda")
+    t = torch.randint(0, 1000, (b,), device="cuda")
+    noise, eps = torch.randn((b, 1, 768), device="cuda"), torch.randn((b, 1, 768), device="cuda")
+    for _ in range(3):
+        step(x, t, noise, eps)
+    profiling.reset()
+    torch.cuda.synchronize()
+    with profiling.tracing():
+        t0 = time.perf_counter()
+        step(x, t, noise, eps)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    spans = profiling.spans()
+    (root,) = [s for s in spans if s["name"] == "trainer.step"]
+    phases = {s["name"]: s["device_ms"] for s in spans if s["parent"] == root["id"]}
+    assert list(phases) == ["trainer.encode", "trainer.forward", "trainer.backward",
+                            "trainer.optimizer"]
+    assert all(ms is not None and ms >= 0 for ms in phases.values()), phases
+    assert abs(sum(phases.values()) - step_ms) <= 0.05 * step_ms, (phases, step_ms)

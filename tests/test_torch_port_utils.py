@@ -4,8 +4,8 @@ package's ``utils/export.py`` and ``utils/profiling.py`` on the CPU.
 An export of either package loads in the other: the UNet (model_channels
 32, channel_mult (1, 2), attention at ds 2, G 8, latent 64) exported by
 one and loaded by the other gives the exporter's outputs at the model
-bound of tests/test_torch_import.py (rtol 2e-3 / atol 2e-4). ``flops_of``
-is held to the bound of tests/test_profiling.py (within 50 % of 2 M N K).
+bound of tests/test_torch_import.py (rtol 2e-3 / atol 2e-4). The tracer
+of ``utils/profiling.py`` is tested in tests/test_torch_port_tracing.py.
 """
 import json
 
@@ -111,14 +111,6 @@ def test_port_export_loads_in_jax(unet, tmp_path):
     tree = jax_export.load_exported_params(out)
     want = np.asarray(jax.jit(jm.apply)({"params": tree}, jnp.asarray(x), jnp.asarray(t)))
     np.testing.assert_allclose(_port_out(params, x, t), want, rtol=RTOL, atol=ATOL)
-
-
-def test_flops_of_matmul():
-    a, b = torch.zeros((64, 128)), torch.zeros((128, 32))
-    f = profiling.flops_of(lambda x, y: x @ y, a, b)
-    assert f is not None
-    assert abs(f - 2 * 64 * 128 * 32) / (2 * 64 * 128 * 32) < 0.5
-    assert profiling.flops_of(lambda x: x + 1, a) is None
 
 
 def test_time_step_reports_rates():
