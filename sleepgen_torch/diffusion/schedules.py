@@ -5,7 +5,9 @@ DDIMScheduler semantics). Beta tables are computed in float64 with numpy,
 as the reference does, and held as float32 tensors; the step math is fp32.
 Table lookups take a Python int or a per-sample integer tensor and
 broadcast against sample batches of shape (B, ...); the DDIM and DDPM
-steps take the sampler loops' scalar timesteps.
+steps take the sampler loops' scalar timesteps. ``ddim_update`` is the
+DDIM step at given alphas_cumprod values, which ``ddim_tables`` holds per
+step of a loop on the device, so that one step's code serves every step.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ class NoiseSchedule:
         # The same fp32 table on the host, for loops that compute per-step
         # scalars: reading the device table back would wait for the card.
         self.alphas_cumprod_host = acp
+        self._ddim_tables = {}
 
     @classmethod
     def create(cls, schedule: str = "linear_beta", num_timesteps: int = 1000,
@@ -92,8 +95,14 @@ class NoiseSchedule:
                   t) -> Tuple[torch.Tensor, torch.Tensor]:
         """Network output under this schedule's prediction type ->
         (pred_x0, pred_eps)."""
-        sa = self.sqrt_acp(t, x_t.dim())
-        sb = self.sqrt_one_minus_acp(t, x_t.dim())
+        return self.x0_eps(model_out, x_t, self._gather(self.alphas_cumprod, t, x_t.dim()))
+
+    def x0_eps(self, model_out: torch.Tensor, x_t: torch.Tensor,
+               acp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``to_x0_eps`` at the alphas_cumprod value ``acp``, shaped to
+        broadcast against x_t."""
+        sa = torch.sqrt(acp)
+        sb = torch.sqrt(1.0 - acp)
         if self.prediction_type == "epsilon":
             return (x_t - sb * model_out) / sa, model_out
         if self.prediction_type == "sample":
@@ -116,7 +125,16 @@ def ddim_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, t_prev: int
     acp_t = sched._gather(sched.alphas_cumprod, t, ndim)
     acp_prev = (sched._gather(sched.alphas_cumprod, t_prev, ndim) if t_prev >= 0
                 else torch.ones_like(acp_t))
-    x0, eps = sched.to_x0_eps(model_out, x_t, t)
+    return ddim_update(sched, model_out, x_t, acp_t, acp_prev, eta, clip_sample, noise)
+
+
+def ddim_update(sched: NoiseSchedule, model_out: torch.Tensor, x_t: torch.Tensor,
+                acp_t: torch.Tensor, acp_prev: torch.Tensor, eta: float = 0.0,
+                clip_sample: bool = False, noise: torch.Tensor | None = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ddim_step`` at the alphas_cumprod values of t and t_prev, each
+    shaped to broadcast against x_t; returns (x_prev, pred_x0)."""
+    x0, eps = sched.x0_eps(model_out, x_t, acp_t)
     if clip_sample:
         x0 = x0.clamp(-1.0, 1.0)
     var = (1.0 - acp_prev) / (1.0 - acp_t) * (1.0 - acp_t / acp_prev)
@@ -127,6 +145,24 @@ def ddim_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, t_prev: int
             raise ValueError("eta > 0 requires noise")
         x_prev = x_prev + std * noise
     return x_prev, x0
+
+
+def ddim_tables(sched: NoiseSchedule, num_inference_steps: int,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The DDIM loop's steps in order, on ``device``: (timestep (int64),
+    alphas_cumprod at it, at the step's t_prev) of each, the last step's
+    acp_prev 1.0, as ``ddim_step`` takes it where t_prev is negative. Built
+    once per schedule, step count and device from the host's copy of the
+    table, so each value is the device table's."""
+    key = (num_inference_steps, device)
+    if key not in sched._ddim_tables:
+        ts = ddim_timesteps(sched.num_timesteps, num_inference_steps).astype(np.int64)
+        prev = ts - sched.num_timesteps // num_inference_steps
+        acp = sched.alphas_cumprod_host
+        acp_prev = np.where(prev >= 0, acp[np.maximum(prev, 0)], np.float32(1.0))
+        sched._ddim_tables[key] = tuple(torch.as_tensor(a, device=device)
+                                        for a in (ts, acp[ts], acp_prev.astype(np.float32)))
+    return sched._ddim_tables[key]
 
 
 def ddpm_step(sched: NoiseSchedule, model_out: torch.Tensor, t: int, x_t: torch.Tensor,

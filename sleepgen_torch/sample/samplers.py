@@ -7,6 +7,10 @@ over the timesteps; x stays fp32 and the model output is cast to fp32
 before each step, whatever the model's compute dtype. Nothing in them reads
 a value back from the card, so a caller's sample runs behind the host.
 
+The DDIM loop on a CUDA tensor without autograd replays each step as one
+CUDA graph (``ddim_sample_loop``): the host then does one graph launch a
+step, where the eager step dispatches some hundreds of kernels from Python.
+
 Noise of the ancestral loops (``Noise``): a ``torch.Generator`` on x's
 device, from which each draw is one standard normal of x's shape in the
 order the loop documents, or an iterator of tensors given in that same
@@ -15,16 +19,33 @@ torch cannot reproduce).
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Sequence, Tuple, Union
+import copy
+import weakref
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_step, ddim_timesteps,
+from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_tables, ddim_update,
                                                 ddpm_step)
+from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
 Noise = Union[torch.Generator, Iterator[torch.Tensor]]
+
+# CUDA graphs of the DDIM step in this process: captures, replays, and the
+# replays made while the tracer recorded (``profiling.counters()``)
+graph_captures = graph_replays = traced_graph_replays = 0
+# model closure -> schedule -> {(x's shape, device, table length): _StepGraph};
+# an entry goes when its closure or its schedule is freed
+_graphs = weakref.WeakKeyDictionary()
+# The kernels' launch counters that a replay runs again: K1's, K2's and K3's
+# launches, by shape and by form
+_LAUNCH_COUNTERS = ((group_norm, "launches"), (group_norm, "launch_shapes"),
+                    (group_norm, "backward_launches"), (group_norm, "backward_launch_shapes"),
+                    (group_norm, "form_launches"), (fused_resblock, "launches"),
+                    (fused_resblock, "launch_shapes"))
 
 
 def draw_noise(noise: Noise, like: torch.Tensor) -> torch.Tensor:
@@ -115,21 +136,177 @@ def cond_model_fn(unet: Callable[..., torch.Tensor], labels: Optional[torch.Tens
     return model_fn
 
 
+def reset_graph_counts() -> None:
+    global graph_captures, graph_replays, traced_graph_replays
+    graph_captures = graph_replays = traced_graph_replays = 0
+
+
+def ddim_step_fn(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                 sched: NoiseSchedule, tables: Sequence[torch.Tensor], eta: float = 0.0
+                 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """One DDIM step that serves every step of a loop: ``step(x, i)`` runs
+    step ``i`` (a (1,) int64 tensor on x's device) of ``tables``
+    (``ddim_tables``' timesteps, acp_t and acp_prev), gathering them on
+    the device, returns x at the next timestep and adds 1 to ``i`` in
+    place. The model call is followed by a ``sampler.update`` span."""
+    ts, acp_t, acp_prev = tables
+
+    def step(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        shape = (1,) * x.dim()
+        out = model_fn(x, ts.index_select(0, i).expand(x.shape[0]))
+        with span("sampler.update"):
+            x, _ = ddim_update(sched, out.float(), x, acp_t.index_select(0, i).reshape(shape),
+                               acp_prev.index_select(0, i).reshape(shape), eta=eta)
+        i.add_(1)
+        return x
+
+    return step
+
+
 def ddim_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                      sched: NoiseSchedule, x_T: torch.Tensor,
                      num_inference_steps: int = 200, eta: float = 0.0) -> torch.Tensor:
     """Full deterministic DDIM reverse process from x_T (any layout the
-    model takes); returns x_0 in fp32. Each iteration is a ``sampler.step``
-    span, its DDIM update a ``sampler.update`` span inside it."""
-    ratio = sched.num_timesteps // num_inference_steps
+    model takes); returns x_0 in fp32, in a tensor of the caller's. Each
+    iteration is a ``sampler.step`` span.
+
+    On a CUDA tensor without autograd the steps replay one CUDA graph of
+    ``ddim_step_fn`` (``_StepGraph``), kept for later calls with the same
+    model closure, schedule, shape and device; the first call runs step 0
+    eagerly, then captures (a ``sampler.capture`` span) and replays the
+    rest. Otherwise each step runs eagerly, its DDIM update a
+    ``sampler.update`` span inside the step's. Both run the same step, so
+    they give the same bits."""
+    tables = ddim_tables(sched, num_inference_steps, x_T.device)
+    if x_T.is_cuda and not torch.is_grad_enabled():
+        return _ddim_graph_loop(model_fn, sched, x_T, tables, eta)
+    step = ddim_step_fn(model_fn, sched, tables, eta)
     x = x_T.float()
-    for t in ddim_timesteps(sched.num_timesteps, num_inference_steps).tolist():
+    i = torch.zeros(1, dtype=torch.int64, device=x.device)
+    for _ in range(num_inference_steps):
         with span("sampler.step"):
-            t_b = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
-            out = model_fn(x, t_b)
-            with span("sampler.update"):
-                x, _ = ddim_step(sched, out.float(), t, t - ratio, x, eta=eta)
+            x = step(x, i)
     return x
+
+
+def _launch_counts() -> list:
+    return [copy.copy(getattr(m, name)) for m, name in _LAUNCH_COUNTERS]
+
+
+def _take_back_launches(before: list) -> list:
+    """The launches counted since ``before``, taken back off the counters
+    (a capture runs nothing)."""
+    made = []
+    for (m, name), was in zip(_LAUNCH_COUNTERS, before):
+        now = getattr(m, name)
+        made.append(now - was)
+        if isinstance(was, int):
+            setattr(m, name, was)
+        else:  # Counters are mutated in place: other modules hold them
+            now.clear()
+            now.update(was)
+    return made
+
+
+def _add_launches(made: list, times: int) -> None:
+    for (m, name), d in zip(_LAUNCH_COUNTERS, made):
+        if isinstance(d, int):
+            setattr(m, name, getattr(m, name) + times * d)
+        else:
+            counter = getattr(m, name)
+            for k, v in d.items():
+                counter[k] += times * v
+
+
+class _StepGraph:
+    """One DDIM step captured as a CUDA graph over static buffers: x, the
+    step index and tables of ``length`` steps, into which each call copies
+    its x_T and its ``ddim_tables``. The graph reads K2's weight tiles by
+    address, so it is stale once any tile in K2's cache at the capture has
+    been re-laid out or its weight updated in place; the weights that
+    cuDNN, K1 and the casts read are read in place. It holds no reference to
+    the model closure, and its buffers serve one call at a time (one thread's).
+    eta is not in its key: a step with eta > 0 needs noise, which the loop
+    does not draw, so its first, eager step raises."""
+
+    def __init__(self, shape: torch.Size, device: torch.device, length: int):
+        with torch.inference_mode(False):  # buffers any later call may write
+            self.x = torch.empty(shape, dtype=torch.float32, device=device)
+            self.i = torch.zeros(1, dtype=torch.int64, device=device)
+            self.tables = (torch.zeros(length, dtype=torch.int64, device=device),
+                           torch.ones(length, device=device), torch.ones(length, device=device))
+        self.graph = None
+        self.launches: List = []
+        self.tiles: List = []
+
+    def load(self, x_T: torch.Tensor, tables: Sequence[torch.Tensor]) -> None:
+        self.x.copy_(x_T)
+        self.i.zero_()
+        for static, t in zip(self.tables, tables):
+            static[:len(t)].copy_(t)
+
+    def capture(self, step: Callable) -> None:
+        global graph_captures
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.x.device)
+        stream.wait_stream(torch.cuda.current_stream(self.x.device))
+        with span("sampler.capture"), torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                self.x.copy_(step(self.x, self.i))
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.x.device).wait_stream(stream)
+        self.graph, self.launches = graph, _take_back_launches(before)
+        self.tiles = list(fused_resblock._tiles_cache.items())
+        graph_captures += 1
+
+    def fresh(self) -> bool:
+        """Whether every entry of K2's tile cache at the capture is still
+        there, for a weight at the version it was laid out from."""
+        cache = fused_resblock._tiles_cache
+        return all(cache.get(key) is hit and (w := hit[0]()) is not None and w._version == hit[1]
+                   for key, hit in self.tiles)
+
+    def replay(self, n: int) -> None:
+        """``n`` steps, each a ``sampler.step`` span around one replay; the
+        kernels' launch counters gain the capture's launches per replay."""
+        global graph_replays, traced_graph_replays
+        for _ in range(n):
+            with span("sampler.step"):
+                self.graph.replay()
+            traced_graph_replays += profiling.recording()
+        graph_replays += n
+        _add_launches(self.launches, n)
+
+
+def _graphs_of(model_fn: Callable, sched: NoiseSchedule) -> dict:
+    try:
+        by_sched = _graphs.setdefault(model_fn, weakref.WeakKeyDictionary())
+    except TypeError:  # a closure without weak references keeps its graph for one call
+        by_sched = weakref.WeakKeyDictionary()
+    return by_sched.setdefault(sched, {})
+
+
+def _ddim_graph_loop(model_fn: Callable, sched: NoiseSchedule, x_T: torch.Tensor,
+                     tables: Sequence[torch.Tensor], eta: float) -> torch.Tensor:
+    n = len(tables[0])
+    graphs = _graphs_of(model_fn, sched)
+    key = (tuple(x_T.shape), x_T.device, max(sched.num_timesteps, n))
+    g = graphs.get(key)
+    captured = g is not None and g.fresh()
+    if not captured:
+        g = _StepGraph(x_T.shape, x_T.device, key[2])
+    g.load(x_T, tables)
+    if not captured:
+        step = ddim_step_fn(model_fn, sched, g.tables, eta)
+        with span("sampler.step"):  # settles first-call work and K2's tiles
+            g.x.copy_(step(g.x, g.i))
+        g.capture(step)
+        graphs[key] = g
+    g.replay(n if captured else n - 1)
+    return g.x.clone()
 
 
 def ddpm_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],

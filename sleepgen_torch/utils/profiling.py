@@ -22,9 +22,11 @@ on the kernels' timeline, and in an in-memory list that ``spans()``
 returns: its name, id, parent's id, trace id (the outermost open span's
 id), its start and end on the host in nanoseconds on the profiler's clock
 (``clock_ns``), and on a CUDA process its device milliseconds between two
-CUDA events recorded on the current stream at its open and close.
-``counters()`` is one snapshot of the kernels' launch counters and their
-host time while the tracer records.
+CUDA events recorded on the current stream at its open and close (none
+for a span opened while that stream captures a CUDA graph, which must not
+hold them). ``counters()`` is one snapshot of the kernels' launch counters
+and their host time while the tracer records, and of the sampler's CUDA
+graphs.
 """
 from __future__ import annotations
 
@@ -113,7 +115,7 @@ class _Span:
             self._annotation.__enter__()
             # the annotation stamps its start inside that call
             self.start_ns = (self.start_ns + clock_ns()) // 2
-        if torch.cuda.is_initialized():
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
             self._events = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
             self._events[0].record()
@@ -169,26 +171,38 @@ def counters() -> Dict[str, int]:
     nanoseconds from each wrapper's entry to its return and the launches
     and K2 weight re-layouts made while the tracer recorded
     (``k1.host_ns``, ``k1.traced_launches``, ..., ``k2.traced_relayouts``);
-    and ``spans.dropped``, the spans past ``MAX_SPANS``."""
+    the DDIM loop's CUDA graphs captured and replayed, and replayed while
+    the tracer recorded (``sampler.graph_captures``,
+    ``sampler.graph_replays``, ``sampler.traced_graph_replays``); and
+    ``spans.dropped``, the spans past ``MAX_SPANS``."""
     from sleepgen_torch.kernels import fused_resblock as k2, group_norm as gn
+    from sleepgen_torch.sample import samplers
 
     out = {"k1.launches": gn.launches, "k2.launches": k2.launches,
            "k3.launches": gn.backward_launches, "k2.relayouts": k2.relayouts,
            "k1.host_ns": gn.host_ns, "k2.host_ns": k2.host_ns, "k3.host_ns": gn.backward_host_ns,
            "k1.traced_launches": gn.traced_launches, "k2.traced_launches": k2.traced_launches,
            "k3.traced_launches": gn.backward_traced_launches,
-           "k2.traced_relayouts": k2.traced_relayouts, "spans.dropped": _dropped}
+           "k2.traced_relayouts": k2.traced_relayouts,
+           "sampler.graph_captures": samplers.graph_captures,
+           "sampler.graph_replays": samplers.graph_replays,
+           "sampler.traced_graph_replays": samplers.traced_graph_replays,
+           "spans.dropped": _dropped}
     for (kernel, form), n in sorted(gn.form_launches.items()):
         out[f"{kernel.lower()}.form.{form}"] = n
     return out
 
 
 def reset() -> None:
-    """Forget the finished spans and the count of dropped ones (the
-    kernels' counters are zeroed by their modules' ``reset_counts``)."""
+    """Forget the finished spans and the count of dropped ones, and zero the
+    sampler's graph counters (the kernels' counters are zeroed by their
+    modules' ``reset_counts``)."""
+    from sleepgen_torch.sample import samplers
+
     global _dropped
     _records.clear()
     _dropped = 0
+    samplers.reset_graph_counts()
 
 
 def _sync() -> None:

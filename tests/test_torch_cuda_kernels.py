@@ -845,3 +845,188 @@ def test_traced_stage2_step_phases_sum_to_the_step():
                             "trainer.optimizer"]
     assert all(ms is not None and ms >= 0 for ms in phases.values()), phases
     assert abs(sum(phases.values()) - step_ms) <= 0.05 * step_ms, (phases, step_ms)
+
+
+# -- the DDIM loop's CUDA graph (sample/samplers.py) ----------------------------
+
+def _ldm_parts(steps=5, batch=4, dtype=torch.bfloat16, length=768, **unet_kw):
+    """A UNet at the LDM's widths with torch's initial weights (no parameter
+    needing a gradient), the sampling schedule, and x_T."""
+    from sleepgen_torch.diffusion.schedules import NoiseSchedule
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+    from sleepgen_torch.nn.unet1d import UNet1d
+
+    torch.manual_seed(61)
+    with torch.device("cuda"):
+        unet = UNet1d(attention_resolutions=unet_kw.pop("attention_resolutions", (4,)),
+                      **unet_kw)
+    unet = cast_compute_dtype(unet.eval(), dtype).requires_grad_(False)
+    sched = NoiseSchedule.create("scaled_linear_beta", 1000, 0.0015, 0.0205,
+                                 prediction_type="v_prediction", device="cuda")
+    x_T = torch.randn((batch, 1, length), generator=torch.Generator().manual_seed(62)).cuda()
+    return unet, sched, x_T
+
+
+def _graphed(model_fn, sched, x_T, steps):
+    """The loop as the samplers run it: no autograd, so its steps replay a graph."""
+    from sleepgen_torch.sample.samplers import ddim_sample_loop
+
+    with torch.inference_mode():
+        return ddim_sample_loop(model_fn, sched, x_T, steps)
+
+
+def _eager(model_fn, sched, x_T, steps):
+    """The same loop step by step: grad mode on, no parameter needing a gradient."""
+    from sleepgen_torch.sample.samplers import ddim_sample_loop
+
+    with torch.enable_grad():
+        return ddim_sample_loop(model_fn, sched, x_T, steps)
+
+
+def _graph_counts():
+    from sleepgen_torch.utils import profiling
+
+    c = profiling.counters()
+    return c["sampler.graph_captures"], c["sampler.graph_replays"]
+
+
+@pytest.mark.parametrize("model", ["ldm", "dm", "ldm-int8"])
+def test_ddim_graph_gives_the_eager_bits(model):
+    """The loop replaying its graph gives the eager loop's bits: on the call
+    that captures (step 0 eager, then replays) and on one that only replays."""
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+    from sleepgen_torch.nn.unet1d import quantize_unet
+
+    steps = 5
+    if model == "dm":
+        unet, sched, x_T = _ldm_parts(batch=2, length=3072, attention_resolutions=(8, 4))
+    elif model == "ldm-int8":  # quantized from fp32 weights, run in bf16, as the samplers do
+        unet, sched, x_T = _ldm_parts(dtype=torch.float32)
+        unet = cast_compute_dtype(quantize_unet(unet), torch.bfloat16).requires_grad_(False)
+    else:
+        unet, sched, x_T = _ldm_parts()
+    want = _eager(unet, sched, x_T, steps)
+    before = _graph_counts()
+    first = _graphed(unet, sched, x_T, steps)
+    second = _graphed(unet, sched, x_T, steps)
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 2 * steps - 1)
+    assert torch.isfinite(want).all()
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+def test_ldm_sampler_replays_and_gives_the_eager_bits():
+    """``make_ldm_sampler``'s DDIM call (batch 4, AEKL decode) replays its
+    steps from the second call on and gives the eager loop's windows."""
+    from sleepgen_torch.nn.aekl import AutoencoderKL
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+    from sleepgen_torch.sample.sample_ldm import make_ldm_sampler
+    from sleepgen_torch.sample.samplers import seed_noise
+
+    unet, sched, _ = _ldm_parts()
+    with torch.device("cuda"):
+        ae = cast_compute_dtype(AutoencoderKL().eval(), torch.bfloat16).requires_grad_(False)
+    sample = make_ldm_sampler(unet, ae, sched, num_inference_steps=4, device="cuda")
+    seeds = [3, 4, 5, 6]
+    z = _eager(unet, sched, seed_noise(seeds, (768, 1), "cuda").transpose(1, 2), 4)
+    with torch.inference_mode():
+        signal = ae.decode_stage_2_outputs(z / 1.5).float()
+    want = signal[:, :, 36:-36].transpose(1, 2)
+    before = _graph_counts()
+    got = [sample(1.5, seeds) for _ in range(3)]
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 3 * 4 - 1)
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_guided_closure_captures_per_call_and_frees_its_graph():
+    """A closure made per call (guided sampling) captures on each call, and
+    its graph goes with it."""
+    from sleepgen_torch.sample import samplers
+
+    unet, sched, x_T = _ldm_parts(batch=2, num_classes=5)
+    labels = torch.tensor([1, 3], device="cuda")
+    want = _eager(samplers.cond_model_fn(unet, labels, 2.0), sched, x_T, 3)
+    before = _graph_counts()
+    for _ in range(2):
+        got = _graphed(samplers.cond_model_fn(unet, labels, 2.0), sched, x_T, 3)
+        assert torch.equal(got, want)
+    after = _graph_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 4)
+    assert not any(k is not unet for k in samplers._graphs.keys())
+
+
+@pytest.mark.parametrize("change", ["k2_weight_in_place", "k2_relayout", "other_weight"])
+def test_ddim_graph_follows_weight_updates(change):
+    """After an in-place update of a K2 weight, or its re-layout by an eager
+    call, the loop captures again and samples the new weights; a weight that
+    cuDNN reads in place needs no new capture."""
+    unet, sched, x_T = _ldm_parts()
+    _graphed(unet, sched, x_T, 3)
+    conv = unet.input_blocks[1][0].in_layers["2"]  # the first resblock's K2 convolution
+    with torch.no_grad():
+        if change == "other_weight":
+            unet.input_blocks[0][0].weight.mul_(1.5)  # conv_in, a cuDNN convolution
+        else:
+            conv.weight.mul_(1.5)
+    if change == "k2_relayout":
+        _eager(unet, sched, x_T, 1)  # K2's cache lays the updated weight out again
+    before = _graph_counts()
+    got = _graphed(unet, sched, x_T, 3)
+    captures = _graph_counts()[0] - before[0]
+    assert captures == (0 if change == "other_weight" else 1)
+    assert torch.equal(got, _eager(unet, sched, x_T, 3))
+
+
+def test_ddim_graph_outputs_do_not_alias():
+    """Each call returns a tensor of its own: a later call does not touch it."""
+    unet, sched, x_T = _ldm_parts(batch=2)
+    a = _graphed(unet, sched, x_T, 3)
+    kept = a.clone()
+    b = _graphed(unet, sched, x_T * 0.5, 3)
+    c = _graphed(unet, sched, x_T, 3)
+    assert len({a.data_ptr(), b.data_ptr(), c.data_ptr()}) == 3
+    assert torch.equal(a, kept) and torch.equal(c, kept) and not torch.equal(b, kept)
+
+
+def test_ddim_graph_replays_count_the_eager_launches():
+    """K1's, K2's and K3's launch counters, by shape and by form, read after
+    a capturing call and after a replaying one as after the eager loop."""
+    unet, sched, x_T = _ldm_parts(batch=2)
+    _eager(unet, sched, x_T, 1)
+
+    def counted(run):
+        group_norm.reset_counts()
+        fused_resblock.reset_counts()
+        run(unet, sched, x_T, 4)
+        torch.cuda.synchronize()
+        return (group_norm.launches, group_norm.backward_launches, fused_resblock.launches,
+                dict(group_norm.launch_shapes), dict(group_norm.form_launches),
+                dict(fused_resblock.launch_shapes))
+
+    want = counted(_eager)
+    assert want[0] > 0 and want[2] > 0
+    assert counted(_graphed) == want  # capturing: step 0 eager, 3 replays
+    assert counted(_graphed) == want  # 4 replays
+
+
+def test_ddim_graph_captures_and_replays_under_the_tracer():
+    """With the tracer on, the capture works (its spans hold no CUDA events),
+    every step is a ``sampler.step`` span with device time, the replays made
+    while tracing are counted, and the bits are the eager loop's."""
+    from sleepgen_torch.utils import profiling
+
+    unet, sched, x_T = _ldm_parts(batch=2)
+    want = _eager(unet, sched, x_T, 4)
+    profiling.reset()
+    with profiling.tracing():
+        got = [_graphed(unet, sched, x_T, 4) for _ in range(2)]
+    spans = profiling.spans()
+    steps = [s for s in spans if s["name"] == "sampler.step"]
+    assert len(steps) == 8 and all(s["device_ms"] is not None for s in steps)
+    assert len([s for s in spans if s["name"] == "sampler.capture"]) == 1
+    c = profiling.counters()
+    assert (c["sampler.graph_captures"], c["sampler.graph_replays"],
+            c["sampler.traced_graph_replays"]) == (1, 7, 7)
+    assert all(torch.equal(g, want) for g in got)
+    profiling.reset()
