@@ -88,7 +88,7 @@ def main(argv=None):
     else:
         cfg, unet_state = read_model_dir(args.diffusion_path, "final_model")
     try:
-        validate_stage(cfg.unet.num_classes, args.stage, args.guidance_scale)
+        validate_stage(cfg.num_classes, args.stage, args.guidance_scale)
     except ValueError as e:
         raise SystemExit(str(e))
 
@@ -101,12 +101,12 @@ def main(argv=None):
 
     if latent_mode:
         unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg)
-        # cfg.unet.image_size is the latent length: the signal window is it
+        # cfg.image_size is the latent length: the signal window is it
         # times 2 per AEKL downsampling
-        window = cfg.unet.image_size * 2 ** (len(aekl_cfg.aekl.num_channels) - 1)
+        window = cfg.image_size * 2 ** (len(aekl_cfg.aekl.num_channels) - 1)
     else:
         unet = build_dm(cfg, unet_state, dev)
-        window = cfg.unet.image_size
+        window = cfg.image_size
     set_fast_math(unet, False)  # the JAX CLI's UNet takes no fast_math
     if length + 2 * BORDER_PAD != window:
         raise SystemExit(f"window length {length} + 2*{BORDER_PAD} pad must equal the "
@@ -122,7 +122,7 @@ def main(argv=None):
     mask_t = torch.from_numpy(mask).to(dev)
     sched = make_schedule(cfg, dev)
     bs = args.batch_size
-    labels = stage_labels(args.stage, bs, dev) if cfg.unet.num_classes > 0 else None
+    labels = stage_labels(args.stage, bs, dev) if cfg.num_classes > 0 else None
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

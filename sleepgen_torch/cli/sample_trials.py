@@ -32,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_psd", action="store_true")
     p.add_argument("--stage", type=int, default=None,
                    help="sleep-stage label for class-conditional checkpoints "
-                        "(config.unet.num_classes>0); artifacts land in a "
+                        "(the denoiser's num_classes > 0); artifacts land in a "
                         "stage-suffixed directory. Omit for unconditional.")
     p.add_argument("--guidance_scale", type=float, default=1.0,
                    help="classifier-free guidance scale (conditional "
@@ -61,13 +61,13 @@ def main(argv=None):
     cfg.diffusion.num_inference_steps = args.num_inference_steps
     cfg.diffusion.sampler = args.sampler
     try:
-        validate_stage(cfg.unet.num_classes, args.stage, args.guidance_scale)
+        validate_stage(cfg.num_classes, args.stage, args.guidance_scale)
     except ValueError as e:
         raise SystemExit(str(e))
 
     lc = aekl_cfg.aekl.latent_channels
     type_dataset = args.type_dataset or cfg.dataset
-    suffix = f"_stage{args.stage}" if cfg.unet.num_classes > 0 else ""
+    suffix = f"_stage{args.stage}" if cfg.num_classes > 0 else ""
     out = Path(args.output_dir) / f"samples_ldm_{lc}_{args.spe}_{type_dataset}{suffix}"
     sigs = sample_ldm_trials(cfg, unet_state, ae_state, scale_factor, out,
                              start_seed=args.start_seed, stop_seed=args.stop_seed,

@@ -33,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--psd", action="store_true")
     p.add_argument("--stage", type=int, default=None,
                    help="default sleep-stage label for class-conditional "
-                        "checkpoints (config.unet.num_classes>0); required "
+                        "checkpoints (the denoiser's num_classes > 0); required "
                         "for them unless every request carries a 'stage' "
                         "field. Omit for unconditional checkpoints.")
     p.add_argument("--guidance_scale", type=float, default=1.0,
@@ -73,7 +73,7 @@ def main(argv=None):
     svc = SamplerService.from_run_dirs(args.best_model_path, args.diffusion_path,
                                        batch_size=args.batch_size, device=args.device)
     if svc.conditional and args.stage is None:
-        print(f"conditional checkpoint (num_classes={svc.cfg.unet.num_classes}): "
+        print(f"conditional checkpoint (num_classes={svc.cfg.num_classes}): "
               f"requests must carry a 'stage' field (no --stage default given)", flush=True)
     warmup_s = svc.warmup()
     print(f"ready (warm-up {warmup_s:.1f}s, batch {args.batch_size})", flush=True)

@@ -24,7 +24,7 @@ Targets, each at each ``--batch_sizes`` (samplers) or ``--train_batch``
 - ``dpm``: DPM++2M at the config's step count if it samples with it,
   else at 20 steps.
 
-A conditional config (``unet.num_classes`` > 0) runs each sampler at
+A conditional config (the denoiser's ``num_classes`` > 0) runs each sampler at
 stage 0, plain and then guided.
 
 Usage:
@@ -71,12 +71,12 @@ def main(argv=None) -> None:
     unknown = targets - {"aekl", "ldm", "sampler", "dpm"}
     if unknown:
         raise SystemExit(f"unknown targets {sorted(unknown)}; use aekl,ldm,sampler,dpm")
-    conditional = cfg.unet.num_classes > 0
+    conditional = cfg.num_classes > 0
     batches = [int(b) for b in args.batch_sizes.split(",")]
     dev = resolve_device(args.device)
     dtype = DTYPES[cfg.dtype]
     # the signal geometry of the config: latent length x 2^(AEKL downsamplings)
-    window = cfg.unet.image_size * 2 ** (len(cfg.aekl.num_channels) - 1)
+    window = cfg.image_size * 2 ** (len(cfg.aekl.num_channels) - 1)
     in_ch, lc = cfg.aekl.in_channels, cfg.aekl.latent_channels
     train_batch = args.train_batch or cfg.train.batch_size
     gen = C.make_generator(cfg.train.seed, dev)
@@ -116,7 +116,7 @@ def main(argv=None) -> None:
         inputs = T.draw_step_inputs(gen, train_batch, (lc, C.latent_length(cfg, window)),
                                     sched.num_timesteps)
         if conditional:
-            labels = torch.arange(train_batch, device=dev) % cfg.unet.num_classes
+            labels = torch.arange(train_batch, device=dev) % cfg.num_classes
             inputs += (labels, C.draw_label_drop(gen, train_batch, cfg.train.cond_dropout_prob))
         clock(f"ldm train step batch {train_batch}", lambda: step(x, *inputs))
         del unet, ae, sched, opt, step, x, inputs
@@ -133,7 +133,7 @@ def main(argv=None) -> None:
     sched = sampling_schedule(cfg, dev)
     for _, kind, steps in kinds:
         for guided in (False, True) if conditional else (False,):
-            s = make_ldm_sampler(unet, ae, sched, cfg.unet.image_size, lc, steps,
+            s = make_ldm_sampler(unet, ae, sched, cfg.image_size, lc, steps,
                                  sampler=kind, device=dev, conditional=conditional,
                                  guided=guided)
             for b in batches:

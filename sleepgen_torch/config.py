@@ -116,6 +116,20 @@ class UNetConfig:
 
 
 @dataclass
+class DiTConfig:
+    """The DiT denoiser (``nn/dit.py``), named as the published ``DiT``'s
+    arguments; the defaults are DiT-XL/2's widths, unconditional, on the
+    768-sample latent."""
+    input_size: int = 768
+    patch_size: int = 2
+    hidden_size: int = 1152
+    depth: int = 28
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_classes: int = 0
+
+
+@dataclass
 class DiffusionConfig:
     timesteps: int = 1000
     beta_schedule: str = "linear_beta"  # training schedule
@@ -140,6 +154,9 @@ class Config:
     aekl: AEKLModelConfig = field(default_factory=AEKLModelConfig)
     discriminator: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
     unet: UNetConfig = field(default_factory=UNetConfig)
+    dit: DiTConfig = field(default_factory=DiTConfig)
+    # The stage-2 denoiser: "unet" (``unet``) or "dit" (``dit``)
+    denoiser: str = "unet"
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     spectral: bool = False
     dataset: str = "edfx"
@@ -150,6 +167,17 @@ class Config:
     # fp32); nn/layers.py::attention. Sampling and training each have one.
     fast_sampling_math: bool = True
     fast_train_math: bool = True
+
+    @property
+    def num_classes(self) -> int:
+        """The denoiser's class labels: 0 for an unconditional one."""
+        return self.dit.num_classes if self.denoiser == "dit" else self.unet.num_classes
+
+    @property
+    def image_size(self) -> int:
+        """The length of the denoiser's input (the latent's, or the DM's
+        window)."""
+        return self.dit.input_size if self.denoiser == "dit" else self.unet.image_size
 
     # -- I/O ------------------------------------------------------------------
     def to_yaml(self, path: str | Path) -> None:
@@ -173,7 +201,7 @@ class Config:
             if f.name in raw:
                 sub = raw[f.name]
                 if f.name in ("train", "losses", "aekl", "discriminator",
-                              "unet", "diffusion"):
+                              "unet", "dit", "diffusion"):
                     setattr(cfg, f.name, _replace_known(getattr(cfg, f.name), sub))
                 else:
                     setattr(cfg, f.name, sub)

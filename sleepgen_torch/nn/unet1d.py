@@ -280,7 +280,12 @@ def quantize_unet(unet: UNet1d) -> UNet1d:
     JAX package quantizes its fp32 parameters), on the same device, in eval
     mode, its linear layers in ``unet``'s compute dtype, its attention on
     the strict path (the JAX package's int8 UNet never takes fast_math). A
-    UNet that is already quantized is returned as it is."""
+    UNet that is already quantized is returned as it is; any other
+    denoiser raises ValueError (the int8 path quantizes UNet convolutions
+    only)."""
+    if not isinstance(unet, UNet1d):
+        raise ValueError(f"int8 sampling quantizes UNet1d convolutions only; "
+                         f"a {type(unet).__name__} has no int8 path")
     if unet.config["quantized"]:
         return unet
     dtype = unet.time_embed["0"].weight.dtype

@@ -24,7 +24,7 @@ depend on the world size. Only rank 0 writes artifacts.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from sleepgen_torch.data.transforms import BORDER_PAD, to_bcl
 from sleepgen_torch.diffusion.dpm_solver import dpm_solver_pp_2m_sample_loop
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
+from sleepgen_torch.nn.dit import DiT1d
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d, quantize_unet
 from sleepgen_torch.parallel.mesh import Mesh, split_seeds
@@ -42,10 +43,13 @@ from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_lo
                                              seed_noise, validate_stage)
 from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.profiling import span
-from sleepgen_torch.utils.weights import (aekl_state_from_jax, load_numpy_state,
-                                          load_params_npz, unet_state_from_jax)
+from sleepgen_torch.utils.weights import (aekl_state_from_jax, denoiser_state_from_tree,
+                                          load_numpy_state, load_params_npz)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# A stage-2 denoiser: (B, C, L) latents, (B,) timesteps, optional (B,) labels
+# -> (B, C, L) fp32
+Denoiser = Union[UNet1d, DiT1d]
 SAMPLERS = {"ddim": ddim_sample_loop, "dpm++2m": dpm_solver_pp_2m_sample_loop}
 
 
@@ -69,10 +73,18 @@ def dm_sampling_schedule(cfg: Config, num_train_timesteps: int,
 
 
 def build_unet(cfg: Config, in_channels: int, out_channels: int,
-               fast_math: bool = True) -> UNet1d:
-    """The UNet of ``cfg.unet``; ``fast_math`` is the precision switch of
-    the path that runs it (``cfg.fast_sampling_math`` or
-    ``cfg.fast_train_math``)."""
+               fast_math: bool = True) -> Denoiser:
+    """The denoiser ``cfg.denoiser`` names: the UNet of ``cfg.unet``, whose
+    attention takes ``fast_math``, the precision switch of the path that
+    runs it (``cfg.fast_sampling_math`` or ``cfg.fast_train_math``), or the
+    DiT of ``cfg.dit``, which predicts its ``in_channels``."""
+    if cfg.denoiser == "dit":
+        d = cfg.dit
+        return DiT1d(in_channels=in_channels, input_size=d.input_size,
+                     patch_size=d.patch_size, hidden_size=d.hidden_size, depth=d.depth,
+                     num_heads=d.num_heads, mlp_ratio=d.mlp_ratio, num_classes=d.num_classes)
+    if cfg.denoiser != "unet":
+        raise ValueError(f"unknown denoiser {cfg.denoiser!r}; 'unet' or 'dit'")
     u = cfg.unet
     return UNet1d(in_channels=in_channels, out_channels=out_channels,
                   model_channels=u.model_channels, channel_mult=tuple(u.channel_mult),
@@ -99,11 +111,12 @@ def build_aekl(cfg: Config) -> AutoencoderKL:
 def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
                  ae_state: Mapping[str, np.ndarray], device: torch.device,
                  aekl_cfg: Optional[Config] = None,
-                 quantized: bool = False) -> Tuple[UNet1d, AutoencoderKL]:
-    """The UNet and the AEKL on ``device`` with the given state dicts, in
-    eval mode and cast to ``cfg.dtype``, the UNet's attention on
-    ``cfg.fast_sampling_math``'s path; ``quantized``: the int8 UNet, its
-    convolutions quantized from the fp32 ``unet_state``."""
+                 quantized: bool = False) -> Tuple[Denoiser, AutoencoderKL]:
+    """The denoiser ``cfg.denoiser`` names (``build_unet``) and the AEKL on
+    ``device`` with the given state dicts, in eval mode and cast to
+    ``cfg.dtype``, a UNet's attention on ``cfg.fast_sampling_math``'s path;
+    ``quantized``: the int8 UNet, its convolutions quantized from the fp32
+    ``unet_state`` (a DiT has no int8 path and raises)."""
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     dtype = DTYPES[cfg.dtype]
@@ -117,7 +130,7 @@ def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
     return unet, ae
 
 
-def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
+def make_ldm_sampler(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule,
                      latent_len: int = 768, latent_channels: int = 1,
                      num_inference_steps: int = 200, border_pad: int = BORDER_PAD,
                      sampler: str = "ddim", device: torch.device | str = "cuda",
@@ -125,16 +138,17 @@ def make_ldm_sampler(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
                      quantized: bool = False,
                      mesh: Optional[Mesh] = None) -> Callable[..., torch.Tensor]:
     """Returns ``sample(scale_factor, seeds, labels=None, guidance_scale=None)
-    -> (B, L - 2 * border_pad, C)`` fp32 on ``device``. ``unet``, ``ae`` and
-    ``sched`` must already live on ``device``. ``sampler``: "ddim" (the
-    reference's) or "dpm++2m" (DPM-Solver++(2M), about DDIM-200's quality
-    in 20 steps); either makes ``num_inference_steps`` UNet calls.
+    -> (B, L - 2 * border_pad, C)`` fp32 on ``device``. ``unet``, the
+    denoiser (a ``UNet1d`` or a ``DiT1d``), ``ae`` and ``sched`` must
+    already live on ``device``. ``sampler``: "ddim" (the reference's) or
+    "dpm++2m" (DPM-Solver++(2M), about DDIM-200's quality in 20 steps);
+    either makes ``num_inference_steps`` denoiser calls.
 
     ``conditional``: each call takes ``labels``, (B,) int64 class labels on
-    ``device``, for the UNet's class embedding (``unet.num_classes`` > 0).
+    ``device``, for the denoiser's class embedding (``num_classes`` > 0).
     ``guided``: classifier-free guidance, with the null branch in the same
-    2B-batch UNet forward per step (``samplers.cond_model_fn``); each call
-    takes its ``guidance_scale``, so one sampler serves every scale.
+    2B-batch denoiser forward per step (``samplers.cond_model_fn``); each
+    call takes its ``guidance_scale``, so one sampler serves every scale.
     ``quantized``: the UNet runs int8 (``quantize_unet`` of ``unet``, which
     should hold fp32 weights, unless it is quantized already), with the
     strict fp32 GroupNorm numerics. The call returns once the work is
@@ -289,25 +303,26 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
                       mesh: Optional[Mesh] = None) -> np.ndarray:
     """Sample seeds [start_seed, stop_seed) in batches of ``batch_size`` and
     write their artifacts. ``unet_state``/``ae_state`` are the port's state
-    dicts (``utils.weights``); the models run in ``cfg.dtype``.
+    dicts of the denoiser ``cfg.denoiser`` names and of the AEKL
+    (``utils.weights``); the models run in ``cfg.dtype``.
     ``quantized``: the UNet's convolutions run int8 (``nn/quant.py``),
     quantized from ``unet_state``, as the JAX package's
     ``sample_ldm_trials(quantized=True)``. ``stage``:
-    the class label of a conditional checkpoint (``cfg.unet.num_classes`` >
-    0); ``guidance_scale`` other than 1 adds classifier-free guidance. A
+    the class label of a conditional checkpoint (``cfg.num_classes`` > 0);
+    ``guidance_scale`` other than 1 adds classifier-free guidance. A
     last partial batch is padded to ``batch_size`` and trimmed. ``mesh``:
     each batch's seeds split over its ranks (``batch_size`` must divide
     over them), on its device; only rank 0 writes. Returns all cropped
     signals, (N, 3000, 1) fp32."""
-    validate_stage(cfg.unet.num_classes, stage, guidance_scale)
+    validate_stage(cfg.num_classes, stage, guidance_scale)
     if mesh is not None:
         assert batch_size % mesh.n_data == 0, (batch_size, mesh.n_data)
     dev = mesh.device if mesh is not None else resolve_device(device)
-    conditional = cfg.unet.num_classes > 0
+    conditional = cfg.num_classes > 0
     guided = conditional and guidance_scale != 1.0
     unet, ae = build_models(cfg, unet_state, ae_state, dev, aekl_cfg, quantized)
     sampler = make_ldm_sampler(unet, ae, sampling_schedule(cfg, dev),
-                               latent_len=cfg.unet.image_size,
+                               latent_len=cfg.image_size,
                                latent_channels=(aekl_cfg or cfg).aekl.latent_channels,
                                num_inference_steps=cfg.diffusion.num_inference_steps,
                                border_pad=border_pad, sampler=cfg.diffusion.sampler,
@@ -324,15 +339,15 @@ def sample_ldm_trials(cfg: Config, unet_state: Mapping[str, np.ndarray],
 
 def read_run_dirs(aekl_run_dir: str | Path, ldm_run_dir: str | Path):
     """A port AEKL run dir (``config.yaml``, ``params.npz``) and LDM run dir
-    (the same plus ``scale_factor.txt``) -> (LDM config, AEKL config, UNet
-    state dict, AEKL state dict, scale factor). ``params.npz`` is a flat
-    '/'-keyed parameter tree; the README shows how to export one from a JAX
-    run dir."""
+    (the same plus ``scale_factor.txt``) -> (LDM config, AEKL config,
+    denoiser state dict, AEKL state dict, scale factor). ``params.npz`` is a
+    flat '/'-keyed parameter tree; the README shows how to export one from a
+    JAX run dir."""
     ae_dir, ldm_dir = Path(aekl_run_dir), Path(ldm_run_dir)
     aekl_cfg = Config.from_yaml(ae_dir / "config.yaml")
     cfg = Config.from_yaml(ldm_dir / "config.yaml")
     ae_state = aekl_state_from_jax(load_params_npz(ae_dir / "params.npz"))
-    unet_state = unet_state_from_jax(load_params_npz(ldm_dir / "params.npz"))
+    unet_state = denoiser_state_from_tree(cfg.denoiser, load_params_npz(ldm_dir / "params.npz"))
     scale_factor = float((ldm_dir / "scale_factor.txt").read_text())
     return cfg, aekl_cfg, unet_state, ae_state, scale_factor
 
@@ -346,7 +361,7 @@ def model_dir(path: str | Path, name: str) -> Path:
 
 
 def read_model_dir(path: str | Path, name: str):
-    """(config, UNet state dict) of ``model_dir(path, name)``."""
+    """(config, denoiser state dict) of ``model_dir(path, name)``."""
     d = model_dir(path, name)
-    return (Config.from_yaml(d / "config.yaml"),
-            unet_state_from_jax(load_params_npz(d / "params.npz")))
+    cfg = Config.from_yaml(d / "config.yaml")
+    return cfg, denoiser_state_from_tree(cfg.denoiser, load_params_npz(d / "params.npz"))

@@ -224,7 +224,8 @@ class _StepGraph:
     its x_T and its ``ddim_tables``. The graph reads K2's weight tiles by
     address, so it is stale once any tile in K2's cache at the capture has
     been re-laid out or its weight updated in place; the weights that
-    cuDNN, K1 and the casts read are read in place. It holds no reference to
+    cuDNN, K1 and the casts read are read in place (a DiT's step reads all its
+    weights in place: cuBLAS, SDPA, LayerNorm). It holds no reference to
     the model closure, and its buffers serve one call at a time (one thread's).
     eta is not in its key: a step with eta > 0 needs noise, which the loop
     does not draw, so its first, eager step raises."""

@@ -125,7 +125,7 @@ class SamplerService:
 
     @property
     def conditional(self) -> bool:
-        return self.cfg.unet.num_classes > 0
+        return self.cfg.num_classes > 0
 
     def _sampler(self, batch: int, guided: bool = False) -> Callable:
         """The sampler of one batch size, plain or guided. The guidance scale
@@ -134,7 +134,7 @@ class SamplerService:
         key = (batch, guided)
         if key not in self._samplers:
             self._samplers[key] = make_ldm_sampler(
-                self._unet, self._ae, self._sched, self.cfg.unet.image_size,
+                self._unet, self._ae, self._sched, self.cfg.image_size,
                 self.aekl_cfg.aekl.latent_channels, self.cfg.diffusion.num_inference_steps,
                 sampler=self.cfg.diffusion.sampler, device=self.device,
                 conditional=self.conditional, guided=guided, mesh=self.mesh)
@@ -170,7 +170,7 @@ class SamplerService:
 
     def _enqueue(self, seeds, stage, guidance_scale) -> PendingSample:
         guidance_scale = float(guidance_scale)
-        validate_stage(self.cfg.unet.num_classes, stage, guidance_scale)
+        validate_stage(self.cfg.num_classes, stage, guidance_scale)
         guided = self.conditional and guidance_scale != 1.0
         seeds = [int(s) for s in seeds]
         if not seeds:
@@ -190,7 +190,7 @@ class SamplerService:
                guidance_scale: float = 1.0) -> np.ndarray:
         """Windows for ``seeds`` -> (N, window, 1) float32, each seed's the
         same however the seeds are batched. ``stage``: the class label,
-        required for a conditional checkpoint (``cfg.unet.num_classes`` > 0)
+        required for a conditional checkpoint (``cfg.num_classes`` > 0)
         and range-checked; ``guidance_scale`` other than 1 adds
         classifier-free guidance."""
         return self.sample_async(seeds, stage=stage, guidance_scale=guidance_scale).result()

@@ -4,7 +4,7 @@ Counterpart of ``sleepgen/train/train_ldm.py`` (the reference's
 ``train_ldm.py`` and ``training.py``): a frozen AEKL encodes each batch
 and draws a posterior sample; ``scale_factor = 1 / std(z)`` of the first
 training batch; t ~ U[0, T), z_t = add_noise(z * scale_factor, eps, t),
-and the UNet is fitted to eps (or to v) by MSE with Adam. Eval comes
+and the denoiser is fitted to eps (or to v) by MSE with Adam. Eval comes
 first, then every ``val_interval`` epochs, with an in-training DDPM
 sample every ``2 * val_interval`` (its arrays, and the JAX trainer's
 waveform and PSD figures, which never stop training); the best model is
@@ -12,13 +12,18 @@ chosen before the periodic checkpoint is written; a run dir with
 checkpoints resumes; a non-finite epoch loss stops training and the
 final model comes from the last finite checkpoint.
 
-Conditional training (``unet.num_classes`` > 0): the loader is a
+The denoiser is the one ``cfg.denoiser`` names: the UNet, or DiT-XL/2's
+transformer (``nn/dit.py``), with its published initialisation.
+
+Conditional training (``cfg.num_classes`` > 0): the loader is a
 ``data.staging.LabeledEpochDataset`` of ``(x, y)`` batches; each label is
 dropped to the null label -1 with probability ``train.cond_dropout_prob``
 (classifier-free guidance), the eval feeds the labels, and the in-training
-sample draws one window per class (``sample_conditional_{epoch}.npy``).
+sample draws one window per class (``sample_conditional_{epoch}.npy``). A
+conditional denoiser refuses windows without labels (the ``train-ldm``
+CLI's), which would train its null class alone.
 
-Precision: the UNet keeps fp32 master weights and fp32 Adam state, as
+Precision: the denoiser keeps fp32 master weights and fp32 Adam state, as
 the JAX state does, and computes in ``cfg.dtype`` under
 ``torch.autocast`` (bf16 convolutions and matmuls; GroupNorm statistics,
 softmax and the loss in fp32). The frozen AEKL is cast to ``cfg.dtype``
@@ -48,12 +53,13 @@ import numpy as np
 import torch
 
 from sleepgen_torch.config import Config
+from sleepgen_torch.data.staging import LabeledEpochDataset
 from sleepgen_torch.diffusion.schedules import NoiseSchedule
+from sleepgen_torch.nn import dit
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.layers import cast_compute_dtype
-from sleepgen_torch.nn.unet1d import UNet1d
 from sleepgen_torch.parallel.mesh import Mesh, make_mesh
-from sleepgen_torch.sample.sample_ldm import DTYPES, build_aekl, build_unet
+from sleepgen_torch.sample.sample_ldm import DTYPES, Denoiser, build_aekl, build_unet
 from sleepgen_torch.sample.samplers import cond_model_fn, ddpm_sample_loop
 from sleepgen_torch.train.common import (EVAL_STREAM, SAMPLE_STREAM, SCALE_STREAM,
                                          TRAIN_STREAM, batch_to_device, draw_label_drop,
@@ -62,8 +68,8 @@ from sleepgen_torch.train.evals import masked_epoch_mean
 from sleepgen_torch.utils.checkpoint import CheckpointManager
 from sleepgen_torch.utils.logging import setup_run_dir, split_loggers
 from sleepgen_torch.utils.profiling import span
-from sleepgen_torch.utils.weights import (lecun_normal_state, load_numpy_state,
-                                          unet_state_to_jax)
+from sleepgen_torch.utils.weights import (denoiser_state_to_tree, lecun_normal_state,
+                                          load_numpy_state)
 
 # Layers the reference zero-initialises: each resblock's last conv, each
 # attention output projection and the UNet's output conv.
@@ -78,10 +84,13 @@ def make_schedule(cfg: Config, device: torch.device | str = "cpu") -> NoiseSched
                                 prediction_type=d.prediction_type, device=device)
 
 
-def init_unet_state(unet: UNet1d, seed: int) -> Dict[str, np.ndarray]:
-    """Initial UNet weights drawn with numpy from ``seed``, as the JAX
-    package initialises them: kernels lecun-normal, the reference's
-    zero-init convs zero, biases zero, GroupNorm weights one."""
+def init_unet_state(unet: Denoiser, seed: int) -> Dict[str, np.ndarray]:
+    """Initial denoiser weights drawn with numpy from ``seed``: a UNet's as
+    the JAX package initialises them (kernels lecun-normal, the reference's
+    zero-init convs zero, biases zero, GroupNorm weights one), a DiT's as
+    the published DiT does (``dit.init_state``)."""
+    if isinstance(unet, dit.DiT1d):
+        return dit.init_state(unet, seed)
     return lecun_normal_state(unet, seed, ZERO_INIT_SUFFIXES)
 
 
@@ -103,14 +112,14 @@ def compute_scale_factor(ae: AutoencoderKL, x: torch.Tensor, enc_eps: torch.Tens
     return float(1.0 / z.std(correction=0))
 
 
-def ldm_losses(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule, scale_factor: float,
+def ldm_losses(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule, scale_factor: float,
                x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor, enc_eps: torch.Tensor,
                compute_dtype: torch.dtype = torch.float32,
                y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample diffusion losses (B,) of windows x (B, C, L) at timesteps
     t (B,), with the latent noise and the encoder's eps given (the tests
     inject them; ``draw_step_inputs`` draws them in training); ``y`` (B,)
-    the labels of a conditional UNet. The frozen encode is a
+    the labels of a conditional denoiser. The frozen encode is a
     ``trainer.encode`` span, the rest a ``trainer.forward`` span."""
     with span("trainer.encode"):
         z = posterior_sample(ae, x, enc_eps)
@@ -135,7 +144,7 @@ def draw_step_inputs(gen: torch.Generator, batch: int, latent_shape, num_timeste
     return t, noise, enc_eps
 
 
-def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
+def make_ldm_train_step(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule,
                         opt: torch.optim.Optimizer, scale_factor: float,
                         compute_dtype: torch.dtype = torch.float32,
                         ema: Optional[Dict[str, torch.Tensor]] = None, ema_decay: float = 0.0,
@@ -143,7 +152,8 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     """``step(x, t, noise, enc_eps, y=None, drop=None) -> loss``: one Adam
     step on the mean loss, then the EMA update ``e = decay * e + (1 -
     decay) * p`` when ``ema`` (fp32 copies of the parameters, by name) is
-    given. ``y`` (B,) labels of a conditional UNet; where ``drop`` (B,)
+    given. ``unet`` is the denoiser (a ``UNet1d`` or a ``DiT1d``). ``y``
+    (B,) labels of a conditional denoiser; where ``drop`` (B,)
     bool is set, the label becomes the null label -1. With a ``mesh`` the
     inputs are this rank's equal shard of the global batch's, the gradient
     is averaged over the ranks before Adam and the loss returned is the
@@ -176,7 +186,7 @@ def make_ldm_train_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
     return train_step
 
 
-def make_ldm_eval_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
+def make_ldm_eval_step(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule,
                        compute_dtype: torch.dtype = torch.float32):
     """``eval_step(x, scale_factor, t, noise, enc_eps, y=None) -> (B,)``
     per-sample losses, without autograd (the UNet's chains then run K2)."""
@@ -191,10 +201,11 @@ def make_ldm_eval_step(unet: UNet1d, ae: AutoencoderKL, sched: NoiseSchedule,
 
 def build_trainer(cfg: Config, ae_state: Mapping[str, np.ndarray], aekl_cfg: Config,
                   dev: torch.device | str):
-    """(unet, ae, sched, opt) on ``dev``: the UNet with fp32 master weights
-    initialised from ``cfg.train.seed`` and its attention on
-    ``cfg.fast_train_math``'s path, the frozen AEKL cast to ``cfg.dtype``
-    without autograd, the training schedule, and Adam."""
+    """(unet, ae, sched, opt) on ``dev``: the denoiser ``cfg.denoiser`` names
+    (``build_unet``; a UNet's attention on ``cfg.fast_train_math``'s path)
+    with fp32 master weights initialised from ``cfg.train.seed``
+    (``init_unet_state``), the frozen AEKL cast to ``cfg.dtype`` without
+    autograd, the training schedule, and Adam."""
     lc = aekl_cfg.aekl.latent_channels
     with torch.device(dev):
         ae = load_numpy_state(build_aekl(aekl_cfg), ae_state)
@@ -218,8 +229,8 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
               aekl_cfg: Optional[Config] = None, run_name: Optional[str] = None,
               device: torch.device | str = "cuda",
               mesh: Optional[Mesh] = None) -> DiffusionTrainResult:
-    """Train the LDM's UNet on ``train_ds`` (a ``WindowDataset``, or a
-    ``LabeledEpochDataset`` when ``cfg.unet.num_classes`` > 0) against the
+    """Train the LDM's denoiser on ``train_ds`` (a ``WindowDataset``, or a
+    ``LabeledEpochDataset`` when ``cfg.num_classes`` > 0) against the
     frozen AEKL whose port state dict is ``ae_state``; writes the run dir
     under ``cfg.train.output_dir`` (config.yaml, metrics_*.jsonl,
     checkpoints/, best_model/, final_model/, in-training samples).
@@ -231,7 +242,10 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     seed = cfg.train.seed
-    conditional = cfg.unet.num_classes > 0
+    conditional = cfg.num_classes > 0
+    if conditional and not all(isinstance(ds, LabeledEpochDataset) for ds in (train_ds, valid_ds)):
+        raise ValueError(f"a conditional denoiser (num_classes={cfg.num_classes}) trains on "
+                         "labelled windows (LabeledEpochDataset); these have no labels")
     drop_prob = cfg.train.cond_dropout_prob if conditional else 0.0
 
     spe = "spectral" if cfg.spectral else "no-spectral"
@@ -301,7 +315,7 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
     def log_sample(epoch: int) -> None:
         """One DDPM sample per class (conditional) or one, decoded with and
         without the scale factor, saved in the (B, C, L) layout."""
-        n = cfg.unet.num_classes if conditional else 1
+        n = cfg.num_classes if conditional else 1
         y = torch.arange(n, device=dev) if conditional else None
         tag = "conditional" if conditional else "unconditioned"
         gen = make_generator(seed, dev, SAMPLE_STREAM, epoch)
@@ -353,8 +367,8 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
                 st = state()
                 ckpt.save(step, st)
                 if improved:
-                    ckpt.save_best(unet_state_to_jax(model_params(st)), cfg,
-                                   scale_factor=scale_factor)
+                    ckpt.save_best(denoiser_state_to_tree(cfg.denoiser, model_params(st)),
+                                   cfg, scale_factor=scale_factor)
 
     if stopped_on_nan:  # the final model is the last finite checkpoint, if any
         final = ckpt.restore_latest()
@@ -363,8 +377,8 @@ def train_ldm(cfg: Config, train_ds, valid_ds, ae_state: Mapping[str, np.ndarray
         if main:
             ckpt.save(step, final)
     if final is not None and main:
-        ckpt.save_best(unet_state_to_jax(model_params(final)), cfg, "final_model",
-                       final["scale_factor"])
+        ckpt.save_best(denoiser_state_to_tree(cfg.denoiser, model_params(final)), cfg,
+                       "final_model", final["scale_factor"])
     logger_t.close()
     logger_v.close()
     return DiffusionTrainResult(str(run_dir), best_loss, last_epoch, scale_factor,

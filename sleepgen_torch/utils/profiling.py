@@ -14,7 +14,8 @@ is cached by ``kernels/_build.py``).
 
 The program's own tracer: ``span(name)`` marks a layer of the work (the
 sampler's call, noise, steps, update and decode, the UNet's forward, the
-training step's phases, the service's enqueue and wait). A span records
+DiT's forward, conditioning, attention, MLP, modulation and final layer,
+the training step's phases, the service's enqueue and wait). A span records
 only while a ``torch.profiler`` session records in this process, or
 inside ``tracing()``; otherwise it costs one check of a flag. A recorded
 span lands in the profiler's trace as a ``record_function`` annotation,
@@ -173,9 +174,12 @@ def counters() -> Dict[str, int]:
     (``k1.host_ns``, ``k1.traced_launches``, ..., ``k2.traced_relayouts``);
     the DDIM loop's CUDA graphs captured and replayed, and replayed while
     the tracer recorded (``sampler.graph_captures``,
-    ``sampler.graph_replays``, ``sampler.traced_graph_replays``); and
-    ``spans.dropped``, the spans past ``MAX_SPANS``."""
+    ``sampler.graph_replays``, ``sampler.traced_graph_replays``); the DiT's
+    forwards and their rows x tokens while the tracer recorded
+    (``dit.forwards``, ``dit.tokens``); and ``spans.dropped``, the spans
+    past ``MAX_SPANS``."""
     from sleepgen_torch.kernels import fused_resblock as k2, group_norm as gn
+    from sleepgen_torch.nn import dit
     from sleepgen_torch.sample import samplers
 
     out = {"k1.launches": gn.launches, "k2.launches": k2.launches,
@@ -187,6 +191,7 @@ def counters() -> Dict[str, int]:
            "sampler.graph_captures": samplers.graph_captures,
            "sampler.graph_replays": samplers.graph_replays,
            "sampler.traced_graph_replays": samplers.traced_graph_replays,
+           "dit.forwards": dit.forwards, "dit.tokens": dit.tokens,
            "spans.dropped": _dropped}
     for (kernel, form), n in sorted(gn.form_launches.items()):
         out[f"{kernel.lower()}.form.{form}"] = n
@@ -195,14 +200,16 @@ def counters() -> Dict[str, int]:
 
 def reset() -> None:
     """Forget the finished spans and the count of dropped ones, and zero the
-    sampler's graph counters (the kernels' counters are zeroed by their
-    modules' ``reset_counts``)."""
+    sampler's graph counters and the DiT's (the kernels' counters are
+    zeroed by their modules' ``reset_counts``)."""
+    from sleepgen_torch.nn import dit
     from sleepgen_torch.sample import samplers
 
     global _dropped
     _records.clear()
     _dropped = 0
     samplers.reset_graph_counts()
+    dit.reset_counts()
 
 
 def _sync() -> None:

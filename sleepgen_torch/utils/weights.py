@@ -29,6 +29,9 @@ names for the two Chambon models (which
 ``import_chambon_sequence`` read back), the JAX module's for DeepSleepNet,
 whose four ``OptimizedLSTMCell``s become two bidirectional ``nn.LSTM``s.
 
+``denoiser_state_to_tree`` and ``denoiser_state_from_tree`` choose by the
+stage-2 denoiser: the UNet's JAX keys, or a DiT's own names as a tree.
+
 ``lecun_normal_state`` draws initial weights with numpy with the JAX
 package's initialisers: the trainers call it for the AEKL, the
 discriminator (BatchNorm buffers included) and, through
@@ -272,6 +275,40 @@ def unet_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
         return f"{port}.weight" in sd or f"{port}.qkv.weight" in sd
 
     return _tree_from_state(sd, _unet_layers(levels, nrb, has))
+
+
+def denoiser_state_to_tree(denoiser: str, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A stage-2 denoiser's state dict -> the parameter tree of its run dir:
+    a UNet's in the JAX package's keys (``unet_state_to_jax``); a DiT, which
+    the JAX package lacks, under its own names split at the dots
+    (``blocks/0/attn/qkv/weight``)."""
+    if denoiser != "dit":
+        return unet_state_to_jax(state)
+    tree: Dict[str, Any] = {}
+    for name, v in _numpy_state(state).items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return tree
+
+
+def denoiser_state_from_tree(denoiser: str, tree: Tree) -> Dict[str, np.ndarray]:
+    """The inverse of ``denoiser_state_to_tree``."""
+    if denoiser != "dit":
+        return unet_state_from_jax(tree)
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node: Tree, prefix: str) -> None:
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            else:
+                sd[prefix + k] = np.asarray(v)
+
+    walk(_params(tree), "")
+    return sd
 
 
 def _aekl_layers(shape: Callable[[str, str], Tuple[int, int]],

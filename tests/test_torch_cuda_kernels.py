@@ -1030,3 +1030,130 @@ def test_ddim_graph_captures_and_replays_under_the_tracer():
             c["sampler.traced_graph_replays"]) == (1, 7, 7)
     assert all(torch.equal(g, want) for g in got)
     profiling.reset()
+
+
+# -- the DiT denoiser (nn/dit.py) ----------------------------------------------
+
+DIT_XL2 = dict(in_channels=1, input_size=768, patch_size=2, hidden_size=1152, depth=28,
+               num_heads=16, mlp_ratio=4.0, num_classes=5)
+
+
+def _dit_state(seed=19, **kw):
+    """Seeded weights of the benchmark's reference DiT (bf16 values in fp32,
+    every gate and final weight non-zero) on the card."""
+    from portbench import weights
+    from portbench.reference import dit as rdit
+
+    with torch.device("meta"):
+        shapes = weights.shapes_of(rdit.DiT(**{**DIT_XL2, **kw}))
+    return weights.make_state(shapes, set(), seed, "cuda", weights.WEIGHTS_UNET)
+
+
+def _bf16_dit(state, **kw):
+    from sleepgen_torch.nn.dit import DiT1d
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+
+    with torch.device("cuda"):
+        model = DiT1d(**{**DIT_XL2, **kw})
+    model.load_state_dict(state)
+    return cast_compute_dtype(model.eval(), torch.bfloat16).requires_grad_(False)
+
+
+def test_dit_xl2_bf16_forward_against_the_fp32_reference():
+    """DiT-XL/2 at every published width in bf16 against the fp32 reference
+    on the same weights: closer to it than the reference computed with fp8
+    products is, by half at least (bf16 keeps 8 bits of mantissa, e4m3 4)."""
+    from portbench.reference import dit as rdit, models as ref
+
+    state = _dit_state()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 1, 768), generator=g, device="cuda")
+    t = torch.tensor([0, 50, 200, 400, 600, 800, 950, 999], device="cuda")
+    y = torch.tensor([0, 1, 2, 3, 4, -1, 2, -1], device="cuda")
+    ref_y = torch.where(y < 0, 5, y)
+    with torch.no_grad():
+        got = _bf16_dit(state)(x, t, y)
+        want, fp8 = (rdit.DiT(**DIT_XL2, prec=ref.Precision(p)).cuda().eval() for p in
+                     ("fp32", "fp8"))
+        want.load_state_dict(state)
+        fp8.load_state_dict(state)
+        want, fp8 = want(x, t, ref_y), fp8(x, t, ref_y)
+    err = float((got - want).norm() / want.norm())
+    err_fp8 = float((fp8 - want).norm() / want.norm())
+    print(f"DiT-XL/2 bf16 rel err {err:.5f}, fp8 reference {err_fp8:.5f}")
+    assert torch.isfinite(got).all() and err <= 0.5 * err_fp8, (err, err_fp8)
+
+
+def test_dit_attention_takes_a_fused_sdpa_kernel():
+    """The DiT's attention at 16 heads of 72 in bf16 runs a fused SDPA
+    kernel (flash or memory-efficient), by the profiler's kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sleepgen_torch.nn.dit import Attention
+
+    with torch.device("cuda"):
+        attn = Attention(1152, 16).to(torch.bfloat16).eval()
+    x = torch.randn((128, 384, 1152), device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        attn(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attn(x)
+            torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    fused = sorted(n for n in names if any(k in n.lower() for k in ("flash", "fmha", "mem_eff",
+                                                                   "efficient_attention")))
+    print("DiT SDPA kernels:", fused)
+    assert fused, sorted(names)
+
+
+def test_dit_ddim_graph_gives_the_eager_bits():
+    """A DiT at the published widths (two blocks) replays the DDIM step's
+    graph with the eager loop's bits, plain and guided."""
+    from sleepgen_torch.diffusion.schedules import NoiseSchedule
+    from sleepgen_torch.sample import samplers
+
+    model = _bf16_dit(_dit_state(depth=2), depth=2)
+    sched = NoiseSchedule.create("scaled_linear_beta", 1000, 0.0015, 0.0205,
+                                 prediction_type="v_prediction", device="cuda")
+    x_T = torch.randn((4, 1, 768), generator=torch.Generator().manual_seed(62)).cuda()
+    labels = torch.tensor([0, 1, 2, 3], device="cuda")
+    guided = samplers.cond_model_fn(model, labels, 1.5)
+    for model_fn in (model, guided):
+        want = _eager(model_fn, sched, x_T, 5)
+        before = _graph_counts()
+        got = [_graphed(model_fn, sched, x_T, 5) for _ in range(2)]
+        after = _graph_counts()
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 9)
+        assert torch.isfinite(want).all() and all(torch.equal(g, want) for g in got)
+
+
+def test_dit_sampler_launches_only_the_decodes_k1():
+    """A DDIM call of the DiT sampler (graph path) launches K1 as many times
+    as the AEKL decode alone does, and no K2."""
+    from sleepgen_torch.diffusion.schedules import NoiseSchedule
+    from sleepgen_torch.nn.aekl import AutoencoderKL
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+    from sleepgen_torch.sample.sample_ldm import make_ldm_sampler
+
+    model = _bf16_dit(_dit_state(depth=2), depth=2)
+    with torch.device("cuda"):
+        ae = cast_compute_dtype(AutoencoderKL().eval(), torch.bfloat16).requires_grad_(False)
+    sched = NoiseSchedule.create("scaled_linear_beta", 1000, 0.0015, 0.0205,
+                                 prediction_type="v_prediction", device="cuda")
+    sample = make_ldm_sampler(model, ae, sched, num_inference_steps=4, device="cuda")
+    sample(1.0, [1, 2])
+    z = torch.randn((2, 1, 768), device="cuda")
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        group_norm.reset_counts()
+        fused_resblock.reset_counts()
+        with torch.inference_mode():
+            fn()
+        torch.cuda.synchronize()
+        return group_norm.launches, fused_resblock.launches
+
+    decode = launched(lambda: ae.decode_stage_2_outputs(z))
+    assert decode[0] > 0
+    assert launched(lambda: sample(1.0, [3, 4])) == (decode[0], 0)
