@@ -256,6 +256,13 @@ parallelism over ``torch.distributed``. Phases, one line each:
      without, from the same weights and inputs under deterministic cuDNN,
      must be equal (``torch.equal``); the stage-2 and decode steps then
      take turns on the host clock: the ms the mesh adds per step;
+  DIT. one full-width DiT-XL/2 forward in bf16 as a guided DPM++ step of 64
+     windows runs it (128 rows of 384 tokens at 1152, inference mode): K4's
+     launches, counted from zero, must be its 57 passes (2 depth + 1);
+     K4 is then held to the composed ops at the three forms of that path
+     (block 0's pass with nothing pending, the gated residual written
+     back, the final layer's), y in fp32 and in bf16 within one ulp of its
+     dtype, x_new within 1e-6 of max |x|;
   8. timings: each kernel at each shape of its path in bf16 (the
      reconstruction's K1 and the v1 paths in fp32, as they run): kernel,
      plain version, one-PyTorch-call yardstick (``library_ms``), each
@@ -288,7 +295,9 @@ step and an attention stage-1 step; K2: a sampler batch, a DPM++2M-20
 batch, a guided DPM++2M-20 request, a DM DDIM-200 batch, a v1 ancestral
 batch (fp32), a long-window DDIM-50 batch and an options DDIM-200 batch;
 K3: a stage-2, a stage-1, a DM, a v1 encoder, a v1 DDPM, an options
-stage-2 and an attention stage-1 training step; B2, B3: on no
+stage-2 and an attention stage-1 training step; K4: a DiT guided DPM++
+step, its plain version and library yardstick both the composed ops, its
+bound 679.5 MB a written-back pass at 3.35 TB/s; B2, B3: on no
 path), its error and
 its times (each shape's time times its launches in that run, summed),
 and for K1, K3 and B2 its launches by form (``forms``: on_chip, cluster,
@@ -329,6 +338,10 @@ each K1, K3 and B2 row with its launches by form (``forms``), and of
 K3's strided-dy copies. The report goes to chip_smoke_gn_report.json in
 the output directory, as the other loops'; no {"ok": ...} line.
 
+``python3 chip_smoke.py --only K4``: phases 1 and 2, DIT, then K4's
+phase-8 timings on its path. Report in chiprun_out/chip_smoke_k4_report.json;
+no {"ok": ...} line.
+
 ``python3 chip_smoke.py --only OPT``: phases 1 and 2, OPT (its new
 shapes checked from scratch) and MESH, then the phase-8 timings of OPT's
 rows. Report in chiprun_out/chip_smoke_opt_report.json; no {"ok": ...}
@@ -363,7 +376,7 @@ from sleepgen_torch.cli.compute_mmds import load_aekl, reconstruction_scores  # 
 from sleepgen_torch.cli.run_sleep_decode import load_staged_dataset, split_recordings  # noqa: E402
 from sleepgen_torch.diffusion.schedules import NoiseSchedule  # noqa: E402
 from sleepgen_torch.diffusion.ddpm_v1 import DDPMTables, p_sample, p_sample_loop  # noqa: E402
-from sleepgen_torch.config import Config  # noqa: E402
+from sleepgen_torch.config import Config, DiTConfig  # noqa: E402
 from sleepgen_torch.data.dataset import WindowDataset, load_split  # noqa: E402
 from sleepgen_torch.data.edf import write_edf  # noqa: E402
 from sleepgen_torch.data.staging import (STAGE_DESCRIPTIONS, balanced_class_weights,  # noqa: E402
@@ -375,12 +388,13 @@ from sleepgen_torch.eval.bands import EEG_BANDS, filter_band  # noqa: E402
 from sleepgen_torch.eval.fid import frechet_distance, usleep_fid_features  # noqa: E402
 from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
-from sleepgen_torch.kernels import _build, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.kernels import _build, adaln, fused_resblock, group_norm  # noqa: E402
 from sleepgen_torch.nn.chambon import SleepStagerChambon2018, TimeDistributedStager  # noqa: E402
 from sleepgen_torch.nn.aekl_v1 import AutoencoderKLV1  # noqa: E402
 from sleepgen_torch.nn.discriminator import DiscriminatorV1  # noqa: E402
 from sleepgen_torch.nn.deepsleepnet import DeepSleepNet  # noqa: E402
-from sleepgen_torch.nn.layers import AttentionBlock1d, GroupNorm32  # noqa: E402
+from sleepgen_torch.nn.dit import DiT1d  # noqa: E402
+from sleepgen_torch.nn.layers import AttentionBlock1d, GroupNorm32, cast_compute_dtype  # noqa: E402
 from sleepgen_torch.nn.quant import QuantConv1d, act_quantize, int8_conv_accumulate  # noqa: E402
 from sleepgen_torch.nn.unet1d import TimestepResBlock, UNet1d  # noqa: E402
 from sleepgen_torch.nn.usleep import USleep  # noqa: E402
@@ -412,6 +426,7 @@ FP32_OPS_PER_S = 67e12
 GN_OPS_PER_ELEMENT = 12  # stats 4, normalise + affine 4, SiLU 4
 # backward: xhat 2, z 2, sigmoid 3, dz 5, dxhat 1, row sums 3, dx 4
 GN_BWD_OPS_PER_ELEMENT = 20
+ADALN_OPS_PER_ELEMENT = 10  # gated residual 2, mean 1, variance 3, modulation 4
 BATCH, STEPS, SEED = 64, 200, 0
 TIMED_BATCHES = 3
 TRAIN_BATCH = 1024  # ldm.yaml
@@ -450,6 +465,8 @@ K2_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:142"
 K3_REPLACES = "sleepgen/pallas_kernels/group_norm.py:226"
 B2_REPLACES = "sleepgen/pallas_kernels/group_norm.py:159"
 B3_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:180"
+K4_SRC = "sleepgen_torch/csrc/adaln_modulate.cu"
+DIT_PATH = "DiT guided DPM++ step"  # one forward of 64 windows and their null-label rows
 # B2's long window, (B, C, L, G, silu, dtype) in the port's layout
 B2_SHAPES = [(16, 32, 49152, 1, True, "torch.bfloat16")]
 # B3 at the Pallas test shapes (tests/test_pallas_kernels.py:122-145) and one
@@ -698,6 +715,78 @@ def k3_bound(key, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+K4_ULP_BITS = {torch.bfloat16: 7, torch.float32: 23}  # mantissa bits of y's dtype
+
+
+def k4_inputs(key, dtype, seed):
+    """The DiT's pass at (B, T, D, form): x (B, T, D) fp32 off zero; shift,
+    scale and gate chunks of a block's (B, 6 D) adaLN projection in
+    ``dtype`` (the final layer's shift and scale of a (B, 2 D) one); h (B,
+    T, D) in ``dtype``; form "first" (block 0's attention: nothing
+    pending), "residual" (the gated residual written back) or "final" (not
+    written back). Returns ``adaln.adaln_modulate``'s arguments."""
+    b, t, d, form = key
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3.0 * torch.randn((b, t, d), generator=gen, device="cuda") + 0.5
+    mods = (0.3 * torch.randn((b, 6 * d), generator=gen, device="cuda")).to(dtype).chunk(6, 1)
+    shift, scale, gate = mods[3], mods[4], mods[5]
+    if form == "final":
+        shift, scale = (0.3 * torch.randn((b, 2 * d), generator=gen, device="cuda")).to(
+            dtype).chunk(2, 1)
+    h = torch.randn((b, t, d), generator=gen, device="cuda").to(dtype)
+    return (x, shift, scale, dtype, None if form == "first" else (h, gate), form != "final")
+
+
+def k4_plain(x, shift, scale, dtype, pending, write_back):
+    """The composed ops of the same pass (a new x_new, x untouched)."""
+    return adaln.adaln_modulate_reference(x, shift, scale, dtype, pending)
+
+
+def k4_bound(key, dtype):
+    """Read x (and h where a branch is pending) once, write y (and x_new
+    where it is written back) once, plus the (B, D) gate, shift and scale."""
+    b, t, d, form = key
+    isz = dtype.itemsize
+    per_element = {"first": 4 + isz, "residual": 4 + isz + 4 + isz, "final": 4 + isz + isz}[form]
+    t_bytes = (b * t * d * per_element + 3 * b * d * isz) / HBM_BYTES_PER_S
+    t_ops = ADALN_OPS_PER_ELEMENT * b * t * d / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_k4(key) -> dict:
+    """K4 against the composed ops at one shape, with y in fp32 and in bf16:
+    y within one unit in the last place of its dtype (beyond an fp32 floor
+    of 1e-6 of its largest |value|: the composed ops' Welford statistics
+    and unfused residual round otherwise than K4's two-pass statistics and
+    FMA), x_new within 1e-6 of max |x| where written back, x untouched
+    elsewhere."""
+    out = {}
+    for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 2)):
+        args = k4_inputs(key, dtype, seed)
+        x = args[0]
+        want_x, want_y = k4_plain(*args)
+        x_before, x_max = x.clone(), float(x.abs().max())
+        got_x, got_y = adaln.adaln_modulate(*args)
+        torch.cuda.synchronize()
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        if key[3] == "residual":
+            x_err = float((got_x - want_x).abs().max())
+            if got_x is not x or x_err > 1e-6 * x_max:
+                raise AssertionError(f"K4 {tag} at {key}: x_new max abs err {x_err}")
+        elif not torch.equal(x, x_before) or (got_x is None) != (key[3] == "final"):
+            raise AssertionError(f"K4 {tag} at {key}: the stream changed or x_new came back")
+        got, want = got_y.float(), want_y.float()
+        _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+        ulp = torch.ldexp(torch.ones_like(got), e - 1 - K4_ULP_BITS[dtype])
+        err = (got - want).abs()
+        excess = float((err - ulp - 1e-6 * float(want.abs().max())).max())
+        if got_y.dtype != dtype or excess > 0:
+            raise AssertionError(f"K4 {tag} at {key}: y beyond one ulp by {excess}")
+        out[f"{tag}_max_abs_err"] = float(err.max())
+        del args, x, want_x, want_y, x_before, got_x, got_y, got, want, e, ulp, err
+    return out
+
+
 KERNELS = {
     "K1": dict(name="group_norm_silu", src=K1_SRC, replaces=K1_REPLACES, inputs=k1_inputs,
                kernel=group_norm.group_norm_silu, plain=group_norm.group_norm_silu_reference,
@@ -718,6 +807,11 @@ KERNELS = {
                inputs=k2_inputs, kernel=fused_resblock.fused_gn_silu_conv3,
                plain=fused_resblock.gn_silu_conv3_reference, library=k2_library,
                bound=k2_bound, fp32_tol=(2e-4, 2e-4)),
+    # held to one ulp of y's dtype by check_k4; the composed ops are both
+    # its plain version and its library yardstick
+    "K4": dict(name="adaln_modulate", src=K4_SRC, replaces="none", inputs=k4_inputs,
+               kernel=adaln.adaln_modulate, plain=k4_plain, library=k4_plain,
+               bound=k4_bound, fp32_tol=None),
 }
 
 
@@ -757,6 +851,8 @@ def _compare(kid: str, key, got, want, bf16: bool) -> float:
 def check_kernel(kid: str, key) -> dict:
     """The kernel against its plain version at one shape: fp32 inputs, then
     bf16 inputs against the plain version on their fp32 copies."""
+    if kid == "K4":
+        return check_k4(key)
     spec = KERNELS[kid]
     out = {}
     for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 2)):
@@ -3933,11 +4029,49 @@ def quant_long_paths(quant: dict, long: dict) -> dict:
                                block["launches"][kid]) for kid in ("K1", "K2")}}
 
 
+def phase_dit_step() -> tuple:
+    """One full-width DiT-XL/2 forward as a guided DPM++ step of 64 windows
+    runs it (``DiTConfig``'s widths, 5 stages and the null class, bf16, the
+    64 rows of stage 2 beside their 64 null-label rows, inference mode):
+    K4's launches, counted from zero just before, must be its 2 depth + 1
+    passes, the forward's output finite. Returns K4's shapes on that path
+    ({(B, T, D, form): launches}, derived from the configuration) and the
+    launches."""
+    d = DiTConfig(num_classes=SERVE_CLASSES)
+    torch.manual_seed(SEED)
+    with torch.device("cuda"):
+        model = DiT1d(in_channels=1, input_size=d.input_size, patch_size=d.patch_size,
+                      hidden_size=d.hidden_size, depth=d.depth, num_heads=d.num_heads,
+                      mlp_ratio=d.mlp_ratio, num_classes=d.num_classes)
+    model = cast_compute_dtype(model.eval(), torch.bfloat16).requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((2 * BATCH, 1, d.input_size), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda").repeat(2)
+    y = torch.tensor([SERVE_STAGE] * BATCH + [-1] * BATCH, device="cuda")
+    adaln.launches = 0
+    with torch.inference_mode():
+        out = model(x, t, y)
+    torch.cuda.synchronize()
+    launches, want = adaln.launches, 2 * d.depth + 1
+    if launches != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{DIT_PATH}: K4 launches {launches}, expected {want}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    rows, tokens = 2 * BATCH, d.input_size // d.patch_size
+    shapes = {(rows, tokens, d.hidden_size, "first"): 1,
+              (rows, tokens, d.hidden_size, "residual"): 2 * d.depth - 1,
+              (rows, tokens, d.hidden_size, "final"): 1}
+    say("dit-step", rows=rows, tokens=tokens, hidden=d.hidden_size, depth=d.depth,
+        k4_launches=launches)
+    del model, x, out
+    free_card()
+    return shapes, launches
+
+
 def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
     """Hold each kernel to its plain version at the shapes of ``shapes``
     ({kernel id: {shape: launches}}) not checked yet."""
     for kid, keys in shapes.items():
-        new = [key for key in keys if key not in checks[kid]]
+        new = [key for key in keys if key not in checks.setdefault(kid, {})]
         for key in new:
             checks[kid][key] = check_kernel(kid, key)
         free_card()
@@ -3993,7 +4127,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 for name, (fn, fn_args) in calls.items():
                     t[name], t[name.replace("ms", "graph_ms")] = time_ms(
                         fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
-                    if name == "ms" and kid not in ("K2", "B3"):
+                    if name == "ms" and kid in ("K1", "K3", "B2"):
                         took = {form for (_, form), n in group_norm.form_launches.items() if n}
                         if len(took) != 1:
                             raise AssertionError(f"{spec['name']} at {key}: forms {took}")
@@ -4252,6 +4386,16 @@ def opt_only(smi: str, build_logs: dict) -> int:
                              options={k: v for k, v in opt.items() if k != "paths"}, mesh=mesh)
 
 
+def k4_only(smi: str, build_logs: dict) -> int:
+    """``--only K4``: the DiT step that counts K4's launches, K4's checks at
+    its shapes, then its timings per DiT step; no {"ok": ...} line."""
+    shapes, launches = phase_dit_step()
+    checks = {}
+    check_new_shapes(checks, DIT_PATH, {"K4": shapes})
+    rows, per_shape = phase_timings({"K4": ("K4", DIT_PATH, shapes, launches)}, checks)
+    return write_only_report("k4", smi, build_logs, rows, per_shape, checks)
+
+
 def training_paths(shapes: dict) -> dict:
     """phase_timings' rows of K1 and K3 on one training step of each stage."""
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
@@ -4293,6 +4437,8 @@ def main(only: str | None = None) -> int:
         return gn_only(smi, build_logs)
     if only == "OPT":
         return opt_only(smi, build_logs)
+    if only == "K4":
+        return k4_only(smi, build_logs)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
@@ -4319,6 +4465,8 @@ def main(only: str | None = None) -> int:
         long = phase_long_window()
         opt = phase_opt(tmp, checks)
         mesh = phase_mesh(tmp)
+    dit_shapes, dit_launches = phase_dit_step()
+    check_new_shapes(checks, DIT_PATH, {"K4": dit_shapes})
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     check_new_shapes(checks, "DM DDIM-200 batch",
@@ -4343,6 +4491,7 @@ def main(only: str | None = None) -> int:
                               tail["band_eval"]["reconstruction_ms_ssim"]["launches"]["K1"],
                               torch.float32),
              **v1_paths(shapes, v1), **quant_long_paths(quant, long), **opt["paths"],
+             "K4": ("K4", DIT_PATH, dit_shapes, dit_launches),
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -4388,6 +4537,6 @@ if __name__ == "__main__":
         cold_batch(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:] and sys.argv[1:] not in (["--only", "K2"], ["--only", "GN"],
-                                             ["--only", "OPT"]):
-        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN|OPT]")
+                                             ["--only", "OPT"], ["--only", "K4"]):
+        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN|OPT|K4]")
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -37,6 +37,7 @@ SIGNATURES = {
     "sg_group_norm_silu": ([_p] * 6 + [_i, _i, _i, _i, _f, _i, _i, _p, _ip], _i),
     "sg_group_norm_silu_bwd": ([_p] * 9 + [_i] * 6 + [_p, _ip], _i),
     "sg_gn_silu_conv3": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _i, _p], _i),
+    "sg_adaln_modulate": ([_p] * 7 + [_i] * 6 + [_p], _i),
 }
 
 _loaded: Optional[ctypes.CDLL] = None

@@ -35,12 +35,37 @@ dtype with the head dimension contiguous, so ``scaled_dot_product_attention``
 takes a fused kernel (on an H100, cuDNN's flash attention). The output is
 fp32, as ``UNet1d``'s.
 
+The pass between half-blocks (``modulate``): a half returns its branch's
+output h and its gate instead of adding them, and that pending pair is
+applied by the next half's pass, the last block's by the final layer's.
+One pass per half, 2 depth + 1 a forward, computes ``x_new = x + gate *
+h`` (no pending pair before block 0's attention), LayerNorm of x_new, the
+modulation by shift and scale and the cast to the compute dtype. It has two
+implementations (``kernels/adaln.py``) with the same mathematics and
+precisions, and ``adaln.adaln_modulate`` alone chooses between them:
+
+* K4, one hand-written launch that writes x_new into the stream in place
+  (not at all for the final layer, which needs only the GEMM input), on
+  CUDA tensors that autograd does not follow outside autocast (the
+  samplers' ``inference_mode``, ``torch.no_grad``, or a model whose
+  parameters need no gradient); it takes a contiguous fp32 stream, a
+  compute dtype of bf16 or fp32 and a width D that is a multiple of 4 up to
+  2048, and raises on any other CUDA input, so a strided stream or an fp16
+  model fails loudly instead of running the composed ops;
+* the composed ops (``addcmul``, ``F.layer_norm``, ``addcmul``, ``.to``)
+  on the CPU, under autograd, so training's gradients are those of the
+  ops, and under autocast (training's evaluation).
+
+The choice rests only on what the pass sees in its inputs and modes.
+
 Tracing (``utils.profiling``): a forward is a ``dit.forward`` span over
 ``dit.cond`` (the embedders and every block's adaLN projection), per block
-``dit.attn`` and ``dit.mlp``, each holding its ``dit.modulate`` (LayerNorm
-and modulation), and ``dit.final``. While the tracer records, ``forwards``
-counts forwards and ``tokens`` their rows times tokens
-(``profiling.counters()``'s ``dit.forwards`` and ``dit.tokens``).
+``dit.attn`` and ``dit.mlp``, each holding its ``dit.modulate`` (the
+pass: the previous half's gated residual, LayerNorm, modulation and cast),
+and ``dit.final`` with the last ``dit.modulate``. While the tracer records,
+``forwards`` counts forwards, ``tokens`` their rows times tokens and
+``fused_norms`` the passes that ran K4 (``profiling.counters()``'s
+``dit.forwards``, ``dit.tokens`` and ``dit.fused_norms``).
 """
 from __future__ import annotations
 
@@ -52,19 +77,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sleepgen_torch.kernels import adaln
 from sleepgen_torch.nn.layers import timestep_embedding
 from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
 FREQUENCY_EMBEDDING_SIZE = 256  # the published TimestepEmbedder's
-LN_EPS = 1e-6
-# Forwards and their rows x tokens while the tracer recorded
-forwards = tokens = 0
+# Forwards, their rows x tokens and the passes that ran K4 while the tracer
+# recorded
+forwards = tokens = fused_norms = 0
 
 
 def reset_counts() -> None:
-    global forwards, tokens
-    forwards = tokens = 0
+    global forwards, tokens, fused_norms
+    forwards = tokens = fused_norms = 0
 
 
 def sincos_positions(dim: int, length: int) -> torch.Tensor:
@@ -75,12 +101,21 @@ def sincos_positions(dim: int, length: int) -> torch.Tensor:
     return torch.cat([torch.sin(out), torch.cos(out)], dim=1).float()
 
 
-def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """LayerNorm (no affine, eps 1e-6) of the fp32 stream x (B, T, D), times
-    1 + scale plus shift, (B, D) each, in fp32."""
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+             pending: adaln.Pending = None, write_back: bool = True):
+    """The pass between half-blocks: (x_new, y) for the fp32 stream x (B, T,
+    D), shift and scale (B, D) and the pending branch (h, gate), if any:
+    x_new = x + gate * h, y = LayerNorm(x_new) (no affine, eps 1e-6) times 1
+    + scale plus shift, in fp32, cast to ``dtype``; x_new None with
+    ``write_back`` False (``adaln.adaln_modulate``, which runs K4 or the
+    composed ops). ``fused_norms`` counts K4's launches while tracing."""
+    global fused_norms
     with span("dit.modulate"):
-        h = F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
-        return torch.addcmul(shift[:, None], h, 1.0 + scale.float()[:, None])
+        before = adaln.launches
+        out = adaln.adaln_modulate(x, shift, scale, dtype, pending, write_back)
+        if profiling.recording():
+            fused_norms += adaln.launches - before
+        return out
 
 
 def unpatchify(tokens: torch.Tensor, patch: int, channels: int) -> torch.Tensor:
@@ -168,16 +203,20 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(hidden, int(hidden * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden, 6 * hidden))
 
-    def forward(self, x: torch.Tensor, mod: Sequence[torch.Tensor]) -> torch.Tensor:
-        """x (B, T, D) fp32; ``mod``: this block's six (B, D) modulations."""
+    def forward(self, x: torch.Tensor, mod: Sequence[torch.Tensor],
+                pending: adaln.Pending = None):
+        """x (B, T, D) fp32 without the previous half's branch, which is
+        ``pending`` (h, gate), or None before the first block; ``mod``: this
+        block's six (B, D) modulations. Returns the stream with every half
+        before this block's MLP added, and the MLP's (h, gate)."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod
         dtype = self.attn.qkv.weight.dtype
         with span("dit.attn"):
-            h = self.attn(modulate(x, shift_msa, scale_msa).to(dtype))
-            x = torch.addcmul(x, gate_msa[:, None], h)
+            x, y = modulate(x, shift_msa, scale_msa, dtype, pending)
+            pending = (self.attn(y), gate_msa)
         with span("dit.mlp"):
-            h = self.mlp(modulate(x, shift_mlp, scale_mlp).to(dtype))
-            return torch.addcmul(x, gate_mlp[:, None], h)
+            x, y = modulate(x, shift_mlp, scale_mlp, dtype, pending)
+            return x, (self.mlp(y), gate_mlp)
 
 
 class FinalLayer(nn.Module):
@@ -186,9 +225,13 @@ class FinalLayer(nn.Module):
         self.linear = nn.Linear(hidden, patch * out_channels)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden, 2 * hidden))
 
-    def forward(self, x: torch.Tensor, mod: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mod: Sequence[torch.Tensor],
+                pending: adaln.Pending = None) -> torch.Tensor:
+        """The last block's MLP branch ``pending`` is added for the
+        LayerNorm alone: the stream is not written back."""
         shift, scale = mod
-        return self.linear(modulate(x, shift, scale).to(self.linear.weight.dtype))
+        _, y = modulate(x, shift, scale, self.linear.weight.dtype, pending, write_back=False)
+        return self.linear(y)
 
 
 class DiT1d(nn.Module):
@@ -236,10 +279,11 @@ class DiT1d(nn.Module):
                 cond = F.silu(cond)
                 mods = [blk.adaLN_modulation[1](cond).chunk(6, dim=1) for blk in self.blocks]
                 final_mod = self.final_layer.adaLN_modulation[1](cond).chunk(2, dim=1)
+            pending = None
             for blk, mod in zip(self.blocks, mods):
-                h = blk(h, mod)
+                h, pending = blk(h, mod, pending)
             with span("dit.final"):
-                out = self.final_layer(h, final_mod)  # (B, T, patch * C)
+                out = self.final_layer(h, final_mod, pending)  # (B, T, patch * C)
             return unpatchify(out.float(), self.patch_size, c)
 
 

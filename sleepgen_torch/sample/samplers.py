@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_tables, ddim_update,
                                                 ddpm_step)
-from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.kernels import adaln, fused_resblock, group_norm
 from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
@@ -40,12 +40,12 @@ graph_captures = graph_replays = traced_graph_replays = 0
 # model closure -> schedule -> {(x's shape, device, table length): _StepGraph};
 # an entry goes when its closure or its schedule is freed
 _graphs = weakref.WeakKeyDictionary()
-# The kernels' launch counters that a replay runs again: K1's, K2's and K3's
-# launches, by shape and by form
+# The kernels' launch counters that a replay runs again: K1's, K2's, K3's
+# and K4's launches, by shape and by form
 _LAUNCH_COUNTERS = ((group_norm, "launches"), (group_norm, "launch_shapes"),
                     (group_norm, "backward_launches"), (group_norm, "backward_launch_shapes"),
                     (group_norm, "form_launches"), (fused_resblock, "launches"),
-                    (fused_resblock, "launch_shapes"))
+                    (fused_resblock, "launch_shapes"), (adaln, "launches"))
 
 
 def draw_noise(noise: Noise, like: torch.Tensor) -> torch.Tensor:

@@ -175,8 +175,9 @@ def counters() -> Dict[str, int]:
     the DDIM loop's CUDA graphs captured and replayed, and replayed while
     the tracer recorded (``sampler.graph_captures``,
     ``sampler.graph_replays``, ``sampler.traced_graph_replays``); the DiT's
-    forwards and their rows x tokens while the tracer recorded
-    (``dit.forwards``, ``dit.tokens``); and ``spans.dropped``, the spans
+    forwards, their rows x tokens and its passes between half-blocks that
+    ran K4, while the tracer recorded (``dit.forwards``, ``dit.tokens``,
+    ``dit.fused_norms``); and ``spans.dropped``, the spans
     past ``MAX_SPANS``."""
     from sleepgen_torch.kernels import fused_resblock as k2, group_norm as gn
     from sleepgen_torch.nn import dit
@@ -192,6 +193,7 @@ def counters() -> Dict[str, int]:
            "sampler.graph_replays": samplers.graph_replays,
            "sampler.traced_graph_replays": samplers.traced_graph_replays,
            "dit.forwards": dit.forwards, "dit.tokens": dit.tokens,
+           "dit.fused_norms": dit.fused_norms,
            "spans.dropped": _dropped}
     for (kernel, form), n in sorted(gn.form_launches.items()):
         out[f"{kernel.lower()}.form.{form}"] = n

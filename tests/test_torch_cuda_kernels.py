@@ -13,11 +13,13 @@ plain version; bf16 against the plain version in fp32 on the same bf16
 inputs, to bf16 output rounding (K2 also rounds h to bf16 before its
 convolution).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
-from sleepgen_torch.kernels import _build, fused_resblock, group_norm
+from sleepgen_torch.kernels import _build, adaln, fused_resblock, group_norm
 from sleepgen_torch.nn.layers import GroupNorm32
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_card")]
@@ -1071,8 +1073,11 @@ def test_dit_xl2_bf16_forward_against_the_fp32_reference():
     t = torch.tensor([0, 50, 200, 400, 600, 800, 950, 999], device="cuda")
     y = torch.tensor([0, 1, 2, 3, 4, -1, 2, -1], device="cuda")
     ref_y = torch.where(y < 0, 5, y)
+    model = _bf16_dit(state)
     with torch.no_grad():
-        got = _bf16_dit(state)(x, t, y)
+        before = adaln.launches
+        got = model(x, t, y)
+        launched = adaln.launches - before
         want, fp8 = (rdit.DiT(**DIT_XL2, prec=ref.Precision(p)).cuda().eval() for p in
                      ("fp32", "fp8"))
         want.load_state_dict(state)
@@ -1082,6 +1087,7 @@ def test_dit_xl2_bf16_forward_against_the_fp32_reference():
     err_fp8 = float((fp8 - want).norm() / want.norm())
     print(f"DiT-XL/2 bf16 rel err {err:.5f}, fp8 reference {err_fp8:.5f}")
     assert torch.isfinite(got).all() and err <= 0.5 * err_fp8, (err, err_fp8)
+    assert launched == 2 * DIT_XL2["depth"] + 1  # every pass between half-blocks ran K4
 
 
 def test_dit_attention_takes_a_fused_sdpa_kernel():
@@ -1157,3 +1163,186 @@ def test_dit_sampler_launches_only_the_decodes_k1():
     decode = launched(lambda: ae.decode_stage_2_outputs(z))
     assert decode[0] > 0
     assert launched(lambda: sample(1.0, [3, 4])) == (decode[0], 0)
+
+
+# -- K4: the DiT's pass between half-blocks (kernels/adaln.py) -------------------
+
+# (B, T, D): the DiT cell's guided forward (128 rows of 384 tokens at 1152), odd
+# row counts, D 64 and 72 (fewer float4s than a warp has lanes) and 2048 (the
+# widest K4 takes)
+K4_SHAPES = [(128, 384, 1152), (3, 7, 1152), (5, 13, 64), (2, 9, 72), (3, 5, 2048)]
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float32: 23}
+
+
+def _k4_inputs(b, t, d, dtype, seed=0):
+    """x (B, T, D) fp32 off zero; gate, shift and scale chunks of one (B, 6 D)
+    projection in ``dtype``; h (B, T, D) in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3.0 * torch.randn((b, t, d), generator=g, device="cuda") + 0.5
+    mods = (0.3 * torch.randn((b, 6 * d), generator=g, device="cuda")).to(dtype).chunk(6, dim=1)
+    h = torch.randn((b, t, d), generator=g, device="cuda").to(dtype)
+    return x, mods[0], mods[1], mods[2], h
+
+
+def _assert_within_one_ulp(got, want):
+    """Elementwise within one unit in the last place of the output dtype at
+    the larger magnitude of the two, beyond an fp32 floor of 1e-6 of the
+    largest |want| (the composed ops' Welford statistics and unfused
+    residual round otherwise than K4's two-pass statistics and FMA)."""
+    got, want, bits = got.float(), want.float(), MANTISSA_BITS[got.dtype]
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), e - 1 - bits)
+    excess = (got - want).abs() - ulp - 1e-6 * want.abs().max()
+    assert float(excess.max()) <= 0, float(excess.max())
+
+
+@pytest.mark.parametrize("form", ["first", "residual", "final"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d", K4_SHAPES)
+def test_adaln_modulate_kernel(b, t, d, dtype, form):
+    """K4 against the composed ops: no pending branch, the gated residual
+    written back in place, and the final layer's (x left as it was; shift
+    and scale from a (B, 2 D) projection, the gate from a block's (B, 6 D));
+    x_new within 1e-6 of max |x|, y within one ulp; the same bits twice."""
+    x, shift, scale, gate, h = _k4_inputs(b, t, d, dtype)
+    if form == "final":
+        shift, scale = _k4_inputs(b, t, d, dtype, seed=1)[1:3]
+        shift, scale = torch.stack([shift, scale], dim=1).reshape(b, 2 * d).chunk(2, dim=1)
+        assert (shift.stride(0), gate.stride(0)) == (2 * d, 6 * d)
+    pending = None if form == "first" else (h, gate)
+    want_x, want_y = adaln.adaln_modulate_reference(x, shift, scale, dtype, pending)
+    stream = x.clone()
+    before = adaln.launches
+    got_x, got_y = adaln.adaln_modulate(stream, shift, scale, dtype, pending,
+                                        write_back=form != "final")
+    torch.cuda.synchronize()
+    assert adaln.launches == before + 1 and got_y.dtype == dtype and got_y.shape == x.shape
+    if form == "residual":
+        assert got_x is stream
+        assert float((stream - want_x).abs().max()) <= 1e-6 * float(x.abs().max())
+    else:
+        assert torch.equal(stream, x) and (got_x is None) == (form == "final")
+    _assert_within_one_ulp(got_y, want_y)
+    again = adaln.adaln_modulate(x.clone(), shift, scale, dtype, pending)[1]
+    assert torch.equal(again, got_y)
+
+
+def test_adaln_modulate_raises_on_what_k4_does_not_take():
+    """D not a multiple of 4 or above 2048, fp16, a bf16 stream, a strided
+    stream or h: the wrapper raises and launches nothing, never running the
+    composed ops on the card; inputs autograd follows, and autocast, run
+    the composed ops."""
+    x, shift, scale, gate, h = _k4_inputs(2, 3, 64, torch.bfloat16)
+    bf16 = torch.bfloat16
+    cases = [(torch.zeros((2, 3, 66), device="cuda"), *_k4_inputs(2, 3, 66, bf16)[1:3], bf16,
+              None),
+             (*_k4_inputs(1, 2, 2052, bf16)[:3], bf16, None),
+             (x, shift.half(), scale.half(), torch.float16, None),
+             (x.to(bf16), shift, scale, bf16, None),
+             (x.transpose(0, 1).contiguous().transpose(0, 1), shift, scale, bf16, None),
+             (x, shift, scale, bf16, (h.transpose(0, 1).contiguous().transpose(0, 1), gate))]
+    before = adaln.launches
+    for case in cases:
+        with pytest.raises(ValueError, match="adaln_modulate"):
+            adaln.adaln_modulate(*case)
+    assert adaln.launches == before
+    x_new, y = adaln.adaln_modulate(x.clone().requires_grad_(), shift, scale, bf16, (h, gate))
+    assert x_new.grad_fn is not None and adaln.launches == before
+    with torch.autocast("cuda", dtype=bf16):
+        adaln.adaln_modulate(x, shift, scale, torch.float32, (h, gate))
+    assert adaln.launches == before
+    adaln.adaln_modulate(x, shift, scale, bf16, (h, gate))
+    assert adaln.launches == before + 1
+
+
+def test_dit_raises_on_a_strided_stream_or_fp16():
+    """An fp16 DiT raises at its first pass under inference mode, and the
+    pass raises on a strided stream, instead of running the composed ops;
+    the bf16 DiT then runs K4 at each of its 2 depth + 1 passes."""
+    from sleepgen_torch.nn import dit as ndit
+    from sleepgen_torch.nn.layers import cast_compute_dtype
+
+    model = _bf16_dit(_dit_state(depth=1), depth=1)
+    fp16 = cast_compute_dtype(copy.deepcopy(model), torch.float16)
+    x = torch.randn((2, 1, 768), generator=torch.Generator().manual_seed(4)).cuda()
+    t, y = torch.tensor([5, 600], device="cuda"), torch.tensor([0, -1], device="cuda")
+    stream, shift, scale, gate, h = _k4_inputs(2, 384, 1152, torch.bfloat16)
+    strided = stream.transpose(1, 2).contiguous().transpose(1, 2)
+    before = adaln.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="compute dtype"):
+            fp16(x, t, y)
+        with pytest.raises(ValueError, match="contiguous"):
+            ndit.modulate(strided, shift, scale, torch.bfloat16, (h, gate))
+        assert adaln.launches == before
+        model(x, t, y)
+    assert adaln.launches == before + 2 * 1 + 1
+
+
+def test_dit_runs_k4_at_every_pass_only_without_autograd():
+    """Under inference mode each forward counts 2 depth + 1 passes in
+    ``dit.fused_norms``; with parameters that need gradients (training) the
+    composed ops run, none counts, and the output is the K4 forward's within
+    fp32 rounding."""
+    from sleepgen_torch.nn import dit as ndit
+    from sleepgen_torch.utils import profiling
+
+    depth = 2
+    state = _dit_state(depth=depth)
+    model = _bf16_dit(state, depth=depth)
+    x = torch.randn((4, 1, 768), generator=torch.Generator().manual_seed(3)).cuda()
+    t = torch.tensor([5, 300, 600, 990], device="cuda")
+    y = torch.tensor([0, 2, 4, -1], device="cuda")
+    profiling.reset()
+    with profiling.tracing(), torch.inference_mode():
+        model(x, t, y)
+        model(x, t, y)
+    c = profiling.counters()
+    assert (c["dit.forwards"], c["dit.fused_norms"]) == (2, 2 * (2 * depth + 1))
+    with torch.device("cuda"):
+        fp32 = ndit.DiT1d(**{**DIT_XL2, "depth": depth})
+    fp32.load_state_dict(state)
+    profiling.reset()
+    with profiling.tracing():
+        trained = fp32(x, t, y)
+        trained.square().mean().backward()
+    assert profiling.counters()["dit.fused_norms"] == 0
+    with torch.no_grad():
+        before = adaln.launches
+        fused = fp32(x, t, y)
+        assert adaln.launches - before == 2 * depth + 1
+    profiling.reset()
+    trained = trained.detach()
+    err = float((fused - trained).norm() / trained.norm())
+    print(f"DiT fp32 forward, K4 against the composed ops: rel err {err:.3e}")
+    assert err < 1e-5, err
+
+
+def test_adaln_modulate_time_at_the_dit_cell():
+    """K4's device ms a pass at the cell's shape (bf16, gated residual written
+    back) against its byte bound, and the composed ops' ms for the same pass."""
+    b, t, d = 128, 384, 1152
+    x, shift, scale, gate, h = _k4_inputs(b, t, d, torch.bfloat16)
+    pending, n = (h, gate), 50
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    with torch.inference_mode():
+        k4 = per_call(lambda: adaln.adaln_modulate(x, shift, scale, torch.bfloat16, pending))
+        composed = per_call(lambda: adaln.adaln_modulate_reference(x, shift, scale,
+                                                                   torch.bfloat16, pending))
+    moved = b * t * d * (4 + 2 + 4 + 2)  # read x and h, write x_new and y
+    bound = moved / 3.35e12 * 1e3
+    print(f"K4 adaln_modulate ({b}, {t}, {d}) bf16: {k4:.4f} ms a pass, bound {bound:.4f} ms "
+          f"({moved / 1e6:.1f} MB at 3.35 TB/s, {100 * bound / k4:.1f} %); "
+          f"composed ops {composed:.4f} ms; {torch.cuda.get_device_name(0)}")
+    assert k4 > 0

@@ -10,8 +10,10 @@ the AEKL decode and crop; one ``make_ldm_train_step`` step's loss and
 gradients; the state-dict names; the patch layout; the denoiser chosen by
 the configuration in ``build_models`` and ``build_trainer`` with DiT's
 published initialisation; the int8 refusal; the spans and counters; the
-run dir's parameter tree; and ``train-ldm`` then ``sample`` on the DiT
-configuration's YAML cut to tiny width.
+run dir's parameter tree; ``train-ldm`` then ``sample`` on the DiT
+configuration's YAML cut to tiny width; and the pass between half-blocks
+(``modulate``) in its composed form, which runs here, against the ops it
+replaced, bit for bit, with autograd on and off.
 """
 import sys
 from pathlib import Path
@@ -23,7 +25,10 @@ import yaml
 
 from portbench import weights as seeded
 from portbench.reference import dit as rdit, loops, models as ref
+import torch.nn.functional as F
+
 from sleepgen_torch.config import Config
+from sleepgen_torch.kernels import adaln
 from sleepgen_torch.nn import dit
 from sleepgen_torch.nn.dit import DiT1d
 from sleepgen_torch.nn.unet1d import UNet1d
@@ -292,6 +297,7 @@ def test_spans_and_counters_while_tracing(pair):
             assert parent in ("dit.attn", "dit.mlp", "dit.final")
     c = profiling.counters()
     assert (c["dit.forwards"], c["dit.tokens"]) == (1, 3 * TINY["input_size"] // 2)
+    assert c["dit.fused_norms"] == 0  # the composed ops on the CPU
     profiling.reset()
     assert profiling.counters()["dit.forwards"] == 0
 
@@ -394,3 +400,77 @@ def test_train_ldm_fits_a_conditional_dits_stage_rows(tmp_path, aekl_pair):
     assert table.shape == init.shape == (6, 32)
     moved = np.abs(table - init).max(axis=1)
     assert (moved > 1e-6).all(), moved
+
+
+def _old_modulate(x, shift, scale):
+    """The LayerNorm and modulation as the DiT computed them before the pass
+    took in the gated residual and the cast."""
+    h = F.layer_norm(x, (x.shape[-1],), eps=adaln.LN_EPS)
+    return torch.addcmul(shift[:, None], h, 1.0 + scale.float()[:, None])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("form", ["first", "residual", "final"])
+def test_the_composed_pass_is_the_old_ops_bit_for_bit(form, dtype):
+    """The pass's composed form: no pending branch (block 0's attention), the
+    gated residual then LayerNorm and modulation, and the final layer's
+    (x_new not kept); against ``addcmul`` -> LayerNorm -> ``addcmul`` ->
+    ``.to``, with gate, shift and scale chunks of one (B, 6 D) projection."""
+    g = torch.Generator().manual_seed(11)
+    b, t, d = 3, 5, 64
+    x = 3.0 * torch.randn((b, t, d), generator=g) + 0.5
+    x_before = x.clone()
+    mods = (0.3 * torch.randn((b, 6 * d), generator=g)).to(dtype).chunk(6, dim=1)
+    shift, scale, gate = mods[0], mods[1], mods[2]
+    h = torch.randn((b, t, d), generator=g).to(dtype)
+    pending = None if form == "first" else (h, gate)
+    x_new, y = dit.modulate(x, shift, scale, dtype, pending, write_back=form != "final")
+    want_x = x if pending is None else torch.addcmul(x, gate[:, None], h)
+    want_y = _old_modulate(want_x, shift, scale).to(dtype)
+    assert y.dtype == dtype and torch.equal(y, want_y)
+    assert torch.equal(x, x_before)  # nothing in place
+    assert x_new is None if form == "final" else torch.equal(x_new, want_x)
+
+
+def test_the_pass_keeps_the_composed_ops_under_autograd():
+    """Inputs that autograd follows never reach K4: the pass returns the
+    composed ops' x_new with its graph, and launches nothing; on the CPU
+    without autograd, and under autocast, the composed ops run too."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 3, 64), generator=g)
+    shift, scale, gate = (0.1 * torch.randn((2, 64), generator=g) for _ in range(3))
+    h = torch.randn((2, 3, 64), generator=g, requires_grad=True)
+    before = adaln.launches
+    x_new, y = adaln.adaln_modulate(x, shift, scale, torch.float32, (h, gate))
+    assert x_new.grad_fn is not None and y.requires_grad
+    y.sum().backward()
+    assert h.grad is not None and torch.isfinite(h.grad).all()
+    with torch.no_grad():
+        want = adaln.adaln_modulate_reference(x, shift, scale, torch.float32, (h, gate))
+        assert all(torch.equal(a, b) for a, b in zip(
+            adaln.adaln_modulate(x, shift, scale, torch.float32, (h, gate)), want))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        adaln.adaln_modulate(x, shift, scale, torch.float32, (h.detach(), gate))
+    assert adaln.launches == before
+
+
+def test_a_forward_without_autograd_equals_one_with_it(pair):
+    """The DiT with gradients on (training's parameters) and under no_grad
+    and inference_mode gives the same output; the pass runs its composed
+    ops each time here, and K4 never while autograd follows."""
+    x, t = _inputs()
+    labels = torch.tensor([0, 3, -1])
+    model = DiT1d(**TINY)
+    model.load_state_dict(pair[2])
+    profiling.reset()
+    with profiling.tracing():
+        with_grad = model(x, t, labels)
+        with_grad.square().mean().backward()
+        assert profiling.counters()["dit.fused_norms"] == 0
+    with torch.no_grad():
+        no_grad = model(x, t, labels)
+    with torch.inference_mode():
+        inference = model(x, t, labels)
+    profiling.reset()
+    assert with_grad.requires_grad and model.blocks[0].attn.qkv.weight.grad is not None
+    assert torch.equal(with_grad.detach(), no_grad) and torch.equal(no_grad, inference)
