@@ -27,7 +27,7 @@ parallelism over ``torch.distributed``. Phases, one line each:
      none; one full-width stage-1 step at ``aekl_eeg.yaml``'s batch 2048,
      bf16, whose K1 and K3 launches, 26 each, must equal those derived
      from the configuration, K2 none, and must all take the cluster form
-     (``form_launches``), with the strided dy copies K3's wrapper made; one ``compute-mmds`` reconstruction batch of 64
+     (``read_forms()``), with the strided dy copies K3's wrapper made; one ``compute-mmds`` reconstruction batch of 64
      windows, fp32, whose 26 K1 launches must equal those derived from the
      configuration and take the cluster form; one DDIM step of the full-width DM (``dm.yaml``) at
      batch 64 through ``sample_dm_trials``, and one full-width DM training
@@ -327,7 +327,7 @@ step of each stage and of the DM, one DDIM step of the DM and one
 reconstruction batch, whose K1 and K3 launches are checked against the
 configuration, and the attention AEKL's stage-1 step of OPT at batch
 2048; the stage-1 steps and the reconstruction batch must take the
-cluster form at every K1 and K3 launch (``form_launches``); K1's, K3's
+cluster form at every K1 and K3 launch (``read_forms()``); K1's, K3's
 and B2's fp32 and bf16 checks at those shapes and at B2's (with the v1
 steps', the long window's and the int8 step's); the phase-8 timings of
 K1 (paths "DDIM step", "train step", "stage-1 step", "reconstruction
@@ -412,6 +412,7 @@ from sleepgen_torch.train import train_aekl as A  # noqa: E402
 from sleepgen_torch.train import train_dm as D  # noqa: E402
 from sleepgen_torch.train import train_ldm as T  # noqa: E402
 from sleepgen_torch.train import train_v1 as V  # noqa: E402
+from sleepgen_torch.utils import profiling  # noqa: E402
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, aekl_state_to_jax,  # noqa: E402
                                           aekl_v1_state_from_jax, aekl_v1_state_to_jax,
                                           flax_init_state, lecun_normal_state, load_numpy_state,
@@ -581,29 +582,34 @@ def expected_stage1_launches(cfg: Config, steps: int, eval_batches: int) -> dict
     return {"K1": (steps + eval_batches) * n, "K2": 0, "K3": steps * n}
 
 
-def reset_counts() -> None:
-    group_norm.reset_counts()
-    fused_resblock.reset_counts()
-
-
 def read_counts() -> dict:
-    return {"K1": group_norm.launches, "K2": fused_resblock.launches,
-            "K3": group_norm.backward_launches}
+    c = profiling.counters()
+    return {"K1": c["k1.launches"], "K2": c["k2.launches"], "K3": c["k3.launches"]}
+
+
+def read_relayouts() -> int:
+    """K2's weight re-layouts since the last ``profiling.reset()``."""
+    return profiling.counters()["k2.relayouts"]
 
 
 def read_forms() -> dict:
-    """K1's and K3's launches by the form each launcher reported:
-    {"K1_cluster": n, "K3_three_pass": m, ...}."""
-    return {f"{kid}_{form}": n for (kid, form), n in sorted(group_norm.form_launches.items())}
+    """K1's and K3's launches by the form each launcher reported, those
+    counted: {"K1_cluster": n, "K3_three_pass": m, ...}."""
+    out = {}
+    for name, n in profiling.counters().items():
+        kid, sep, form = name.partition(".form.")
+        if sep and n:
+            out[f"{kid.upper()}_{form}"] = n
+    return out
 
 
 def read_shapes() -> dict:
     """Launches by shape of each kernel, (``K3_strided_dy``) K3's calls
     whose dy came strided, by shape and dy's strides, and (``forms``) K1's
     and K3's launches by form."""
-    return {"K1": dict(group_norm.launch_shapes), "K2": dict(fused_resblock.launch_shapes),
-            "K3": dict(group_norm.backward_launch_shapes),
-            "K3_strided_dy": dict(group_norm.strided_dy_shapes), "forms": read_forms()}
+    return {"K1": profiling.keyed("k1.launch_shapes"), "K2": profiling.keyed("k2.launch_shapes"),
+            "K3": profiling.keyed("k3.launch_shapes"),
+            "K3_strided_dy": profiling.keyed("k3.strided_dy_shapes"), "forms": read_forms()}
 
 
 def require_forms(path: str, counts: dict, forms: dict, form: str = "cluster") -> None:
@@ -976,15 +982,15 @@ def eval_relayouts(step, step_inputs, evaluate, sched, latent_shape, cfg: Config
     for i in range(3):
         if i == 1:
             step(*step_inputs)
-        reset_counts()
+        profiling.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluate(x, 1.0, *inputs)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        relayouts.append(fused_resblock.relayouts)
-        if fused_resblock.launches != per_forward:
-            raise AssertionError(f"eval batch: K2 launches {fused_resblock.launches}, "
+        relayouts.append(read_relayouts())
+        if read_counts()["K2"] != per_forward:
+            raise AssertionError(f"eval batch: K2 launches {read_counts()['K2']}, "
                                  f"expected {per_forward}")
     if relayouts != [per_forward, per_forward, 0]:
         raise AssertionError(f"eval batches re-laid out {relayouts} K2 weights, "
@@ -1007,7 +1013,7 @@ def phase_train_step() -> tuple:
     x = train_windows(TRAIN_BATCH, SEED)
     gen = C.make_generator(cfg.train.seed, "cuda", C.TRAIN_STREAM, 0)
     inputs = T.draw_step_inputs(gen, TRAIN_BATCH, latent_shape, sched.num_timesteps)
-    reset_counts()
+    profiling.reset()
     loss = step(x, *inputs)
     torch.cuda.synchronize()
     counts, shapes = read_counts(), read_shapes()
@@ -1049,7 +1055,7 @@ def phase_stage1_step() -> tuple:
     cfg = stage1_config()
     step = stage1_trainer(cfg)
     x, eps = stage1_inputs(cfg, SEED)
-    reset_counts()
+    profiling.reset()
     metrics = step(x, eps)
     torch.cuda.synchronize()
     counts, shapes = read_counts(), read_shapes()
@@ -1091,7 +1097,7 @@ def phase_recon_batch() -> tuple:
     ae = eval_aekl(cfg, ae_sd)
     ds = WindowDataset.from_raw(make_synthetic_dataset(BATCH, 35.0, SEED + 6))
     windows = ds.epoch_windows(np.random.default_rng(SEED))
-    reset_counts()
+    profiling.reset()
     scores = reconstruction_scores(ae, windows, BATCH, torch.device("cuda"))
     counts, shapes = read_counts(), read_shapes()
     want = recon_launches(cfg, batches=1)
@@ -1143,7 +1149,7 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     from the configuration (the training steps' are checked always)."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
-    reset_counts()
+    profiling.reset()
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
     torch.cuda.synchronize()
     sample_counts, sample_shapes = read_counts(), read_shapes()
@@ -1189,7 +1195,7 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
             bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in results[kid].values()):.3e}")
     if "K1" in results:
         say_dm_checks(results, dm_sample_shapes, dm_train_shapes)
-    reset_counts()
+    profiling.reset()
     return dict(sample=sample_shapes, sample_counts=sample_counts, train=train_shapes,
                 train_counts=train_counts, evals=evals, stage1=stage1_shapes,
                 stage1_counts=stage1_counts, recon=recon_shapes,
@@ -1203,7 +1209,7 @@ def phase_tiny(tmp: Path) -> None:
     cfg = tiny_config(steps=4)
     unet_sd, ae_sd = seeded_weights(cfg, SEED + 10)
     kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
-    reset_counts()
+    profiling.reset()
     card = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "tiny_card", device="cuda", **kw)
     counts = read_counts()
     cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "tiny_cpu", device="cpu", **kw)
@@ -1226,7 +1232,7 @@ def phase_full(tmp: Path) -> dict:
     seconds = []
     for i in range(TIMED_BATCHES):
         seeds = (i * BATCH, (i + 1) * BATCH)
-        reset_counts()
+        profiling.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "full", *seeds, BATCH)
@@ -1300,7 +1306,7 @@ def phase_tiny_train(tmp: Path) -> dict:
               rng.standard_normal((b, *lat)).astype(np.float32)) for _ in range(2)]
     runs = {}
     for dev in ("cuda", "cpu"):
-        reset_counts()
+        profiling.reset()
         with torch.device(dev):
             unet = load_numpy_state(build_unet(cfg, 1, 1), unet_sd)
             ae = load_numpy_state(build_aekl(cfg), ae_sd).requires_grad_(False)
@@ -1356,7 +1362,7 @@ def phase_train_full(tmp: Path) -> dict:
     train_ds, valid_ds = write_split(tmp, "npy", TRAIN_BATCH, VALID_WINDOWS, SEED + 1)
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    profiling.reset()
     t0 = time.perf_counter()
     result = T.train_ldm(cfg, train_ds, valid_ds, ae_sd, device="cuda")
     torch.cuda.synchronize()
@@ -1483,7 +1489,7 @@ def phase_tiny_stage1(tmp: Path) -> dict:
     b, length = 4, 256
     x = rng.uniform(size=(b, 1, length)).astype(np.float32)
     eps = [rng.standard_normal((b, 1, length // 4)).astype(np.float32) for _ in range(2)]
-    reset_counts()
+    profiling.reset()
     card = tiny_stage1_run(cfg, "cuda", x, eps)
     counts = read_counts()
     want = expected_stage1_launches(cfg, steps=2, eval_batches=0)
@@ -1543,7 +1549,7 @@ def phase_stage1_full(tmp: Path) -> dict:
     train_ds, valid_ds = write_split(tmp, "stage1_npy", AEKL_BATCH, VALID_WINDOWS, SEED + 3)
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    profiling.reset()
     t0 = time.perf_counter()
     result = A.train_aekl(cfg, train_ds, valid_ds, device="cuda")
     torch.cuda.synchronize()
@@ -1613,7 +1619,7 @@ def phase_tiny_eval(tmp: Path) -> dict:
             cfg.diffusion.sampler = "dpm++2m"
             unet_sd, ae_sd = seeded_weights(cfg, SEED + 40)
             kw = dict(start_seed=0, stop_seed=4, batch_size=4, compute_psd=False)
-            reset_counts()
+            profiling.reset()
             card = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "e1_card", device="cuda", **kw)
             counts = read_counts()
             cpu = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.3, tmp / "e1_cpu", device="cpu", **kw)
@@ -1698,7 +1704,7 @@ def phase_eval_full(tmp: Path) -> dict:
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "dpm_warmup", 0, BATCH, BATCH)
     seconds = []
     for i in range(TIMED_BATCHES):
-        reset_counts()
+        profiling.reset()
         out, sec = timed(sample_ldm_trials, cfg, unet_sd, ae_sd, 1.0, tmp / "dpm_timed",
                          i * BATCH, (i + 1) * BATCH, BATCH)
         seconds.append(sec)
@@ -1715,7 +1721,7 @@ def phase_eval_full(tmp: Path) -> dict:
         windows_per_s=f"{BATCH / median:.3f}",
         windows_per_s_min_max=f"{BATCH / max(seconds):.3f}-{BATCH / min(seconds):.3f}")
     samples = tmp / "dpm_samples"
-    reset_counts()
+    profiling.reset()
     _, all_seconds = timed(sample_ldm_trials, cfg, unet_sd, ae_sd, 1.0, samples, 0,
                            EVAL_WINDOWS, BATCH)
     if read_counts() != {k: v * batches for k, v in want.items()} or len(
@@ -1745,7 +1751,7 @@ def phase_eval_full(tmp: Path) -> dict:
     cfg.to_yaml(run / "config.yaml")
     save_params_npz(run / "params.npz", {"params": aekl_state_to_jax(ae_sd)})
     out = tmp / "eval_mmds"
-    reset_counts()
+    profiling.reset()
     recon_mean, recon_s = timed(run_cli, "compute-mmds", "--best_model_path", str(run), *data,
                                 "--output_dir", str(out), "--batch_size", str(BATCH))
     counts = read_counts()
@@ -1822,7 +1828,7 @@ def phase_tiny_serve(tmp: Path) -> dict:
     errs, counts, outs = {}, {}, {}
     for name, kw in (("plain", dict(stage=SERVE_STAGE)),
                      ("guided", dict(stage=SERVE_STAGE, guidance_scale=SERVE_SCALE))):
-        reset_counts()
+        profiling.reset()
         outs[name] = card.sample(range(4), **kw)
         counts[name] = read_counts()
         if counts[name] != want:
@@ -1838,7 +1844,7 @@ def phase_tiny_serve(tmp: Path) -> dict:
         raise AssertionError(f"S1: sampler cache {sorted(card._samplers)}")
     for bad in (dict(), dict(stage=-1), dict(stage=SERVE_CLASSES),
                 dict(stage=SERVE_STAGE, guidance_scale="strong")):
-        reset_counts()
+        profiling.reset()
         try:
             card.sample_async(range(4), **bad)
         except ValueError:
@@ -1860,7 +1866,7 @@ def timed_request(svc: SamplerService, seeds, **kw) -> dict:
     seconds ``sample_async`` took to return and to the end of
     ``result()``, whether the card was still busy at that return, and the
     request's launch counts, shapes and K2 weight re-layouts."""
-    reset_counts()
+    profiling.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pending = svc.sample_async(seeds, **kw)
@@ -1871,7 +1877,7 @@ def timed_request(svc: SamplerService, seeds, **kw) -> dict:
     if out.shape != (len(seeds), 3000, 1) or not np.isfinite(out).all():
         raise AssertionError(f"request {kw}: output {out.shape}")
     return dict(out=out, queued_s=queued, seconds=seconds, busy_at_return=busy,
-                counts=read_counts(), shapes=read_shapes(), relayouts=fused_resblock.relayouts)
+                counts=read_counts(), shapes=read_shapes(), relayouts=read_relayouts())
 
 
 def spin_cycles_per_s() -> float:
@@ -2151,7 +2157,7 @@ def phase_dm_sample_step(tmp: Path) -> tuple:
     batch 64 (bf16, the 1000-entry table), with the counts set to 0 before
     and read after: they must equal those derived from the configuration."""
     cfg = dm_config()
-    reset_counts()
+    profiling.reset()
     out = sample_dm_trials(cfg, dm_state(cfg, SEED), tmp / "dm_warmup", 0, BATCH, BATCH,
                            DM_TABLE, 1, compute_psd=False)
     torch.cuda.synchronize()
@@ -2179,7 +2185,7 @@ def phase_dm_train_step() -> tuple:
     t, noise, _ = D.draw_dm_step_inputs(gen, DM_TRAIN_BATCH, (1, x.shape[-1]),
                                         sched.num_timesteps)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    profiling.reset()
     metrics = step(x, t, noise)
     torch.cuda.synchronize()
     counts, shapes = read_counts(), read_shapes()
@@ -2244,7 +2250,7 @@ def phase_tiny_dm(tmp: Path) -> dict:
             sd = dm_state(cfg, SEED + 60)
             kw = dict(start_seed=0, stop_seed=4, batch_size=4, num_train_timesteps=DM_TABLE,
                       num_ddim_steps=4, compute_psd=False)
-            reset_counts()
+            profiling.reset()
             card = sample_dm_trials(cfg, sd, tmp / "d1_card", device="cuda", **kw)
             counts, shapes = read_counts(), read_shapes()
             cpu = sample_dm_trials(cfg, sd, tmp / "d1_cpu", device="cpu", **kw)
@@ -2284,7 +2290,7 @@ def phase_tiny_dm(tmp: Path) -> dict:
             lx = np.ascontiguousarray(x[..., :256])
             out, repaint_counts = {}, {}
             for dev in ("cuda", "cpu"):
-                reset_counts()
+                profiling.reset()
                 unet = build_dm(cfg, sd, torch.device(dev))
                 lunet, ae = build_models(lcfg, unet_sd, ae_sd, torch.device(dev))
                 with torch.inference_mode():
@@ -2340,7 +2346,7 @@ def impute_cli(tmp: Path, name: str, windows: np.ndarray, *flags) -> dict:
     the output, whose observed samples must equal the input's."""
     inp, out = tmp / f"{name}_in.npy", tmp / f"{name}_out"
     np.save(inp, windows)
-    reset_counts()
+    profiling.reset()
     _, seconds = timed(run_cli, "impute", "--input", str(inp), "--output_dir", str(out),
                        "--mask_start", str(IMPUTE_MASK[0]), "--mask_len", str(IMPUTE_MASK[1]),
                        "--batch_size", str(IMPUTE_BATCH), *flags)
@@ -2370,7 +2376,7 @@ def phase_dm_full(tmp: Path) -> dict:
     state = dm_state(cfg, SEED)
     run = write_dm_run_dir(tmp / "dm_run", cfg, state)
     warm_out = tmp / "dm_cli"
-    reset_counts()
+    profiling.reset()
     _, cli_s = timed(run_cli, "sample-dm", "--output_dir", str(warm_out), "--diffusion_path",
                      str(run), "--stop_seed", str(BATCH), "--batch_size", str(BATCH))
     want = expected_dm_launches(cfg, forwards=STEPS)
@@ -2382,7 +2388,7 @@ def phase_dm_full(tmp: Path) -> dict:
     say("dm-sample", cli_seconds=f"{cli_s:.3f}", k1_launches=want["K1"], k2_launches=want["K2"])
     seconds = []
     for i in range(TIMED_BATCHES):
-        reset_counts()
+        profiling.reset()
         out, sec = timed(sample_dm_trials, cfg, state, tmp / "dm_timed", i * BATCH,
                          (i + 1) * BATCH, BATCH, DM_TABLE, STEPS)
         seconds.append(sec)
@@ -2404,7 +2410,7 @@ def phase_dm_full(tmp: Path) -> dict:
     write_split(tmp, "dm_npy", DM_TRAIN_BATCH, VALID_WINDOWS, SEED + 7)
     free_card()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    profiling.reset()
     result, wall = timed(run_cli, "train-dm", "--config_file", str(tmp / "dm_train.yaml"),
                          "--path_train_ids", str(tmp / "dm_npy_train.csv"),
                          "--path_valid_ids", str(tmp / "dm_npy_valid.csv"),
@@ -2807,7 +2813,7 @@ def band_eval_batch(cfg: Config, run: Path, ids: Path, npy: Path) -> tuple:
     ae = load_aekl(run, cfg, torch.device("cuda"))
     windows = load_split(ids, npy).epoch_windows(np.random.default_rng(2))[:BAND_EVAL_WINDOWS]
     x = torch.as_tensor(to_bcl(windows), device="cuda")
-    reset_counts()
+    profiling.reset()
     with torch.inference_mode():
         recon = ae.reconstruct(x)
     torch.cuda.synchronize()
@@ -2840,7 +2846,7 @@ def phase_eval_tail(tmp: Path, checks: dict, stage1_run: Path) -> dict:
     npy, ids = tmp / "eval_npy", tmp / "eval_test.csv"
     figures = HAVE["matplotlib"]
     batches = EVAL_WINDOWS // BATCH
-    reset_counts()
+    profiling.reset()
     out_dir, cli_s = timed(run_cli, "sample-ae", "--output_dir", str(tmp / "sample_ae"),
                            "--stage1_path", str(run), "--path_train_ids", str(ids),
                            "--path_pre_processed", str(npy), "--batch_size", str(BATCH),
@@ -2877,7 +2883,7 @@ def phase_eval_tail(tmp: Path, checks: dict, stage1_run: Path) -> dict:
     for mode, metric in (("test_pairs", "ms_ssim"), ("sample_pairs", "ms_ssim"),
                          ("sample_vs_test", "ms_ssim"), ("reconstruction", "ms_ssim"),
                          ("test_pairs", "both")):
-        reset_counts()
+        profiling.reset()
         res, secs = timed(run_cli, "band-eval", "--mode", mode, "--metric", metric, *common,
                           "--output_dir", str(tmp / "band_eval"))
         launches = read_counts()
@@ -2978,7 +2984,7 @@ def v1_launches(ae: AutoencoderKLV1, unet: UNet1d) -> dict:
 def counted(path: str, want: dict, fn):
     """fn() with the counts set to 0 before and read after, held to
     ``want``: (its result, counts, shapes)."""
-    reset_counts()
+    profiling.reset()
     out = fn()
     torch.cuda.synchronize()
     counts, shapes = read_counts(), read_shapes()
@@ -3324,7 +3330,7 @@ def phase_v1_full(tmp: Path) -> dict:
     anc = out["ancestral"]
     # each K2 launch of a forward has its own weight, laid out once for the
     # whole chain (the weights were made outside inference mode)
-    anc["relayouts"] = fused_resblock.relayouts
+    anc["relayouts"] = read_relayouts()
     if anc["relayouts"] != want["sample_step"]["K2"]:
         raise AssertionError(f"v1 ancestral batch: {anc['relayouts']} K2 weight re-layouts "
                              f"over {anc['launches']['K2']} launches, expected one per "
@@ -3412,7 +3418,7 @@ def quant_batch(cfg: Config, unet_sd, ae_sd, tmp: Path, i: int, quantized: bool)
     """One batch of 64 seeds through ``sample_ldm_trials`` (the entry point,
     model build and artifacts included), bf16 or int8: seconds, counts,
     shapes and the signals."""
-    reset_counts()
+    profiling.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sig = sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / f"q_{quantized}_{i}", i * BATCH,
@@ -3516,7 +3522,7 @@ def phase_long_window() -> dict:
     counts as derived; the two outputs must be equal (the block changes
     only the refusal, the attention stays one SDPA call)."""
     bad, sched, x_T = long_window_inputs(long_window_config(LONG_BAD_BLOCK))
-    reset_counts()
+    profiling.reset()
     try:
         with torch.inference_mode():
             ddim_sample_loop(bad, sched, x_T, 1)
@@ -4048,11 +4054,11 @@ def phase_dit_step() -> tuple:
     x = torch.randn((2 * BATCH, 1, d.input_size), generator=gen, device="cuda")
     t = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda").repeat(2)
     y = torch.tensor([SERVE_STAGE] * BATCH + [-1] * BATCH, device="cuda")
-    adaln.launches = 0
+    profiling.reset()
     with torch.inference_mode():
         out = model(x, t, y)
     torch.cuda.synchronize()
-    launches, want = adaln.launches, 2 * d.depth + 1
+    launches, want = profiling.counters()["k4.launches"], 2 * d.depth + 1
     if launches != want or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"{DIT_PATH}: K4 launches {launches}, expected {want}, "
                              f"finite {bool(torch.isfinite(out).all())}")
@@ -4123,12 +4129,12 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
                 calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
                              library_ms=(spec["library"](*args), ()) if kid == "K3"
                              else (spec["library"], args))
-                group_norm.form_launches.clear()
+                profiling.reset()
                 for name, (fn, fn_args) in calls.items():
                     t[name], t[name.replace("ms", "graph_ms")] = time_ms(
                         fn, fn_args, reps, graph=not (kid == "K3" and name == "library_ms"))
                     if name == "ms" and kid in ("K1", "K3", "B2"):
-                        took = {form for (_, form), n in group_norm.form_launches.items() if n}
+                        took = {form.split("_", 1)[1] for form in read_forms()}
                         if len(took) != 1:
                             raise AssertionError(f"{spec['name']} at {key}: forms {took}")
                         form_of[kid, key, dtype] = took.pop()

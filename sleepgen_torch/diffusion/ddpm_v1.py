@@ -15,7 +15,7 @@ Kept from the JAX package on purpose:
 * the x0-parameterisation's lvlb weights divide by (2 - acp), the
   reference's ``2.0 * 1 - acp``, and ``lvlb[0] = lvlb[1]``.
 
-Noise of ``p_sample_loop`` is a ``samplers.Noise``: a ``torch.Generator``
+Noise of ``p_sample_loop`` is a ``schedules.Noise``: a ``torch.Generator``
 on the device, or an iterator of tensors in the JAX loop's order (x_T
 first, from the key split off before the loop, then one draw per step).
 """
@@ -27,8 +27,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from sleepgen_torch.diffusion.schedules import make_betas
-from sleepgen_torch.sample.samplers import Noise, draw_noise
+from sleepgen_torch.diffusion.schedules import Noise, draw_noise, make_betas
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 

@@ -8,15 +8,30 @@ broadcast against sample batches of shape (B, ...); the DDIM and DDPM
 steps take the sampler loops' scalar timesteps. ``ddim_update`` is the
 DDIM step at given alphas_cumprod values, which ``ddim_tables`` holds per
 step of a loop on the device, so that one step's code serves every step.
+
+Noise of the ancestral loops (``Noise``): a ``torch.Generator`` on x's
+device, from which each draw is one standard normal of x's shape in the
+order the loop documents, or an iterator of tensors given in that same
+order (the parity tests feed it the JAX package's threefry draws, which
+torch cannot reproduce).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
 PREDICTION_TYPES = ("epsilon", "sample", "v_prediction")
+
+Noise = Union[torch.Generator, Iterator[torch.Tensor]]
+
+
+def draw_noise(noise: Noise, like: torch.Tensor) -> torch.Tensor:
+    """The next standard normal draw of ``like``'s shape, fp32 on its device."""
+    if isinstance(noise, torch.Generator):
+        return torch.randn(like.shape, generator=noise, device=like.device)
+    return next(noise).to(device=like.device, dtype=torch.float32)
 
 
 def make_betas(schedule: str, num_timesteps: int, beta_start: float = 1e-4,

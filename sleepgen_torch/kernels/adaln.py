@@ -34,11 +34,15 @@ import torch.nn.functional as F
 
 from sleepgen_torch.kernels import _build
 from sleepgen_torch.kernels.group_norm import DTYPE_CODES
+from sleepgen_torch.utils import profiling
 
 LN_EPS = 1e-6  # the DiT's LayerNorm; kEps in csrc/adaln_modulate.cu
 MAX_D = 2048  # 32 lanes x 4 x kMaxVecs in csrc/adaln_modulate.cu
-# K4's launches in this process (a graph replay adds its capture's)
-launches = 0
+# Counters (``utils.profiling``): K4's launches; and, K4's one caller being
+# the DiT's pass between half-blocks (``nn/dit.py::modulate``), the DiT's
+# passes that ran K4 while the tracer records
+profiling.register("k4.launches")
+profiling.register("dit.fused_norms", traced=True)
 
 Pending = Optional[Tuple[torch.Tensor, torch.Tensor]]  # (h, gate)
 
@@ -122,6 +126,6 @@ def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
         0 if gate is None else gate.stride(0), DTYPE_CODES[dtype],
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "adaln_modulate")
-    global launches
-    launches += 1
+    profiling.count("k4.launches")
+    profiling.count("dit.fused_norms")
     return (x if write_back else None), y

@@ -22,38 +22,28 @@ have none, so on a CUDA tensor it raises when autograd would need one
 """
 from __future__ import annotations
 
-import collections
 import weakref
 
 import torch
 import torch.nn.functional as F
 
 from sleepgen_torch.kernels import _build
-from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs,
+from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs, count_launch,
                                                group_norm_silu_reference)
 from sleepgen_torch.utils import profiling
 
-# Launches of the CUDA kernel in this process, and the same launches by
-# (B, C_in, C_out, L, G, dtype). chip_smoke.py zeroes both before it
-# drives the main path and reads them after. ``relayouts`` counts the
-# weight re-layouts the kernels' paths made (misses of ``_cached_tiles``).
-launches = 0
-launch_shapes: collections.Counter = collections.Counter()
-relayouts = 0
-# While the tracer records (``profiling.recording()``): nanoseconds from the
-# wrapper's entry to its return, the launches they cover, and the re-layouts
-host_ns = traced_launches = traced_relayouts = 0
+# Counters (``utils.profiling``): K2's launches, and keyed by (B, C_in,
+# C_out, L, G, dtype) by shape (``k2.launch_shapes``); the weight re-layouts
+# the kernels' paths made (misses of ``_cached_tiles``); and while the tracer
+# records, the nanoseconds from the wrapper's entry to its return, the
+# launches they cover, and the re-layouts
+profiling.register("k2.launches", "k2.relayouts")
+profiling.register("k2.host_ns", "k2.traced_launches", "k2.traced_relayouts", traced=True)
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
 TILE_N, CHUNK = 128, 64  # tc::TN and tc::KC in csrc/gn_silu_conv3.cu
 FP32_CHUNK = 32  # fp::KC; the fp32 tile's output channels are fp32_tile_n(C_out)
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def reset_counts() -> None:
-    global launches, relayouts, host_ns, traced_launches, traced_relayouts
-    launches = relayouts = host_ns = traced_launches = traced_relayouts = 0
-    launch_shapes.clear()
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
@@ -125,11 +115,23 @@ def weight_tiles(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 _tiles_cache: dict = {}
 
 
+def tiles_in_use() -> tuple:
+    """The weight tiles that K2's launches read now, for ``tiles_current``:
+    a CUDA graph captured over K2 reads them by address."""
+    return tuple(_tiles_cache.items())
+
+
+def tiles_current(in_use: tuple) -> bool:
+    """Whether every tile of ``in_use`` (``tiles_in_use``') is still the
+    cache's, for a live weight at the version it was laid out from: an
+    in-place update, a re-layout or a freed weight makes it stale."""
+    return all(_tiles_cache.get(key) is hit and (w := hit[0]()) is not None
+               and w._version == hit[1] for key, hit in in_use)
+
+
 def _count_relayout() -> None:
-    global relayouts, traced_relayouts
-    relayouts += 1
-    if profiling.recording():
-        traced_relayouts += 1
+    profiling.count("k2.relayouts")
+    profiling.count("k2.traced_relayouts")
 
 
 def _cached_tiles(w: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -156,7 +158,7 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     x (B, C_in, L); scale, bias (C_in,) fp32; w (C_out, C_in, 3) in fp32
     or bf16, rounded to x's dtype; b (C_out,) in x's dtype. Returns
     (B, C_out, L) in x's dtype."""
-    t0 = profiling.clock_ns() if profiling.recording() else 0
+    t0 = profiling.clock_ns()
     if x.device.type == "cpu":
         return gn_silu_conv3_reference(x, scale, bias, w, b, num_groups, eps)
     if x.device.type != "cuda":
@@ -190,12 +192,7 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         num_groups, eps, DTYPE_CODES[x.dtype], w.shape[-1],
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "gn_silu_conv3")
-    global launches, host_ns, traced_launches
-    launches += 1
-    launch_shapes[(bsz, c_in, c_out, l, num_groups, str(x.dtype))] += 1
-    if t0:
-        host_ns += profiling.clock_ns() - t0
-        traced_launches += 1
+    count_launch("k2", (bsz, c_in, c_out, l, num_groups, str(x.dtype)), t0)
     return y
 
 

@@ -20,7 +20,8 @@ bound by bytes, and each picks its form by the group's shape alone:
   2048-element chunks and reads its input twice (K1's streaming path,
   K3's three-pass form).
 
-The launchers report the form they took, counted in ``form_launches``;
+The launchers report the form they took, counted as ``k1.form.<form>``
+and ``k3.form.<form>`` (``utils.profiling``);
 a launch the card refuses raises and is never run in another form.
 Statistics are fp32 for either input dtype, eps defaults to 1e-6 (not
 torch's 1e-5), outputs and dx have the input's dtype, and the parameter
@@ -34,7 +35,6 @@ fall back.
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
@@ -43,27 +43,6 @@ from torch.autograd.function import once_differentiable
 
 from sleepgen_torch.kernels import _build
 from sleepgen_torch.utils import profiling
-
-# Launches of the CUDA kernels in this process, and the same launches by
-# (B, C, L, G, apply_silu, dtype): K1 (``launches``) and K3
-# (``backward_launches``). chip_smoke.py zeroes them before it drives a
-# path and reads them after.
-launches = 0
-launch_shapes: collections.Counter = collections.Counter()
-backward_launches = 0
-backward_launch_shapes: collections.Counter = collections.Counter()
-# K3 calls whose dy came strided and was copied to a contiguous tensor
-# first, by the same key plus dy's strides
-strided_dy_shapes: collections.Counter = collections.Counter()
-# The same launches by (kernel, form), the form as the launcher reports it:
-# ("K1", "on_chip" | "cluster" | "streaming"), ("K3", "on_chip" | "cluster"
-# | "three_pass")
-form_launches: collections.Counter = collections.Counter()
-# While the tracer records (``profiling.recording()``): nanoseconds from a
-# launcher's entry to its return, and the launches they cover, of K1
-# (``host_ns``, ``traced_launches``) and K3 (``backward_*``)
-host_ns = traced_launches = 0
-backward_host_ns = backward_traced_launches = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Largest group, (C / G) * L elements, that one block holds on chip
@@ -74,16 +53,29 @@ CLUSTER_MAX = 8 * ON_CHIP_MAX
 # The launchers' form codes (sg::Form in csrc/gn_cluster.cuh) by kernel
 FORMS = {"K1": ("on_chip", "cluster", "streaming"), "K3": ("on_chip", "cluster", "three_pass")}
 
+# Counters (``utils.profiling``): K1's and K3's launches, by form and,
+# keyed by (B, C, L, G, apply_silu, dtype), by shape (``k1.launch_shapes``,
+# ``k3.launch_shapes``); K3's calls whose dy came strided and was copied to
+# a contiguous tensor first, keyed by that shape and dy's strides
+# (``k3.strided_dy_shapes``); and while the tracer records, the nanoseconds
+# from a wrapper's entry to its return and the launches they cover
+FORM_COUNTERS = {kid.lower(): tuple(f"{kid.lower()}.form.{form}" for form in forms)
+                 for kid, forms in FORMS.items()}
+profiling.register("k1.launches", "k3.launches", *FORM_COUNTERS["k1"], *FORM_COUNTERS["k3"])
+profiling.register("k1.host_ns", "k1.traced_launches", "k3.host_ns", "k3.traced_launches",
+                   traced=True)
 
-def reset_counts() -> None:
-    global launches, backward_launches, host_ns, traced_launches
-    global backward_host_ns, backward_traced_launches
-    launches = backward_launches = 0
-    host_ns = traced_launches = backward_host_ns = backward_traced_launches = 0
-    launch_shapes.clear()
-    backward_launch_shapes.clear()
-    strided_dy_shapes.clear()
-    form_launches.clear()
+
+def count_launch(kid: str, shape: tuple, t0: int, form: int | None = None) -> None:
+    """Count one launch of kernel ``kid`` ("k1", "k2", "k3") at ``shape``,
+    in the form its launcher reported, and, while the tracer records, the
+    host nanoseconds since ``t0`` (``profiling.clock_ns()``)."""
+    profiling.count(f"{kid}.launches")
+    profiling.count(f"{kid}.launch_shapes", key=shape)
+    if form is not None:
+        profiling.count(FORM_COUNTERS[kid][form])
+    profiling.count(f"{kid}.host_ns", profiling.clock_ns() - t0)
+    profiling.count(f"{kid}.traced_launches")
 
 
 def group_stats_reference(x: torch.Tensor, num_groups: int,
@@ -168,7 +160,7 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     """(y, stats) of GroupNorm (+SiLU) without a gradient: y in x's dtype,
     stats (B, G, 2) fp32 [mean, rstd]. K1 on a CUDA tensor, the plain
     version on a CPU one."""
-    t0 = profiling.clock_ns() if profiling.recording() else 0
+    t0 = profiling.clock_ns()
     if x.device.type == "cpu":
         stats = group_stats_reference(x, num_groups, eps)
         y = _normalized(x, stats, num_groups) * scale.float()[:, None] + bias.float()[:, None]
@@ -190,13 +182,7 @@ def group_norm_silu_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
         int(apply_silu), DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream,
         ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu")
-    global launches, host_ns, traced_launches
-    launches += 1
-    launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
-    form_launches["K1", FORMS["K1"][form.value]] += 1
-    if t0:
-        host_ns += profiling.clock_ns() - t0
-        traced_launches += 1
+    count_launch("k1", (b, c, l, num_groups, bool(apply_silu), str(x.dtype)), t0, form.value)
     return y, stats
 
 
@@ -206,7 +192,7 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
     """(dx, dscale, dbias) of ``group_norm_silu`` at x for the output
     gradient dy, from the forward's stats (B, G, 2). K3 on CUDA tensors,
     the plain closed form on CPU tensors."""
-    t0 = profiling.clock_ns() if profiling.recording() else 0
+    t0 = profiling.clock_ns()
     if x.device.type == "cpu":
         return group_norm_silu_backward_reference(x, dy, scale, bias, stats, num_groups,
                                                   apply_silu)
@@ -214,9 +200,9 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
         raise ValueError(f"no kernel for device {x.device}")
     check_group_inputs(x, scale, bias, num_groups)
     b, c, l = x.shape
+    shape = (b, c, l, num_groups, bool(apply_silu), str(x.dtype))
     if not dy.is_contiguous():  # cuDNN's convolution backward may hand back strided ones
-        strided_dy_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype),
-                           tuple(dy.stride()))] += 1
+        profiling.count("k3.strided_dy_shapes", key=shape + (tuple(dy.stride()),))
         dy = dy.contiguous()
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be a {tuple(x.shape)} {x.dtype} tensor on {x.device}, "
@@ -237,13 +223,7 @@ def group_norm_silu_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Ten
         b, c, l, num_groups, int(apply_silu), DTYPE_CODES[x.dtype],
         torch.cuda.current_stream().cuda_stream, ctypes.byref(form))
     _build.check(lib, code, "group_norm_silu_bwd")
-    global backward_launches, backward_host_ns, backward_traced_launches
-    backward_launches += 1
-    backward_launch_shapes[(b, c, l, num_groups, bool(apply_silu), str(x.dtype))] += 1
-    form_launches["K3", FORMS["K3"][form.value]] += 1
-    if t0:
-        backward_host_ns += profiling.clock_ns() - t0
-        backward_traced_launches += 1
+    count_launch("k3", shape, t0, form.value)
     return dx, dscale, dbias
 
 

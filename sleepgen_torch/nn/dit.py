@@ -63,9 +63,9 @@ Tracing (``utils.profiling``): a forward is a ``dit.forward`` span over
 ``dit.attn`` and ``dit.mlp``, each holding its ``dit.modulate`` (the
 pass: the previous half's gated residual, LayerNorm, modulation and cast),
 and ``dit.final`` with the last ``dit.modulate``. While the tracer records,
-``forwards`` counts forwards, ``tokens`` their rows times tokens and
-``fused_norms`` the passes that ran K4 (``profiling.counters()``'s
-``dit.forwards``, ``dit.tokens`` and ``dit.fused_norms``).
+``dit.forwards`` counts forwards, ``dit.tokens`` their rows times tokens
+and ``dit.fused_norms`` (counted by K4's wrapper) the passes that ran K4
+(``profiling.counters()``).
 """
 from __future__ import annotations
 
@@ -83,14 +83,8 @@ from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
 FREQUENCY_EMBEDDING_SIZE = 256  # the published TimestepEmbedder's
-# Forwards, their rows x tokens and the passes that ran K4 while the tracer
-# recorded
-forwards = tokens = fused_norms = 0
-
-
-def reset_counts() -> None:
-    global forwards, tokens, fused_norms
-    forwards = tokens = fused_norms = 0
+# Forwards and their rows x tokens while the tracer records
+profiling.register("dit.forwards", "dit.tokens", traced=True)
 
 
 def sincos_positions(dim: int, length: int) -> torch.Tensor:
@@ -108,14 +102,9 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, dtype: t
     x_new = x + gate * h, y = LayerNorm(x_new) (no affine, eps 1e-6) times 1
     + scale plus shift, in fp32, cast to ``dtype``; x_new None with
     ``write_back`` False (``adaln.adaln_modulate``, which runs K4 or the
-    composed ops). ``fused_norms`` counts K4's launches while tracing."""
-    global fused_norms
+    composed ops)."""
     with span("dit.modulate"):
-        before = adaln.launches
-        out = adaln.adaln_modulate(x, shift, scale, dtype, pending, write_back)
-        if profiling.recording():
-            fused_norms += adaln.launches - before
-        return out
+        return adaln.adaln_modulate(x, shift, scale, dtype, pending, write_back)
 
 
 def unpatchify(tokens: torch.Tensor, patch: int, channels: int) -> torch.Tensor:
@@ -260,16 +249,14 @@ class DiT1d(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        global forwards, tokens
         with span("dit.forward"):
             b, c, length = x.shape
             n = length // self.patch_size
             if length % self.patch_size or n != self.pos_embed.shape[0]:
                 raise ValueError(f"length {length} is not the DiT's input size "
                                  f"{self.pos_embed.shape[0] * self.patch_size}")
-            if profiling.recording():
-                forwards += 1
-                tokens += b * n
+            profiling.count("dit.forwards")
+            profiling.count("dit.tokens", b * n)
             dtype = self.x_embedder.proj.weight.dtype
             h = self.x_embedder(x.to(dtype)).float() + self.pos_embed
             with span("dit.cond"):

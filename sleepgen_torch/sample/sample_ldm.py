@@ -32,15 +32,14 @@ import torch
 from sleepgen_torch.config import Config
 from sleepgen_torch.data.transforms import BORDER_PAD, to_bcl
 from sleepgen_torch.diffusion.dpm_solver import dpm_solver_pp_2m_sample_loop
-from sleepgen_torch.diffusion.schedules import NoiseSchedule
+from sleepgen_torch.diffusion.schedules import Noise, NoiseSchedule
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.dit import DiT1d
 from sleepgen_torch.nn.layers import cast_compute_dtype
 from sleepgen_torch.nn.unet1d import UNet1d, quantize_unet
 from sleepgen_torch.parallel.mesh import Mesh, split_seeds
-from sleepgen_torch.sample.samplers import (Noise, cond_model_fn, ddim_sample_loop,
-                                             ddpm_sample_loop, sample_dm_conditional,
-                                             seed_noise, validate_stage)
+from sleepgen_torch.sample.samplers import (cond_model_fn, ddim_sample_loop, ddpm_sample_loop,
+                                             sample_dm_conditional, seed_noise, validate_stage)
 from sleepgen_torch.utils.device import resolve_device
 from sleepgen_torch.utils.profiling import span
 from sleepgen_torch.utils.weights import (aekl_state_from_jax, denoiser_state_from_tree,
@@ -206,7 +205,7 @@ def make_dm_sampler(unet: UNet1d, sched: NoiseSchedule, signal_len: int = 3072,
     """Returns ``sample(seeds, noise) -> (B, signal_len - 2 * BORDER_PAD, 1)``
     fp32: per-seed x_T (``seed_noise``), then the ancestral DDPM loop over
     every timestep of ``sched`` with ``clip_sample=True``, its step noise
-    drawn from ``noise`` (a ``samplers.Noise``). ``unet`` and ``sched`` must
+    drawn from ``noise`` (a ``schedules.Noise``). ``unet`` and ``sched`` must
     already live on ``device``."""
     dev = resolve_device(device)
 

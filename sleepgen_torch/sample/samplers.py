@@ -11,48 +11,29 @@ The DDIM loop on a CUDA tensor without autograd replays each step as one
 CUDA graph (``ddim_sample_loop``): the host then does one graph launch a
 step, where the eager step dispatches some hundreds of kernels from Python.
 
-Noise of the ancestral loops (``Noise``): a ``torch.Generator`` on x's
-device, from which each draw is one standard normal of x's shape in the
-order the loop documents, or an iterator of tensors given in that same
-order (the parity tests feed it the JAX package's threefry draws, which
-torch cannot reproduce).
+Noise of the ancestral loops is a ``schedules.Noise``.
 """
 from __future__ import annotations
 
-import copy
 import weakref
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from sleepgen_torch.diffusion.schedules import (NoiseSchedule, ddim_tables, ddim_update,
-                                                ddpm_step)
-from sleepgen_torch.kernels import adaln, fused_resblock, group_norm
+from sleepgen_torch.diffusion.schedules import (Noise, NoiseSchedule, ddim_tables, ddim_update,
+                                                ddpm_step, draw_noise)
+from sleepgen_torch.kernels import fused_resblock
 from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
-Noise = Union[torch.Generator, Iterator[torch.Tensor]]
-
-# CUDA graphs of the DDIM step in this process: captures, replays, and the
-# replays made while the tracer recorded (``profiling.counters()``)
-graph_captures = graph_replays = traced_graph_replays = 0
+# CUDA graphs of the DDIM step in this process: captures and replays, and
+# the replays made while the tracer records
+profiling.register("sampler.graph_captures", "sampler.graph_replays")
+profiling.register("sampler.traced_graph_replays", traced=True)
 # model closure -> schedule -> {(x's shape, device, table length): _StepGraph};
 # an entry goes when its closure or its schedule is freed
 _graphs = weakref.WeakKeyDictionary()
-# The kernels' launch counters that a replay runs again: K1's, K2's, K3's
-# and K4's launches, by shape and by form
-_LAUNCH_COUNTERS = ((group_norm, "launches"), (group_norm, "launch_shapes"),
-                    (group_norm, "backward_launches"), (group_norm, "backward_launch_shapes"),
-                    (group_norm, "form_launches"), (fused_resblock, "launches"),
-                    (fused_resblock, "launch_shapes"), (adaln, "launches"))
-
-
-def draw_noise(noise: Noise, like: torch.Tensor) -> torch.Tensor:
-    """The next standard normal draw of ``like``'s shape, fp32 on its device."""
-    if isinstance(noise, torch.Generator):
-        return torch.randn(like.shape, generator=noise, device=like.device)
-    return next(noise).to(device=like.device, dtype=torch.float32)
 
 
 def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...],
@@ -136,11 +117,6 @@ def cond_model_fn(unet: Callable[..., torch.Tensor], labels: Optional[torch.Tens
     return model_fn
 
 
-def reset_graph_counts() -> None:
-    global graph_captures, graph_replays, traced_graph_replays
-    graph_captures = graph_replays = traced_graph_replays = 0
-
-
 def ddim_step_fn(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                  sched: NoiseSchedule, tables: Sequence[torch.Tensor], eta: float = 0.0
                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
@@ -189,43 +165,15 @@ def ddim_sample_loop(model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tens
     return x
 
 
-def _launch_counts() -> list:
-    return [copy.copy(getattr(m, name)) for m, name in _LAUNCH_COUNTERS]
-
-
-def _take_back_launches(before: list) -> list:
-    """The launches counted since ``before``, taken back off the counters
-    (a capture runs nothing)."""
-    made = []
-    for (m, name), was in zip(_LAUNCH_COUNTERS, before):
-        now = getattr(m, name)
-        made.append(now - was)
-        if isinstance(was, int):
-            setattr(m, name, was)
-        else:  # Counters are mutated in place: other modules hold them
-            now.clear()
-            now.update(was)
-    return made
-
-
-def _add_launches(made: list, times: int) -> None:
-    for (m, name), d in zip(_LAUNCH_COUNTERS, made):
-        if isinstance(d, int):
-            setattr(m, name, getattr(m, name) + times * d)
-        else:
-            counter = getattr(m, name)
-            for k, v in d.items():
-                counter[k] += times * v
-
-
 class _StepGraph:
     """One DDIM step captured as a CUDA graph over static buffers: x, the
     step index and tables of ``length`` steps, into which each call copies
     its x_T and its ``ddim_tables``. The graph reads K2's weight tiles by
-    address, so it is stale once any tile in K2's cache at the capture has
-    been re-laid out or its weight updated in place; the weights that
-    cuDNN, K1 and the casts read are read in place (a DiT's step reads all its
-    weights in place: cuBLAS, SDPA, LayerNorm). It holds no reference to
+    address, so it is stale once any tile K2 had at the capture has been
+    re-laid out or freed or its weight updated in place
+    (``fused_resblock.tiles_current``); the weights that cuDNN, K1 and the
+    casts read are read in place (a DiT's step reads all its weights in
+    place: cuBLAS, SDPA, LayerNorm). It holds no reference to
     the model closure, and its buffers serve one call at a time (one thread's).
     eta is not in its key: a step with eta > 0 needs noise, which the loop
     does not draw, so its first, eager step raises."""
@@ -237,8 +185,8 @@ class _StepGraph:
             self.tables = (torch.zeros(length, dtype=torch.int64, device=device),
                            torch.ones(length, device=device), torch.ones(length, device=device))
         self.graph = None
-        self.launches: List = []
-        self.tiles: List = []
+        self.counts = None  # what the capture counted, added again per replay
+        self.tiles = ()
 
     def load(self, x_T: torch.Tensor, tables: Sequence[torch.Tensor]) -> None:
         self.x.copy_(x_T)
@@ -247,8 +195,7 @@ class _StepGraph:
             static[:len(t)].copy_(t)
 
     def capture(self, step: Callable) -> None:
-        global graph_captures
-        before = _launch_counts()
+        before = profiling.snapshot_counts()
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(self.x.device)
         stream.wait_stream(torch.cuda.current_stream(self.x.device))
@@ -259,27 +206,24 @@ class _StepGraph:
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self.x.device).wait_stream(stream)
-        self.graph, self.launches = graph, _take_back_launches(before)
-        self.tiles = list(fused_resblock._tiles_cache.items())
-        graph_captures += 1
+        # a capture runs nothing: what it counted is counted at each replay
+        self.graph, self.counts = graph, profiling.take_back_counts(before)
+        self.tiles = fused_resblock.tiles_in_use()
+        profiling.count("sampler.graph_captures")
 
     def fresh(self) -> bool:
-        """Whether every entry of K2's tile cache at the capture is still
-        there, for a weight at the version it was laid out from."""
-        cache = fused_resblock._tiles_cache
-        return all(cache.get(key) is hit and (w := hit[0]()) is not None and w._version == hit[1]
-                   for key, hit in self.tiles)
+        """Whether K2's tiles at the capture are all still current."""
+        return fused_resblock.tiles_current(self.tiles)
 
     def replay(self, n: int) -> None:
         """``n`` steps, each a ``sampler.step`` span around one replay; the
-        kernels' launch counters gain the capture's launches per replay."""
-        global graph_replays, traced_graph_replays
+        always-on counters gain the capture's counts per replay."""
         for _ in range(n):
             with span("sampler.step"):
                 self.graph.replay()
-            traced_graph_replays += profiling.recording()
-        graph_replays += n
-        _add_launches(self.launches, n)
+            profiling.count("sampler.traced_graph_replays")
+        profiling.count("sampler.graph_replays", n)
+        profiling.add_counts(self.counts, n)
 
 
 def _graphs_of(model_fn: Callable, sched: NoiseSchedule) -> dict:

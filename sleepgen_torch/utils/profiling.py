@@ -25,12 +25,21 @@ id), its start and end on the host in nanoseconds on the profiler's clock
 (``clock_ns``), and on a CUDA process its device milliseconds between two
 CUDA events recorded on the current stream at its open and close (none
 for a span opened while that stream captures a CUDA graph, which must not
-hold them). ``counters()`` is one snapshot of the kernels' launch counters
-and their host time while the tracer records, and of the sampler's CUDA
-graphs.
+hold them).
+
+The counters' registry: each module ``register``s the counters it counts,
+at 0, and ``count``s them at their sites. An always-on counter counts what
+the card ran (launches, by form and, as keyed counts, by shape; K2's
+re-layouts; the DDIM graphs' captures and replays); a traced one counts
+only while the tracer records (host time, the DiT's forwards). A CUDA
+graph's capture runs nothing: it takes back what it counted
+(``take_back_counts``) and each replay adds that again (``add_counts``).
+``counters()`` reads the named counts, ``keyed(name)`` a keyed one, and
+``reset()`` zeroes them all with the spans.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import os
@@ -54,6 +63,11 @@ _records: List["_Span"] = []
 _dropped = 0
 _ids = itertools.count(1)
 _local = threading.local()  # each thread's stack of open spans
+# The counters: the always-on family's, by name or, for a keyed count,
+# (name, key); the traced family's by name; each registered name's family
+_counts: collections.Counter = collections.Counter()
+_traced: collections.Counter = collections.Counter()
+_families: Dict[str, collections.Counter] = {}
 
 
 @contextlib.contextmanager
@@ -165,53 +179,81 @@ def spans() -> List[Dict[str, Any]]:
             for r in _records]
 
 
-def counters() -> Dict[str, int]:
-    """One snapshot: the kernels' launch counters since their last
-    ``reset_counts()`` (``k1.launches``, ``k2.launches``, ``k3.launches``,
-    ``k2.relayouts``, ``k1.form.<form>``, ``k3.form.<form>``); the
-    nanoseconds from each wrapper's entry to its return and the launches
-    and K2 weight re-layouts made while the tracer recorded
-    (``k1.host_ns``, ``k1.traced_launches``, ..., ``k2.traced_relayouts``);
-    the DDIM loop's CUDA graphs captured and replayed, and replayed while
-    the tracer recorded (``sampler.graph_captures``,
-    ``sampler.graph_replays``, ``sampler.traced_graph_replays``); the DiT's
-    forwards, their rows x tokens and its passes between half-blocks that
-    ran K4, while the tracer recorded (``dit.forwards``, ``dit.tokens``,
-    ``dit.fused_norms``); and ``spans.dropped``, the spans
-    past ``MAX_SPANS``."""
-    from sleepgen_torch.kernels import fused_resblock as k2, group_norm as gn
-    from sleepgen_torch.nn import dit
-    from sleepgen_torch.sample import samplers
+def register(*names: str, traced: bool = False) -> None:
+    """Add counters to the registry at 0: the always-on family's, or with
+    ``traced`` the traced family's. A keyed count needs no registering."""
+    family = _traced if traced else _counts
+    for name in names:
+        _families[name] = family
+        family[name] += 0
 
-    out = {"k1.launches": gn.launches, "k2.launches": k2.launches,
-           "k3.launches": gn.backward_launches, "k2.relayouts": k2.relayouts,
-           "k1.host_ns": gn.host_ns, "k2.host_ns": k2.host_ns, "k3.host_ns": gn.backward_host_ns,
-           "k1.traced_launches": gn.traced_launches, "k2.traced_launches": k2.traced_launches,
-           "k3.traced_launches": gn.backward_traced_launches,
-           "k2.traced_relayouts": k2.traced_relayouts,
-           "sampler.graph_captures": samplers.graph_captures,
-           "sampler.graph_replays": samplers.graph_replays,
-           "sampler.traced_graph_replays": samplers.traced_graph_replays,
-           "dit.forwards": dit.forwards, "dit.tokens": dit.tokens,
-           "dit.fused_norms": dit.fused_norms,
-           "spans.dropped": _dropped}
-    for (kernel, form), n in sorted(gn.form_launches.items()):
-        out[f"{kernel.lower()}.form.{form}"] = n
-    return out
+
+def count(name: str, n: int = 1, key: Any = None) -> None:
+    """Add ``n`` to the counter ``name``, or to its count of ``key``; to a
+    traced counter only while the tracer records."""
+    if name in _traced:
+        if _forced or _autograd_profiler._is_profiler_enabled:
+            _traced[name] += n
+    else:
+        _counts[name if key is None else (name, key)] += n
+
+
+def snapshot_counts() -> collections.Counter:
+    """The always-on counts as they stand."""
+    return _counts.copy()
+
+
+def take_back_counts(before: collections.Counter) -> collections.Counter:
+    """What the always-on counts gained since ``before``, taken back off
+    them."""
+    made = _counts - before
+    _counts.clear()
+    _counts.update(before)
+    return made
+
+
+def add_counts(made: collections.Counter, times: int = 1) -> None:
+    """Add ``made`` (``take_back_counts``'s) ``times`` over."""
+    for k, n in made.items():
+        _counts[k] += times * n
+
+
+def counters() -> Dict[str, int]:
+    """One snapshot of the registered counters, each at 0 until counted:
+    the kernels' launches (``k1.launches`` to ``k4.launches``), K2's weight
+    re-layouts (``k2.relayouts``), K1's and K3's launches by form
+    (``k1.form.<form>``, ``k3.form.<form>``); while the tracer recorded,
+    the nanoseconds from each wrapper's entry to its return, the launches
+    and re-layouts they cover (``k1.host_ns``, ``k1.traced_launches``, ...,
+    ``k2.traced_relayouts``); the DDIM loop's CUDA graphs captured and
+    replayed, and replayed while the tracer recorded
+    (``sampler.graph_captures``, ``sampler.graph_replays``,
+    ``sampler.traced_graph_replays``); the DiT's forwards, their rows x
+    tokens and its passes between half-blocks that ran K4, while the
+    tracer recorded (``dit.forwards``, ``dit.tokens``,
+    ``dit.fused_norms``); and ``spans.dropped``, the spans past
+    ``MAX_SPANS``."""
+    out = {k: n for k, n in _counts.items() if isinstance(k, str)}
+    out.update(_traced)
+    out["spans.dropped"] = _dropped
+    return dict(sorted(out.items()))
+
+
+def keyed(name: str) -> Dict[Any, int]:
+    """The keyed count ``name``: {key: count}, as launches by shape."""
+    return {k[1]: n for k, n in _counts.items() if isinstance(k, tuple) and k[0] == name}
 
 
 def reset() -> None:
-    """Forget the finished spans and the count of dropped ones, and zero the
-    sampler's graph counters and the DiT's (the kernels' counters are
-    zeroed by their modules' ``reset_counts``)."""
-    from sleepgen_torch.nn import dit
-    from sleepgen_torch.sample import samplers
-
+    """Forget the finished spans and the count of dropped ones, and zero
+    every counter."""
     global _dropped
     _records.clear()
     _dropped = 0
-    samplers.reset_graph_counts()
-    dit.reset_counts()
+    _counts.clear()
+    _traced.clear()
+    for name, family in _families.items():
+        family[name] = 0
 
 
 def _sync() -> None:

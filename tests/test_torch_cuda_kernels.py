@@ -21,6 +21,7 @@ import torch
 
 from sleepgen_torch.kernels import _build, adaln, fused_resblock, group_norm
 from sleepgen_torch.nn.layers import GroupNorm32
+from sleepgen_torch.utils import profiling
 
 pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("cuda_card")]
 
@@ -36,6 +37,20 @@ def cuda_card():
     torch.backends.cudnn.allow_tf32 = False
     yield
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _count(name):
+    return profiling.counters()[name]
+
+
+def _form_counts():
+    """K1's and K3's launches by form, {("K1", "on_chip"): n, ...}, those counted."""
+    out = {}
+    for name, n in profiling.counters().items():
+        kid, sep, form = name.partition(".form.")
+        if sep and n:
+            out[kid.upper(), form] = n
+    return out
 
 
 def _inputs(seed, b, c, l, c_out=None):
@@ -203,15 +218,15 @@ def test_gn_silu_conv3_takes_fp32_master_weights():
     x, scale, bias, w, bb = _inputs(15, 2, 64, 96, 128)
     x, bb = x.bfloat16(), bb.bfloat16()
     want = fused_resblock.gn_silu_conv3(x, scale, bias, w.bfloat16(), bb, 8)
-    fused_resblock.reset_counts()
+    profiling.reset()
     with torch.inference_mode():
         got = [fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8) for _ in range(3)]
     assert all(torch.equal(g, want) for g in got)
-    assert fused_resblock.relayouts == 1
+    assert _count("k2.relayouts") == 1
     with torch.no_grad():
         w.mul_(0.5)
     fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
-    assert fused_resblock.relayouts == 2
+    assert _count("k2.relayouts") == 2
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
@@ -221,17 +236,17 @@ def test_gn_silu_conv3_lays_out_fp32_weights_once(mode):
     weights once, not at every launch."""
     x, scale, bias, w, bb = _inputs(16, 2, 64, 96, 128)
     want = fused_resblock.gn_silu_conv3_reference(x, scale, bias, w, bb, 8)
-    fused_resblock.reset_counts()
+    profiling.reset()
     with getattr(torch, mode)():
         got = [fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8) for _ in range(3)]
     torch.testing.assert_close(got[0], want, rtol=2e-4, atol=2e-4)
     assert all(torch.equal(g, got[0]) for g in got)
-    assert fused_resblock.relayouts == 1 and fused_resblock.launches == 3
+    assert _count("k2.relayouts") == 1 and _count("k2.launches") == 3
     with torch.no_grad():
         w.mul_(0.5)
     with getattr(torch, mode)():
         fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 8)
-    assert fused_resblock.relayouts == 2
+    assert _count("k2.relayouts") == 2
 
 
 # The fp32 tile's edges (TN 64 for C_out <= 64, else 128; TL 96 or 48;
@@ -271,8 +286,7 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_launch_counters_count_kernel_launches():
-    group_norm.reset_counts()
-    fused_resblock.reset_counts()
+    profiling.reset()
     x, scale, bias, w, bb = _inputs(5, 2, 16, 32, 16)
     group_norm.group_norm_silu(x, scale, bias, 4)
     fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 4)
@@ -280,12 +294,12 @@ def test_launch_counters_count_kernel_launches():
     group_norm.group_norm_silu(x.cpu(), scale.cpu(), bias.cpu(), 4)  # plain: not counted
     xg = x.clone().requires_grad_()
     group_norm.group_norm_silu(xg, scale, bias, 4).sum().backward()
-    assert group_norm.launches == 2
-    assert group_norm.backward_launches == 1
-    assert group_norm.backward_launch_shapes[(2, 16, 32, 4, True, "torch.float32")] == 1
-    assert dict(group_norm.form_launches) == {("K1", "on_chip"): 2, ("K3", "on_chip"): 1}
-    assert fused_resblock.launches == 2
-    assert fused_resblock.launch_shapes[(2, 16, 16, 32, 4, "torch.float32")] == 2
+    assert _count("k1.launches") == 2
+    assert _count("k3.launches") == 1
+    assert profiling.keyed("k3.launch_shapes")[(2, 16, 32, 4, True, "torch.float32")] == 1
+    assert _form_counts() == {("K1", "on_chip"): 2, ("K3", "on_chip"): 1}
+    assert _count("k2.launches") == 2
+    assert profiling.keyed("k2.launch_shapes")[(2, 16, 16, 32, 4, "torch.float32")] == 2
 
 
 def _backward_case(seed, b, c, l, g, apply_silu, dtype):
@@ -358,11 +372,11 @@ def _forms(b, c, l, g, dtype=torch.float32):
     """{kernel: the form it took} for one K1 and one K3 launch at the shape."""
     x, scale, bias = _inputs(40, b, c, l)
     x = x.to(dtype)
-    group_norm.reset_counts()
+    profiling.reset()
     y, stats = group_norm.group_norm_silu_forward(x, scale, bias, g)
     group_norm.group_norm_silu_backward(x, torch.ones_like(y), scale, bias, stats, g)
     torch.cuda.synchronize()
-    return {kid: form for (kid, form), n in group_norm.form_launches.items() if n}
+    return {kid: form for kid, form in _form_counts()}
 
 
 def test_group_norm_path_switch_at_on_chip_max():
@@ -697,7 +711,7 @@ def _expected_forms(c, l, g, dtype):
 def test_group_norm_kernels_in_the_cluster_form(b, c, l, g, dtype):
     """K1 and K3 against their plain versions on each side of ON_CHIP_MAX
     and CLUSTER_MAX, each cs, the stage-1 shapes and the straddling rows,
-    in the form ``form_launches`` names."""
+    in the form the launchers report (``k1.form.<form>``, ``k3.form.<form>``)."""
     assert _forms(b, c, l, g, dtype) == _expected_forms(c, l, g, dtype)
     x, scale, bias = _inputs(41, b, c, l)
     x = x.to(dtype)
@@ -741,11 +755,11 @@ def test_group_norm_cluster_sized_group_on_an_unaligned_base_streams(dtype):
     xs = buf[1:].view(b, c, l)
     assert xs.data_ptr() % 16 and xs.is_contiguous()
     dy = torch.randn(b, c, l, device="cuda").to(dtype)
-    group_norm.reset_counts()
+    profiling.reset()
     y, stats = group_norm.group_norm_silu_forward(xs, scale, bias, g)
     got = group_norm.group_norm_silu_backward(xs, dy, scale, bias, stats, g)
     torch.cuda.synchronize()
-    assert dict(group_norm.form_launches) == {("K1", "streaming"): 1, ("K3", "three_pass"): 1}
+    assert _form_counts() == {("K1", "streaming"): 1, ("K3", "three_pass"): 1}
     xf = xs.float()
     _hold(y, group_norm.group_norm_silu_reference(xf, scale, bias, g), dtype, 1e-5, 2e-6)
     want = group_norm.group_norm_silu_backward_reference(xf, dy.float(), scale, bias, stats, g)
@@ -782,14 +796,11 @@ def test_kernel_host_counters_count_only_while_tracing():
     """Under ``tracing()`` each wrapper adds its host nanoseconds and the
     launches they cover; the launch counters read as without tracing, and
     nothing is added with the tracer off."""
-    from sleepgen_torch.utils import profiling
-
     inputs = _inputs(51, 4, 64, 768, 64)
     _kernel_calls(*inputs)  # the library built and the weight's tiles laid out
     counts = []
     for traced in (False, True):
-        group_norm.reset_counts()
-        fused_resblock.reset_counts()
+        profiling.reset()
         if traced:
             with profiling.tracing():
                 _kernel_calls(*inputs)
@@ -818,7 +829,6 @@ def test_traced_stage2_step_phases_sum_to_the_step():
     from sleepgen_torch.nn.layers import cast_compute_dtype
     from sleepgen_torch.nn.unet1d import UNet1d
     from sleepgen_torch.train.train_ldm import make_ldm_train_step
-    from sleepgen_torch.utils import profiling
 
     torch.manual_seed(0)
     with torch.device("cuda"):
@@ -886,8 +896,6 @@ def _eager(model_fn, sched, x_T, steps):
 
 
 def _graph_counts():
-    from sleepgen_torch.utils import profiling
-
     c = profiling.counters()
     return c["sampler.graph_captures"], c["sampler.graph_replays"]
 
@@ -998,13 +1006,12 @@ def test_ddim_graph_replays_count_the_eager_launches():
     _eager(unet, sched, x_T, 1)
 
     def counted(run):
-        group_norm.reset_counts()
-        fused_resblock.reset_counts()
+        profiling.reset()
         run(unet, sched, x_T, 4)
         torch.cuda.synchronize()
-        return (group_norm.launches, group_norm.backward_launches, fused_resblock.launches,
-                dict(group_norm.launch_shapes), dict(group_norm.form_launches),
-                dict(fused_resblock.launch_shapes))
+        return (_count("k1.launches"), _count("k3.launches"), _count("k2.launches"),
+                profiling.keyed("k1.launch_shapes"), _form_counts(),
+                profiling.keyed("k2.launch_shapes"))
 
     want = counted(_eager)
     assert want[0] > 0 and want[2] > 0
@@ -1016,8 +1023,6 @@ def test_ddim_graph_captures_and_replays_under_the_tracer():
     """With the tracer on, the capture works (its spans hold no CUDA events),
     every step is a ``sampler.step`` span with device time, the replays made
     while tracing are counted, and the bits are the eager loop's."""
-    from sleepgen_torch.utils import profiling
-
     unet, sched, x_T = _ldm_parts(batch=2)
     want = _eager(unet, sched, x_T, 4)
     profiling.reset()
@@ -1075,9 +1080,9 @@ def test_dit_xl2_bf16_forward_against_the_fp32_reference():
     ref_y = torch.where(y < 0, 5, y)
     model = _bf16_dit(state)
     with torch.no_grad():
-        before = adaln.launches
+        before = _count("k4.launches")
         got = model(x, t, y)
-        launched = adaln.launches - before
+        launched = _count("k4.launches") - before
         want, fp8 = (rdit.DiT(**DIT_XL2, prec=ref.Precision(p)).cuda().eval() for p in
                      ("fp32", "fp8"))
         want.load_state_dict(state)
@@ -1153,12 +1158,11 @@ def test_dit_sampler_launches_only_the_decodes_k1():
 
     def launched(fn):
         torch.cuda.synchronize()
-        group_norm.reset_counts()
-        fused_resblock.reset_counts()
+        profiling.reset()
         with torch.inference_mode():
             fn()
         torch.cuda.synchronize()
-        return group_norm.launches, fused_resblock.launches
+        return _count("k1.launches"), _count("k2.launches")
 
     decode = launched(lambda: ae.decode_stage_2_outputs(z))
     assert decode[0] > 0
@@ -1212,11 +1216,12 @@ def test_adaln_modulate_kernel(b, t, d, dtype, form):
     pending = None if form == "first" else (h, gate)
     want_x, want_y = adaln.adaln_modulate_reference(x, shift, scale, dtype, pending)
     stream = x.clone()
-    before = adaln.launches
+    before = _count("k4.launches")
     got_x, got_y = adaln.adaln_modulate(stream, shift, scale, dtype, pending,
                                         write_back=form != "final")
     torch.cuda.synchronize()
-    assert adaln.launches == before + 1 and got_y.dtype == dtype and got_y.shape == x.shape
+    assert _count("k4.launches") == before + 1
+    assert got_y.dtype == dtype and got_y.shape == x.shape
     if form == "residual":
         assert got_x is stream
         assert float((stream - want_x).abs().max()) <= 1e-6 * float(x.abs().max())
@@ -1241,18 +1246,18 @@ def test_adaln_modulate_raises_on_what_k4_does_not_take():
              (x.to(bf16), shift, scale, bf16, None),
              (x.transpose(0, 1).contiguous().transpose(0, 1), shift, scale, bf16, None),
              (x, shift, scale, bf16, (h.transpose(0, 1).contiguous().transpose(0, 1), gate))]
-    before = adaln.launches
+    before = _count("k4.launches")
     for case in cases:
         with pytest.raises(ValueError, match="adaln_modulate"):
             adaln.adaln_modulate(*case)
-    assert adaln.launches == before
+    assert _count("k4.launches") == before
     x_new, y = adaln.adaln_modulate(x.clone().requires_grad_(), shift, scale, bf16, (h, gate))
-    assert x_new.grad_fn is not None and adaln.launches == before
+    assert x_new.grad_fn is not None and _count("k4.launches") == before
     with torch.autocast("cuda", dtype=bf16):
         adaln.adaln_modulate(x, shift, scale, torch.float32, (h, gate))
-    assert adaln.launches == before
+    assert _count("k4.launches") == before
     adaln.adaln_modulate(x, shift, scale, bf16, (h, gate))
-    assert adaln.launches == before + 1
+    assert _count("k4.launches") == before + 1
 
 
 def test_dit_raises_on_a_strided_stream_or_fp16():
@@ -1268,15 +1273,15 @@ def test_dit_raises_on_a_strided_stream_or_fp16():
     t, y = torch.tensor([5, 600], device="cuda"), torch.tensor([0, -1], device="cuda")
     stream, shift, scale, gate, h = _k4_inputs(2, 384, 1152, torch.bfloat16)
     strided = stream.transpose(1, 2).contiguous().transpose(1, 2)
-    before = adaln.launches
+    before = _count("k4.launches")
     with torch.inference_mode():
         with pytest.raises(ValueError, match="compute dtype"):
             fp16(x, t, y)
         with pytest.raises(ValueError, match="contiguous"):
             ndit.modulate(strided, shift, scale, torch.bfloat16, (h, gate))
-        assert adaln.launches == before
+        assert _count("k4.launches") == before
         model(x, t, y)
-    assert adaln.launches == before + 2 * 1 + 1
+    assert _count("k4.launches") == before + 2 * 1 + 1
 
 
 def test_dit_runs_k4_at_every_pass_only_without_autograd():
@@ -1285,7 +1290,6 @@ def test_dit_runs_k4_at_every_pass_only_without_autograd():
     composed ops run, none counts, and the output is the K4 forward's within
     fp32 rounding."""
     from sleepgen_torch.nn import dit as ndit
-    from sleepgen_torch.utils import profiling
 
     depth = 2
     state = _dit_state(depth=depth)
@@ -1308,9 +1312,9 @@ def test_dit_runs_k4_at_every_pass_only_without_autograd():
         trained.square().mean().backward()
     assert profiling.counters()["dit.fused_norms"] == 0
     with torch.no_grad():
-        before = adaln.launches
+        before = _count("k4.launches")
         fused = fp32(x, t, y)
-        assert adaln.launches - before == 2 * depth + 1
+        assert _count("k4.launches") - before == 2 * depth + 1
     profiling.reset()
     trained = trained.detach()
     err = float((fused - trained).norm() / trained.norm())

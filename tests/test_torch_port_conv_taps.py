@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from sleepgen.pallas_kernels.fused_resblock import fused_gn_silu_conv3
 from sleepgen_torch.kernels import fused_resblock
 from sleepgen_torch.kernels.group_norm import group_norm_silu_reference
+from sleepgen_torch.utils import profiling
 
 
 def _taps(tiles):
@@ -112,14 +113,14 @@ def test_tiles_cache_keys_the_master_weight():
     in-training sample do under inference mode: one re-layout per weight
     and version, equal to the tiles of the weight rounded to bf16."""
     w = torch.randn(16, 24, 3)
-    fused_resblock.reset_counts()
+    profiling.reset()
     with torch.inference_mode():
         tiles = [fused_resblock._cached_tiles(w, torch.bfloat16) for _ in range(3)]
-    assert fused_resblock.relayouts == 1 and all(t is tiles[0] for t in tiles)
+    assert profiling.counters()["k2.relayouts"] == 1 and all(t is tiles[0] for t in tiles)
     assert tiles[0].dtype == torch.bfloat16
     assert torch.equal(tiles[0], fused_resblock.conv_tiles(w.bfloat16()))
     assert fused_resblock._cached_tiles(w) is not tiles[0]  # fp32 tiles: their own entry
     w.add_(1.0)
     with torch.inference_mode():
         fused_resblock._cached_tiles(w, torch.bfloat16)
-    assert fused_resblock.relayouts == 3
+    assert profiling.counters()["k2.relayouts"] == 3

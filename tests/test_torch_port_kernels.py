@@ -15,6 +15,7 @@ from sleepgen.pallas_kernels import fused_group_norm_silu, group_norm_silu_refer
 from sleepgen.pallas_kernels.fused_resblock import (fused_gn_silu_conv3_tiled,
                                                     gn_silu_conv3_reference)
 from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.utils import profiling
 
 
 def _bcl(x_blc: np.ndarray) -> torch.Tensor:
@@ -39,7 +40,7 @@ def test_group_norm_silu_plain_matches_pallas(num_groups, apply_silu):
             apply_silu)
     for want in (fused_group_norm_silu(*args), group_norm_silu_reference(*args)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-6)
-    assert group_norm.launches == 0  # CPU tensors never reach the kernel
+    assert profiling.counters()["k1.launches"] == 0  # CPU tensors never reach the kernel
 
 
 @pytest.mark.parametrize("b,l,cin,cout,g,tb", [(8, 96, 32, 64, 32, 4),
@@ -61,4 +62,4 @@ def test_gn_silu_conv3_plain_matches_pallas(b, l, cin, cout, g, tb):
     for want in (fused_gn_silu_conv3_tiled(*jargs, g, interpret=True, tb=tb),
                  gn_silu_conv3_reference(*jargs, g)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
-    assert fused_resblock.launches == 0
+    assert profiling.counters()["k2.launches"] == 0

@@ -46,6 +46,42 @@ def test_import_walk_covers_the_serving_modules():
             "sleepgen_torch/cli/warm_cache.py", "chip_smoke.py"} <= names
 
 
+PACKAGE = ROOT / "sleepgen_torch"
+
+
+def _imports_under(path: Path, *packages: str):
+    """The modules ``path`` imports from any of ``packages``."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{alias.name}" for alias in node.names)
+    return sorted(n for n in names if any(n == p or n.startswith(p + ".") for p in packages))
+
+
+# The layers' seams: the tracer's registry is the lowest layer, K2's tile
+# cache is K2's own, and the diffusion layer sits below the samplers
+LAYER_RULES = {
+    "profiling-imports-no-kernels-nn-or-sample": lambda: _imports_under(
+        PACKAGE / "utils" / "profiling.py", "sleepgen_torch.kernels", "sleepgen_torch.nn",
+        "sleepgen_torch.sample"),
+    "only-k2-names-its-tile-cache": lambda: [
+        str(p.relative_to(ROOT)) for p in PORT_FILES
+        if "_tiles_cache" in p.read_text() and p != PACKAGE / "kernels" / "fused_resblock.py"],
+    "diffusion-imports-no-sample": lambda: [
+        (str(p.relative_to(ROOT)), _imports_under(p, "sleepgen_torch.sample"))
+        for p in sorted((PACKAGE / "diffusion").glob("*.py"))
+        if _imports_under(p, "sleepgen_torch.sample")],
+}
+
+
+@pytest.mark.parametrize("rule", sorted(LAYER_RULES))
+def test_layers_keep_their_seams(rule):
+    assert LAYER_RULES[rule]() == []
+
+
 def test_import_walk_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom sleepgen.config import Config\n"
@@ -173,37 +209,41 @@ def _tiny_run_dirs(root: Path, num_classes: int):
     return root / "aekl", root / "ldm"
 
 
+def _launches(*kernels):
+    from sleepgen_torch.utils import profiling
+
+    c = profiling.counters()
+    return tuple(c[f"{k}.launches"] for k in kernels)
+
+
 def test_cpu_device_runs_the_plain_versions():
-    from sleepgen_torch.kernels import fused_resblock, group_norm
     from sleepgen_torch.sample.sample_ldm import make_ldm_sampler
 
     unet, ae, sched = _tiny_models()
-    before = (group_norm.launches, fused_resblock.launches)
+    before = _launches("k1", "k2")
     out = make_ldm_sampler(unet, ae, sched, latent_len=32, num_inference_steps=2,
                            device="cpu")(1.0, [0, 1])
     assert out.shape == (2, 4 * 32 - 72, 1) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
-    assert (group_norm.launches, fused_resblock.launches) == before
+    assert _launches("k1", "k2") == before
 
 
 def test_cpu_training_step_runs_the_plain_versions():
     """One tiny stage-1 step on CPU tensors: every GroupNorm forward and
     backward runs its plain version, so no kernel launch is counted."""
     from sleepgen_torch.config import Config
-    from sleepgen_torch.kernels import fused_resblock, group_norm
     from sleepgen_torch.train import train_aekl as A
 
     cfg = Config()
     cfg.aekl.num_channels, cfg.discriminator.num_channels = [2, 2, 4], 4
     ae, disc, opt_g, opt_d = A.build_trainer(cfg, "cpu")
-    before = (group_norm.launches, group_norm.backward_launches, fused_resblock.launches)
+    before = _launches("k1", "k3", "k2")
     metrics = A.make_train_step(ae, disc, opt_g, opt_d, cfg)(torch.rand(2, 1, 64),
                                                              torch.randn(2, 1, 16))
     assert set(metrics) == set(A.METRICS)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert all(p.grad is not None for p in ae.parameters())
-    assert (group_norm.launches, group_norm.backward_launches,
-            fused_resblock.launches) == before
+    assert _launches("k1", "k3", "k2") == before
 
 
 def test_kernel_build_names_the_missing_compiler(monkeypatch, tmp_path):

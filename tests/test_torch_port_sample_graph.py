@@ -10,15 +10,13 @@ card (``tests/test_torch_cuda_kernels.py``).
 Tiny models with seeded weights: nothing here is compared with the JAX
 package.
 """
-import collections
-
 import numpy as np
 import pytest
 import torch
 
 from sleepgen_torch.config import Config
 from sleepgen_torch.diffusion import schedules
-from sleepgen_torch.kernels import fused_resblock, group_norm
+from sleepgen_torch.kernels import fused_resblock
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.unet1d import UNet1d
 from sleepgen_torch.sample import sample_ldm, samplers
@@ -187,41 +185,50 @@ def test_the_loop_stays_eager_off_cuda(path, tmp_path):
     profiling.reset()
 
 
-def test_reset_zeroes_the_graph_counters(monkeypatch):
-    for name in ("graph_captures", "graph_replays", "traced_graph_replays"):
-        monkeypatch.setattr(samplers, name, 7)
+def test_reset_zeroes_the_graph_counters():
+    with profiling.tracing():
+        for name in GRAPH_COUNTERS:
+            profiling.count(name, 7)
     assert [profiling.counters()[k] for k in GRAPH_COUNTERS] == [7, 7, 7]
     profiling.reset()
     assert [profiling.counters()[k] for k in GRAPH_COUNTERS] == [0, 0, 0]
 
 
+def _launches():
+    c = profiling.counters()
+    return c["k1.launches"], c["k3.launches"], c["k2.launches"]
+
+
 def test_a_replay_adds_what_its_capture_took_back():
     """The launches counted during a capture are taken back off K1's, K2's
-    and K3's counters (a capture runs nothing); each replay adds them."""
-    group_norm.reset_counts()
-    fused_resblock.reset_counts()
-    group_norm.launches, fused_resblock.launches = 3, 5
-    group_norm.launch_shapes["a"] = 3
-    group_norm.form_launches["K1", "on_chip"] = 3
-    before = samplers._launch_counts()
-    group_norm.launches += 2
-    group_norm.launch_shapes["a"] += 1
-    group_norm.launch_shapes["b"] += 1
-    group_norm.form_launches["K1", "on_chip"] += 2
-    fused_resblock.launches += 4
-    fused_resblock.launch_shapes["w"] += 4
-    made = samplers._take_back_launches(before)
-    assert (group_norm.launches, fused_resblock.launches) == (3, 5)
-    assert group_norm.launch_shapes == collections.Counter(a=3)
-    assert not fused_resblock.launch_shapes
-    samplers._add_launches(made, 10)
-    assert (group_norm.launches, group_norm.backward_launches, fused_resblock.launches) == \
-        (23, 0, 45)
-    assert group_norm.launch_shapes == collections.Counter(a=13, b=10)
-    assert group_norm.form_launches == collections.Counter({("K1", "on_chip"): 23})
-    assert fused_resblock.launch_shapes == collections.Counter(w=40)
-    group_norm.reset_counts()
-    fused_resblock.reset_counts()
+    and K3's counters, by shape and by form (a capture runs nothing); each
+    replay adds them. The traced counts are neither taken back nor added."""
+    profiling.reset()
+    profiling.count("k1.launches", 3)
+    profiling.count("k2.launches", 5)
+    profiling.count("k1.launch_shapes", 3, key="a")
+    profiling.count("k1.form.on_chip", 3)
+    before = profiling.snapshot_counts()
+    profiling.count("k1.launches", 2)
+    profiling.count("k1.launch_shapes", key="a")
+    profiling.count("k1.launch_shapes", key="b")
+    profiling.count("k1.form.on_chip", 2)
+    profiling.count("k2.launches", 4)
+    profiling.count("k2.launch_shapes", 4, key="w")
+    with profiling.tracing():
+        profiling.count("k1.traced_launches", 2)
+    made = profiling.take_back_counts(before)
+    assert _launches() == (3, 0, 5)
+    assert profiling.keyed("k1.launch_shapes") == dict(a=3)
+    assert not profiling.keyed("k2.launch_shapes")
+    profiling.add_counts(made, 10)
+    assert _launches() == (23, 0, 45)
+    assert profiling.keyed("k1.launch_shapes") == dict(a=13, b=10)
+    c = profiling.counters()
+    assert {k: n for k, n in c.items() if ".form." in k and n} == {"k1.form.on_chip": 23}
+    assert profiling.keyed("k2.launch_shapes") == dict(w=40)
+    assert c["k1.traced_launches"] == 2
+    profiling.reset()
 
 
 @pytest.mark.parametrize("change", ["in_place_update", "relayout", "weight_freed", "none"])
@@ -235,7 +242,7 @@ def test_a_captured_step_goes_stale_with_k2s_tiles(change):
     fused_resblock._cached_tiles(kept, torch.bfloat16)
     fused_resblock._cached_tiles(other, torch.bfloat16)
     g = samplers._StepGraph((2, 1, 8), torch.device("cpu"), 4)
-    g.tiles = list(fused_resblock._tiles_cache.items())
+    g.tiles = fused_resblock.tiles_in_use()
     assert g.fresh()
     if change == "in_place_update":
         with torch.no_grad():
@@ -247,6 +254,6 @@ def test_a_captured_step_goes_stale_with_k2s_tiles(change):
     elif change == "weight_freed":
         del other
     else:
-        fused_resblock.reset_counts()  # the counters alone
+        profiling.reset()  # the counters alone
         fused_resblock._cached_tiles(torch.randn(64, 32, 3), torch.bfloat16)  # a new weight
     assert g.fresh() is (change == "none")

@@ -15,7 +15,6 @@ import pytest
 import torch
 
 from sleepgen_torch.diffusion import schedules
-from sleepgen_torch.kernels import fused_resblock, group_norm
 from sleepgen_torch.nn.aekl import AutoencoderKL
 from sleepgen_torch.nn.unet1d import UNet1d
 from sleepgen_torch.sample.sample_ldm import make_dm_sampler, make_ldm_sampler
@@ -43,8 +42,6 @@ def one_torch_thread():
 @pytest.fixture(autouse=True)
 def fresh_tracer():
     profiling.reset()
-    group_norm.reset_counts()
-    fused_resblock.reset_counts()
     yield
     profiling.reset()
 
@@ -100,6 +97,28 @@ def _children(spans, parent):
 
 def _host_counters():
     return {k: v for k, v in profiling.counters().items() if ".host_ns" in k or ".traced_" in k}
+
+
+# Every key of ``counters()``, each at 0 until counted once the samplers
+# are imported, as every `portbench` run imports them
+COUNTER_KEYS = {f"{k}.launches" for k in ("k1", "k2", "k3", "k4")} | {
+    f"{k}.{c}" for k in ("k1", "k2", "k3") for c in ("host_ns", "traced_launches")} | {
+    "k2.relayouts", "k2.traced_relayouts", "sampler.graph_captures", "sampler.graph_replays",
+    "sampler.traced_graph_replays", "dit.forwards", "dit.tokens", "dit.fused_norms",
+    "spans.dropped"} | {f"k1.form.{f}" for f in ("on_chip", "cluster", "streaming")} | {
+    f"k3.form.{f}" for f in ("on_chip", "cluster", "three_pass")}
+
+
+def test_counters_hold_every_key_and_k4s_launches():
+    """``counters()`` holds every key at 0, K4's launches among them, and a
+    K4 launch's count (here counted as K4's wrapper counts it) shows there
+    until ``reset()``."""
+    counters = profiling.counters()
+    assert set(counters) == COUNTER_KEYS and set(counters.values()) == {0}
+    profiling.count("k4.launches")
+    assert profiling.counters()["k4.launches"] == 1
+    profiling.reset()
+    assert profiling.counters()["k4.launches"] == 0
 
 
 def test_tracing_is_off_by_default(models):
