@@ -612,6 +612,13 @@ def read_shapes() -> dict:
             "K3_strided_dy": profiling.keyed("k3.strided_dy_shapes"), "forms": read_forms()}
 
 
+def require_k2_tma(path: str, counts: dict, forms: dict) -> None:
+    """Raise unless every K2 launch of the path (``counts``) loaded x through
+    the tensor map (``k2.form.tma``, as ``read_forms()`` read after it)."""
+    if forms.get("K2_tma", 0) != counts["K2"] or forms.get("K2_elem", 0):
+        raise AssertionError(f"{path}: K2 launches {counts['K2']}, by form {forms}")
+
+
 def require_forms(path: str, counts: dict, forms: dict, form: str = "cluster") -> None:
     """Raise unless every K1 and K3 launch of the path (``counts``) took
     ``form``, as ``read_forms()`` read after it (``forms``)."""
@@ -1146,7 +1153,9 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     K2 and B3 are checked; the step's K2 launches must equal the count
     derived from the configuration. ``only`` "GN": only K1, K3 and B2 are
     checked, and the warm-up's K1 launches must equal the count derived
-    from the configuration (the training steps' are checked always)."""
+    from the configuration (the training steps' are checked always). Every
+    K2 launch of the LDM's and the DM's DDIM step must load x through the
+    tensor map (``require_k2_tma``)."""
     cfg = flagship_config(steps=1)
     unet_sd, ae_sd = seeded_weights(cfg, SEED)
     profiling.reset()
@@ -1160,6 +1169,8 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
             raise AssertionError(f"DDIM step: {kid} launches {sample_counts[kid]}, "
                                  f"expected {want}")
     dm_sample_counts, dm_sample_shapes = phase_dm_sample_step(tmp)
+    require_k2_tma("DDIM step", sample_counts, sample_shapes["forms"])
+    require_k2_tma("DM DDIM step", dm_sample_counts, dm_sample_shapes["forms"])
     if only == "K2":
         train_counts, train_shapes, evals = {}, {"K1": {}, "K3": {}}, {}
         stage1_counts, stage1_shapes = {}, {"K1": {}, "K3": {}}

@@ -36,7 +36,7 @@ SIGNATURES = {
     "sg_group_norm_silu_scratch_floats": ([_p, _p] + [_i] * 5, _i),
     "sg_group_norm_silu": ([_p] * 6 + [_i, _i, _i, _i, _f, _i, _i, _p, _ip], _i),
     "sg_group_norm_silu_bwd": ([_p] * 9 + [_i] * 6 + [_p, _ip], _i),
-    "sg_gn_silu_conv3": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _i, _p], _i),
+    "sg_gn_silu_conv3": ([_p] * 7 + [_i] * 5 + [_f, _i, _i, _p, _ip], _i),
     "sg_adaln_modulate": ([_p] * 7 + [_i] * 6 + [_p], _i),
 }
 

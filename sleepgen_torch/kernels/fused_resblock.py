@@ -22,22 +22,25 @@ have none, so on a CUDA tensor it raises when autograd would need one
 """
 from __future__ import annotations
 
+import ctypes
 import weakref
 
 import torch
 import torch.nn.functional as F
 
 from sleepgen_torch.kernels import _build
-from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, check_group_inputs, count_launch,
-                                               group_norm_silu_reference)
+from sleepgen_torch.kernels.group_norm import (DTYPE_CODES, FORM_COUNTERS, check_group_inputs,
+                                               count_launch, group_norm_silu_reference)
 from sleepgen_torch.utils import profiling
 
 # Counters (``utils.profiling``): K2's launches, and keyed by (B, C_in,
-# C_out, L, G, dtype) by shape (``k2.launch_shapes``); the weight re-layouts
-# the kernels' paths made (misses of ``_cached_tiles``); and while the tracer
-# records, the nanoseconds from the wrapper's entry to its return, the
-# launches they cover, and the re-layouts
-profiling.register("k2.launches", "k2.relayouts")
+# C_out, L, G, dtype) by shape (``k2.launch_shapes``); the bf16 path's
+# launches by how x reached the tiles (``k2.form.tma``: the tensor map,
+# ``k2.form.elem``: element loads, where L % 8 != 0 or x is not 16-byte
+# aligned); the weight re-layouts the kernels' paths made (misses of
+# ``_cached_tiles``); and while the tracer records, the nanoseconds from the
+# wrapper's entry to its return, the launches they cover, and the re-layouts
+profiling.register("k2.launches", "k2.relayouts", *FORM_COUNTERS["k2"])
 profiling.register("k2.host_ns", "k2.traced_launches", "k2.traced_relayouts", traced=True)
 
 MAX_GROUPS = 64  # kMaxGroups in csrc/gn_stats.cuh
@@ -184,15 +187,20 @@ def gn_silu_conv3(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     lib = _build.load()
     w = _cached_tiles(w, x.dtype)
     y = torch.empty((bsz, c_out, l), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups),
-                          dtype=torch.float32, device=x.device)
+    # fp32: the statistics' partial sums; bf16: each row's per-channel
+    # affine (a / 2, d / 2), padded to whole chunks
+    n_scratch = (lib.sg_gn_scratch_floats(bsz, c_in, l, num_groups) if x.dtype == torch.float32
+                 else 2 * bsz * -(-c_in // CHUNK) * CHUNK)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    form = ctypes.c_int(-1)
     code = lib.sg_gn_silu_conv3(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
         b.data_ptr(), y.data_ptr(), scratch.data_ptr(), bsz, c_in, c_out, l,
         num_groups, eps, DTYPE_CODES[x.dtype], w.shape[-1],
-        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(form))
     _build.check(lib, code, "gn_silu_conv3")
-    count_launch("k2", (bsz, c_in, c_out, l, num_groups, str(x.dtype)), t0)
+    count_launch("k2", (bsz, c_in, c_out, l, num_groups, str(x.dtype)), t0,
+                 form.value if form.value >= 0 else None)
     return y
 
 

@@ -50,8 +50,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (kClusterMax in csrc/gn_cluster.cuh)
 ON_CHIP_MAX = 12288
 CLUSTER_MAX = 8 * ON_CHIP_MAX
-# The launchers' form codes (sg::Form in csrc/gn_cluster.cuh) by kernel
-FORMS = {"K1": ("on_chip", "cluster", "streaming"), "K3": ("on_chip", "cluster", "three_pass")}
+# The launchers' form codes by kernel: sg::Form in csrc/gn_cluster.cuh; K2's,
+# the bf16 path's load of x, from launch_tc in csrc/gn_silu_conv3.cu
+FORMS = {"K1": ("on_chip", "cluster", "streaming"), "K3": ("on_chip", "cluster", "three_pass"),
+         "K2": ("tma", "elem")}
 
 # Counters (``utils.profiling``): K1's and K3's launches, by form and,
 # keyed by (B, C, L, G, apply_silu, dtype), by shape (``k1.launch_shapes``,

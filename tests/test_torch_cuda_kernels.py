@@ -260,6 +260,90 @@ FP32_EDGE_CASES = [(1, 24, 40, 37, 4, 0), (16, 96, 136, 130, 8, 0), (1, 96, 192,
                    (16, 64, 64, 96, 32, 1)]
 
 
+def _hold_k2_bf16(got, want):
+    """K2's bf16 tolerance: |err| <= 2^-8 |ref| + 2^-6 rms(ref)."""
+    err = (got.float() - want).abs()
+    tol = BF16_RTOL * want.abs() + 4 * BF16_RTOL * want.square().mean().sqrt()
+    assert bool((err <= tol).all()), err.max()
+
+
+def _k2_bf16(seed, b, cin, cout, l, g=32):
+    """K2's bf16 output at the shape, and the plain version's in fp32 on the same inputs."""
+    x, scale, bias, w, bb = _inputs(seed, b, cin, l, cout)
+    xb, wb, bbb = x.bfloat16(), w.bfloat16(), bb.bfloat16()
+    got = fused_resblock.gn_silu_conv3(xb, scale, bias, wb, bbb, g)
+    torch.cuda.synchronize()
+    return got, fused_resblock.gn_silu_conv3_reference(xb.float(), scale, bias, wb.float(),
+                                                       bbb.float(), g)
+
+
+# The sampling cells' batch: 64 windows, every tile of a launch in flight
+# on the persistent grid (256 tiles at the LDM's shapes, 132 SMs)
+SAMPLER_BATCH = 64
+# The DM's chains: the sampler's (C_in, C_out) at L 3072, 1536 and 768
+DM_K2_SHAPES = sorted({(cin, cout, 4 * l) for cin, cout, l in SAMPLER_K2_SHAPES})
+
+
+@pytest.mark.parametrize("cin,cout,l", SAMPLER_K2_SHAPES)
+def test_gn_silu_conv3_bf16_at_the_sampler_batch(cin, cout, l):
+    _hold_k2_bf16(*_k2_bf16(23, SAMPLER_BATCH, cin, cout, l))
+
+
+@pytest.mark.parametrize("cin,cout,l", DM_K2_SHAPES)
+def test_gn_silu_conv3_bf16_at_the_dm_shapes(cin, cout, l):
+    _hold_k2_bf16(*_k2_bf16(24, 8, cin, cout, l))
+
+
+@pytest.mark.parametrize("cin,cout,l", [(512, 512, 192), (128, 128, 768), (96, 256, 1002)])
+def test_gn_silu_conv3_bf16_graph_replay_is_the_eager_result(cin, cout, l):
+    """A CUDA graph captured over K2 (the statistics, then the tiles as their
+    programmatic dependent) replays the eager launch bit for bit."""
+    x, scale, bias, w, bb = _inputs(25, 8, cin, l, cout)
+    x, w, bb = x.bfloat16(), w.bfloat16(), bb.bfloat16()
+    with torch.no_grad():
+        eager = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)
+        x.copy_(x.flip(0))  # new inputs in the captured buffer, then back
+        graph.replay()
+        flipped = out.clone()
+        x.copy_(x.flip(0))
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+    assert torch.equal(flipped.view(torch.int16), eager.flip(0).view(torch.int16))
+
+
+def test_gn_silu_conv3_counts_its_load_form():
+    """K2's bf16 launches count how x reached the tiles: the tensor map at
+    the sampler's shapes, element loads where L % 8 != 0 or x is not 16-byte
+    aligned; an fp32 launch counts no form."""
+    profiling.reset()
+    for cin, cout, l in SAMPLER_K2_SHAPES:
+        _k2_bf16(26, 2, cin, cout, l)
+    assert _count("k2.form.tma") == len(SAMPLER_K2_SHAPES) and _count("k2.form.elem") == 0
+    profiling.reset()
+    got, want = _k2_bf16(27, 2, 256, 128, 1002)
+    _hold_k2_bf16(got, want)
+    x, scale, bias, w, bb = _inputs(28, 2, 128, 384, 128)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    buf[1:].copy_(x.flatten())
+    xs = buf[1:].view(x.shape)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    got = fused_resblock.gn_silu_conv3(xs, scale, bias, w.bfloat16(), bb.bfloat16(), 32)
+    _hold_k2_bf16(got, fused_resblock.gn_silu_conv3_reference(
+        xs.float(), scale, bias, w.bfloat16().float(), bb.bfloat16().float(), 32))
+    fused_resblock.gn_silu_conv3(x, scale, bias, w, bb, 32)  # fp32
+    torch.cuda.synchronize()
+    assert (_count("k2.form.tma"), _count("k2.form.elem"), _count("k2.launches")) == (0, 2, 3)
+
+
 @pytest.mark.parametrize("b,cin,cout,l,g,offset", FP32_EDGE_CASES)
 def test_gn_silu_conv3_fp32_at_the_tile_edges(b, cin, cout, l, g, offset):
     x, scale, bias, w, bb = _inputs(17, b, cin, l, cout)

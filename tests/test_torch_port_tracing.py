@@ -106,7 +106,8 @@ COUNTER_KEYS = {f"{k}.launches" for k in ("k1", "k2", "k3", "k4")} | {
     "k2.relayouts", "k2.traced_relayouts", "sampler.graph_captures", "sampler.graph_replays",
     "sampler.traced_graph_replays", "dit.forwards", "dit.tokens", "dit.fused_norms",
     "spans.dropped"} | {f"k1.form.{f}" for f in ("on_chip", "cluster", "streaming")} | {
-    f"k3.form.{f}" for f in ("on_chip", "cluster", "three_pass")}
+    f"k3.form.{f}" for f in ("on_chip", "cluster", "three_pass")} | {
+    f"k2.form.{f}" for f in ("tma", "elem")}
 
 
 def test_counters_hold_every_key_and_k4s_launches():
