@@ -119,7 +119,10 @@ class UNetConfig:
 class DiTConfig:
     """The DiT denoiser (``nn/dit.py``), named as the published ``DiT``'s
     arguments; the defaults are DiT-XL/2's widths, unconditional, on the
-    768-sample latent."""
+    768-sample latent. ``num_experts`` > 0 makes it DiT-MoE's (``nn/moe.py``,
+    named as DiT-MoE's arguments): every MLP the top ``num_experts_per_tok``
+    of ``num_experts`` SwiGLU experts plus ``n_shared_experts`` shared ones,
+    and the router's auxiliary loss at ``aux_loss_alpha`` in training."""
     input_size: int = 768
     patch_size: int = 2
     hidden_size: int = 1152
@@ -127,6 +130,15 @@ class DiTConfig:
     num_heads: int = 16
     mlp_ratio: float = 4.0
     num_classes: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    n_shared_experts: int = 0
+    aux_loss_alpha: float = 0.01
+
+    def __post_init__(self):
+        if self.num_experts and not 0 < self.num_experts_per_tok <= self.num_experts:
+            raise ValueError(f"dit.num_experts_per_tok {self.num_experts_per_tok} is not "
+                             f"between 1 and dit.num_experts {self.num_experts}")
 
 
 @dataclass

@@ -79,6 +79,7 @@ from torch import nn
 
 from sleepgen_torch.kernels import adaln
 from sleepgen_torch.nn.layers import timestep_embedding
+from sleepgen_torch.nn.moe import SparseMoeBlock
 from sleepgen_torch.utils import profiling
 from sleepgen_torch.utils.profiling import span
 
@@ -186,10 +187,21 @@ class Mlp(nn.Module):
 
 
 class DiTBlock(nn.Module):
-    def __init__(self, hidden: int, heads: int, mlp_ratio: float):
+    """Attention and MLP halves with adaLN-Zero; with ``num_experts`` > 0 the
+    MLP is DiT-MoE's ``moe`` (``nn/moe.py``: top ``num_experts_per_tok``
+    routed SwiGLU experts and ``n_shared_experts`` shared ones), else the
+    dense ``mlp``."""
+
+    def __init__(self, hidden: int, heads: int, mlp_ratio: float, num_experts: int = 0,
+                 num_experts_per_tok: int = 2, n_shared_experts: int = 0,
+                 aux_loss_alpha: float = 0.01):
         super().__init__()
         self.attn = Attention(hidden, heads)
-        self.mlp = Mlp(hidden, int(hidden * mlp_ratio))
+        if num_experts:
+            self.moe = SparseMoeBlock(hidden, mlp_ratio, num_experts, num_experts_per_tok,
+                                      n_shared_experts, aux_loss_alpha)
+        else:
+            self.mlp = Mlp(hidden, int(hidden * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden, 6 * hidden))
 
     def forward(self, x: torch.Tensor, mod: Sequence[torch.Tensor],
@@ -197,7 +209,8 @@ class DiTBlock(nn.Module):
         """x (B, T, D) fp32 without the previous half's branch, which is
         ``pending`` (h, gate), or None before the first block; ``mod``: this
         block's six (B, D) modulations. Returns the stream with every half
-        before this block's MLP added, and the MLP's (h, gate)."""
+        before this block's MLP added, and the MLP's (h, gate), h in the
+        compute dtype whether the MLP is dense or sparse."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod
         dtype = self.attn.qkv.weight.dtype
         with span("dit.attn"):
@@ -205,7 +218,7 @@ class DiTBlock(nn.Module):
             pending = (self.attn(y), gate_msa)
         with span("dit.mlp"):
             x, y = modulate(x, shift_mlp, scale_mlp, dtype, pending)
-            return x, (self.mlp(y), gate_mlp)
+            return x, (self.moe(y) if hasattr(self, "moe") else self.mlp(y), gate_mlp)
 
 
 class FinalLayer(nn.Module):
@@ -227,15 +240,24 @@ class DiT1d(nn.Module):
     """(B, in_channels, L) noisy latent, (B,) timesteps and optional (B,)
     labels (< 0: the null label) -> (B, in_channels, L) fp32, L being
     ``input_size``. ``num_classes`` 0 builds no label embedder and ignores
-    ``y``."""
+    ``y``. ``num_experts`` > 0 builds DiT-MoE (Fei et al. 2024,
+    arXiv:2407.11633; DiT-MoE-XL/2-8E2A is DiT-XL/2 with 8 experts, top 2
+    and 2 shared): every block's MLP a sparse mixture of SwiGLU experts
+    (``nn/moe.py``); a training forward then leaves the sum of the blocks'
+    auxiliary losses in ``aux_loss`` (else None), which the trainer adds to
+    the diffusion loss."""
 
     def __init__(self, in_channels: int = 1, input_size: int = 768, patch_size: int = 2,
                  hidden_size: int = 1152, depth: int = 28, num_heads: int = 16,
-                 mlp_ratio: float = 4.0, num_classes: int = 0):
+                 mlp_ratio: float = 4.0, num_classes: int = 0, num_experts: int = 0,
+                 num_experts_per_tok: int = 2, n_shared_experts: int = 0,
+                 aux_loss_alpha: float = 0.01):
         super().__init__()
         if input_size % patch_size:
             raise ValueError(f"input size {input_size} not divisible by patch {patch_size}")
         self.patch_size, self.num_classes = patch_size, num_classes
+        self.num_experts = num_experts
+        self.aux_loss: Optional[torch.Tensor] = None
         self.x_embedder = PatchEmbed(in_channels, hidden_size, patch_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
         if num_classes:
@@ -243,8 +265,9 @@ class DiT1d(nn.Module):
         self.register_buffer("pos_embed",
                              sincos_positions(hidden_size, input_size // patch_size),
                              persistent=False)
-        self.blocks = nn.ModuleList([DiTBlock(hidden_size, num_heads, mlp_ratio)
-                                     for _ in range(depth)])
+        self.blocks = nn.ModuleList([DiTBlock(hidden_size, num_heads, mlp_ratio, num_experts,
+                                              num_experts_per_tok, n_shared_experts,
+                                              aux_loss_alpha) for _ in range(depth)])
         self.final_layer = FinalLayer(hidden_size, patch_size, in_channels)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
@@ -269,6 +292,9 @@ class DiT1d(nn.Module):
             pending = None
             for blk, mod in zip(self.blocks, mods):
                 h, pending = blk(h, mod, pending)
+            if self.num_experts:
+                aux = [blk.moe.aux_loss for blk in self.blocks if blk.moe.aux_loss is not None]
+                self.aux_loss = torch.stack(aux).sum() if aux else None
             with span("dit.final"):
                 out = self.final_layer(h, final_mod, pending)  # (B, T, patch * C)
             return unpatchify(out.float(), self.patch_size, c)
@@ -280,7 +306,10 @@ def init_state(model: DiT1d, seed: int) -> Dict[str, np.ndarray]:
     linear layer's weight Xavier-uniform and its bias zero, the patch
     embedding's weight Xavier-uniform over (D, C patch) and its bias zero,
     the label table and the timestep MLP's weights N(0, 0.02^2), and zero
-    for every adaLN modulation and for the final layer's linear."""
+    for every adaLN modulation and for the final layer's linear; DiT-MoE's
+    experts are linear layers, Xavier-uniform by their published names,
+    and its router U(-1/sqrt(D), 1/sqrt(D)) (``MoEGate.reset_parameters``'
+    Kaiming-uniform at a = sqrt(5))."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, p in model.state_dict().items():
@@ -290,6 +319,9 @@ def init_state(model: DiT1d, seed: int) -> Dict[str, np.ndarray]:
             v = np.zeros(shape)
         elif name == "y_embedder.embedding_table.weight" or name.startswith("t_embedder."):
             v = rng.normal(0.0, 0.02, shape)
+        elif name.endswith(".moe.gate.weight"):
+            bound = 1.0 / math.sqrt(shape[1])
+            v = rng.uniform(-bound, bound, shape)
         else:
             fan_out, fan_in = shape[0], int(np.prod(shape[1:]))
             bound = math.sqrt(6.0 / (fan_in + fan_out))

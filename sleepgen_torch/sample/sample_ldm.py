@@ -76,12 +76,15 @@ def build_unet(cfg: Config, in_channels: int, out_channels: int,
     """The denoiser ``cfg.denoiser`` names: the UNet of ``cfg.unet``, whose
     attention takes ``fast_math``, the precision switch of the path that
     runs it (``cfg.fast_sampling_math`` or ``cfg.fast_train_math``), or the
-    DiT of ``cfg.dit``, which predicts its ``in_channels``."""
+    DiT of ``cfg.dit``, which predicts its ``in_channels`` (DiT-MoE where
+    ``cfg.dit.num_experts`` > 0)."""
     if cfg.denoiser == "dit":
         d = cfg.dit
         return DiT1d(in_channels=in_channels, input_size=d.input_size,
                      patch_size=d.patch_size, hidden_size=d.hidden_size, depth=d.depth,
-                     num_heads=d.num_heads, mlp_ratio=d.mlp_ratio, num_classes=d.num_classes)
+                     num_heads=d.num_heads, mlp_ratio=d.mlp_ratio, num_classes=d.num_classes,
+                     num_experts=d.num_experts, num_experts_per_tok=d.num_experts_per_tok,
+                     n_shared_experts=d.n_shared_experts, aux_loss_alpha=d.aux_loss_alpha)
     if cfg.denoiser != "unet":
         raise ValueError(f"unknown denoiser {cfg.denoiser!r}; 'unet' or 'dit'")
     u = cfg.unet
@@ -111,11 +114,13 @@ def build_models(cfg: Config, unet_state: Mapping[str, np.ndarray],
                  ae_state: Mapping[str, np.ndarray], device: torch.device,
                  aekl_cfg: Optional[Config] = None,
                  quantized: bool = False) -> Tuple[Denoiser, AutoencoderKL]:
-    """The denoiser ``cfg.denoiser`` names (``build_unet``) and the AEKL on
-    ``device`` with the given state dicts, in eval mode and cast to
-    ``cfg.dtype``, a UNet's attention on ``cfg.fast_sampling_math``'s path;
-    ``quantized``: the int8 UNet, its convolutions quantized from the fp32
-    ``unet_state`` (a DiT has no int8 path and raises)."""
+    """The denoiser ``cfg.denoiser`` names (``build_unet``: the UNet, DiT-XL/2
+    or, with ``cfg.dit.num_experts`` > 0, DiT-MoE) and the AEKL on
+    ``device`` with the given state dicts (numpy arrays or tensors, by
+    name), in eval mode and cast to ``cfg.dtype``, a UNet's attention on
+    ``cfg.fast_sampling_math``'s path; ``quantized``: the int8 UNet, its
+    convolutions quantized from the fp32 ``unet_state`` (a DiT, dense or
+    sparse, has no int8 path and raises)."""
     aekl_cfg = aekl_cfg or cfg
     lc = aekl_cfg.aekl.latent_channels
     dtype = DTYPES[cfg.dtype]

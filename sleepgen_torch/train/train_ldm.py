@@ -13,7 +13,8 @@ checkpoints resumes; a non-finite epoch loss stops training and the
 final model comes from the last finite checkpoint.
 
 The denoiser is the one ``cfg.denoiser`` names: the UNet, or DiT-XL/2's
-transformer (``nn/dit.py``), with its published initialisation.
+transformer (``nn/dit.py``), with its published initialisation. A DiT with
+experts (DiT-MoE) adds its routers' auxiliary loss to the diffusion loss.
 
 Conditional training (``cfg.num_classes`` > 0): the loader is a
 ``data.staging.LabeledEpochDataset`` of ``(x, y)`` batches; each label is
@@ -152,7 +153,8 @@ def make_ldm_train_step(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule,
     """``step(x, t, noise, enc_eps, y=None, drop=None) -> loss``: one Adam
     step on the mean loss, then the EMA update ``e = decay * e + (1 -
     decay) * p`` when ``ema`` (fp32 copies of the parameters, by name) is
-    given. ``unet`` is the denoiser (a ``UNet1d`` or a ``DiT1d``). ``y``
+    given. ``unet`` is the denoiser (a ``UNet1d`` or a ``DiT1d``; the loss
+    of a DiT with experts includes its routers' auxiliary loss). ``y``
     (B,) labels of a conditional denoiser; where ``drop`` (B,)
     bool is set, the label becomes the null label -1. With a ``mesh`` the
     inputs are this rank's equal shard of the global batch's, the gradient
@@ -169,6 +171,9 @@ def make_ldm_train_step(unet: Denoiser, ae: AutoencoderKL, sched: NoiseSchedule,
             opt.zero_grad(set_to_none=True)
             loss = ldm_losses(unet, ae, sched, scale_factor, x, t, noise, enc_eps,
                               compute_dtype, y).mean()
+            aux = getattr(unet, "aux_loss", None)  # DiT-MoE's routers', from this forward
+            if aux is not None:
+                loss = loss + aux
             with span("trainer.backward"):
                 loss.backward()
             if mesh is not None:

@@ -35,7 +35,10 @@ only while the tracer records (host time, the DiT's forwards). A CUDA
 graph's capture runs nothing: it takes back what it counted
 (``take_back_counts``) and each replay adds that again (``add_counts``).
 ``counters()`` reads the named counts, ``keyed(name)`` a keyed one, and
-``reset()`` zeroes them all with the spans.
+``reset()`` zeroes them all with the spans. A device tally (``tally``, the
+MoE's rows per expert) is a keyed count that a layer adds as a tensor on
+the card while the tracer records; it stays there until ``keyed`` reads
+it, so the layer never waits for the card.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ _local = threading.local()  # each thread's stack of open spans
 _counts: collections.Counter = collections.Counter()
 _traced: collections.Counter = collections.Counter()
 _families: Dict[str, collections.Counter] = {}
+_tallies: Dict[str, torch.Tensor] = {}  # device tallies not yet read, by name
 
 
 @contextlib.contextmanager
@@ -239,8 +243,27 @@ def counters() -> Dict[str, int]:
     return dict(sorted(out.items()))
 
 
+def tally(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` (1-D, integer, on any device) to the keyed count
+    ``name``, entry i to key i, while the tracer records and the stream
+    captures no graph; the sum stays on the tensor's device until ``keyed``
+    reads it."""
+    if not (_forced or _autograd_profiler._is_profiler_enabled):
+        return
+    if values.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    held = _tallies.get(name)
+    values = values.detach().to(torch.int64)
+    _tallies[name] = values if held is None else held + values
+
+
 def keyed(name: str) -> Dict[Any, int]:
-    """The keyed count ``name``: {key: count}, as launches by shape."""
+    """The keyed count ``name``: {key: count}, as launches by shape; a
+    device tally is read here (one wait for the card) and added in."""
+    held = _tallies.pop(name, None)
+    if held is not None:
+        for i, n in enumerate(held.tolist()):
+            _counts[(name, i)] += n
     return {k[1]: n for k, n in _counts.items() if isinstance(k, tuple) and k[0] == name}
 
 
@@ -250,6 +273,7 @@ def reset() -> None:
     global _dropped
     _records.clear()
     _dropped = 0
+    _tallies.clear()
     _counts.clear()
     _traced.clear()
     for name, family in _families.items():

@@ -748,7 +748,7 @@ def flax_init_state(module: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]
 
 
 def load_numpy_state(module: torch.nn.Module, state: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """``module.load_state_dict`` from numpy arrays, strict."""
-    module.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()},
-                           strict=True)
+    """``module.load_state_dict`` from numpy arrays (or tensors), strict."""
+    module.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+                            for k, v in state.items()}, strict=True)
     return module
