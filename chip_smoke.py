@@ -297,7 +297,8 @@ batch (fp32), a long-window DDIM-50 batch and an options DDIM-200 batch;
 K3: a stage-2, a stage-1, a DM, a v1 encoder, a v1 DDPM, an options
 stage-2 and an attention stage-1 training step; K4: a DiT guided DPM++
 step, its plain version and library yardstick both the composed ops, its
-bound 679.5 MB a written-back pass at 3.35 TB/s; B2, B3: on no
+bound 679.5 MB a written-back pass at 3.35 TB/s; K5: an LDM and a DM DDIM
+step, its library yardstick SDPA on contiguous q, k and v; B2, B3: on no
 path), its error and
 its times (each shape's time times its launches in that run, summed),
 and for K1, K3 and B2 its launches by form (``forms``: on_chip, cluster,
@@ -341,6 +342,14 @@ the output directory, as the other loops'; no {"ok": ...} line.
 ``python3 chip_smoke.py --only K4``: phases 1 and 2, DIT, then K4's
 phase-8 timings on its path. Report in chiprun_out/chip_smoke_k4_report.json;
 no {"ok": ...} line.
+
+``python3 chip_smoke.py --only K5``: phases 1 and 2, one DDIM step of the
+LDM and of the DM at batch 64, each of whose UNet attentions must launch
+K5 (``require_k5``, which every run applies to those steps), K5's checks at
+their shapes (B 64, one head of 512, L 192 and 768), then its timings per
+step beside its bound, its plain version and SDPA on contiguous q, k and v
+(``k5-shape`` lines). Report in chiprun_out/chip_smoke_k5_report.json; no
+{"ok": ...} line.
 
 ``python3 chip_smoke.py --only OPT``: phases 1 and 2, OPT (its new
 shapes checked from scratch) and MESH, then the phase-8 timings of OPT's
@@ -388,7 +397,7 @@ from sleepgen_torch.eval.bands import EEG_BANDS, filter_band  # noqa: E402
 from sleepgen_torch.eval.fid import frechet_distance, usleep_fid_features  # noqa: E402
 from sleepgen_torch.eval.msssim import ms_ssim_1d  # noqa: E402
 from sleepgen_torch.eval.psd import dpss_tapers  # noqa: E402
-from sleepgen_torch.kernels import _build, adaln, fused_resblock, group_norm  # noqa: E402
+from sleepgen_torch.kernels import _build, adaln, attention, fused_resblock, group_norm  # noqa: E402
 from sleepgen_torch.nn.chambon import SleepStagerChambon2018, TimeDistributedStager  # noqa: E402
 from sleepgen_torch.nn.aekl_v1 import AutoencoderKLV1  # noqa: E402
 from sleepgen_torch.nn.discriminator import DiscriminatorV1  # noqa: E402
@@ -467,6 +476,8 @@ K3_REPLACES = "sleepgen/pallas_kernels/group_norm.py:226"
 B2_REPLACES = "sleepgen/pallas_kernels/group_norm.py:159"
 B3_REPLACES = "sleepgen/pallas_kernels/fused_resblock.py:180"
 K4_SRC = "sleepgen_torch/csrc/adaln_modulate.cu"
+K5_SRC = "sleepgen_torch/csrc/attention.cu"
+K5_REPLACES = "none: the JAX package's attention is jnp einsums, sleepgen/nn/layers.py:236-239"
 DIT_PATH = "DiT guided DPM++ step"  # one forward of 64 windows and their null-label rows
 # B2's long window, (B, C, L, G, silu, dtype) in the port's layout
 B2_SHAPES = [(16, 32, 49152, 1, True, "torch.bfloat16")]
@@ -617,6 +628,39 @@ def require_k2_tma(path: str, counts: dict, forms: dict) -> None:
     the tensor map (``k2.form.tma``, as ``read_forms()`` read after it)."""
     if forms.get("K2_tma", 0) != counts["K2"] or forms.get("K2_elem", 0):
         raise AssertionError(f"{path}: K2 launches {counts['K2']}, by form {forms}")
+
+
+def attention_blocks(cfg: Config) -> int:
+    """The UNet's attention blocks a forward: one after each resblock of a
+    level whose downsampling factor is in ``attention_resolutions`` (its
+    resblocks on the way down, one more on the way up), and the middle's."""
+    u = cfg.unet
+    return 1 + sum(2 * u.num_res_blocks + 1 for level in range(len(u.channel_mult))
+                   if 2 ** level in u.attention_resolutions)
+
+
+def k5_shapes(cfg: Config, batch: int) -> dict:
+    """K5's launches a UNet forward by (B, heads, d, L), from the configuration."""
+    u, out = cfg.unet, collections.Counter()
+    deepest = len(u.channel_mult) - 1
+    for level, m in enumerate(u.channel_mult):
+        ch, length = u.model_channels * m, u.image_size // 2 ** level
+        key = (batch, u.num_heads, ch // u.num_heads, length)
+        if 2 ** level in u.attention_resolutions:
+            out[key] += 2 * u.num_res_blocks + 1
+        if level == deepest:
+            out[key] += 1  # the middle block's
+    return dict(out)
+
+
+def require_k5(path: str, cfg: Config, forwards: int) -> None:
+    """Raise unless K5 ran at every UNet attention of the path's forwards
+    (``k5.launches`` since the last ``profiling.reset()``) and no attention
+    was declined to SDPA."""
+    c, want = profiling.counters(), attention_blocks(cfg) * forwards
+    if (c["k5.launches"], c["k5.declined"]) != (want, 0):
+        raise AssertionError(f"{path}: K5 launches {c['k5.launches']}, declined "
+                             f"{c['k5.declined']}, expected {want} and 0")
 
 
 def require_forms(path: str, counts: dict, forms: dict, form: str = "cluster") -> None:
@@ -800,6 +844,51 @@ def check_k4(key) -> dict:
     return out
 
 
+def k5_inputs(key, dtype, seed):
+    """The UNet's attention at (B, heads, d, L): qkv (B, 3 heads d, L) with
+    N(0, 1) entries in ``dtype`` (the sampling cells' bf16), as the qkv
+    convolution hands it over after a GroupNorm."""
+    b, heads, d, l = key
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((b, 3 * heads * d, l), generator=gen, device="cuda").to(dtype), heads)
+
+
+def k5_library(qkv, heads):
+    """SDPA on contiguous (B, heads, L, d) q, k and v, scaled as the UNet's:
+    the yardstick, which the port never calls in this form. The copies are
+    made here, outside the timed call."""
+    b, c3, l = qkv.shape
+    d = c3 // (3 * heads)
+    q, k, v = (t.transpose(-1, -2).contiguous()
+               for t in qkv.reshape(b, heads, 3 * d, l).split(d, dim=2))
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def k5_bound(key, dtype):
+    """Both products' operations at the bf16 peak, or q, k and v read and
+    the output written once."""
+    b, heads, d, l = key
+    t_ops = 4 * b * heads * l * l * d / BF16_TC_OPS_PER_S
+    t_bytes = 4 * b * heads * d * l * dtype.itemsize / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_k5(key) -> dict:
+    """K5 against its plain version at one shape in bf16 (its only dtype):
+    within 2^-5 (|ref| + rms(ref)), the plain version rounding the scaled q
+    and k to bf16 before their product (tests/test_torch_cuda_kernels.py::
+    _hold_k5 gives the reason)."""
+    qkv, heads = k5_inputs(key, torch.bfloat16, 2)
+    with torch.inference_mode():
+        got = attention.fused_attention(qkv, heads).float()
+        want = attention.attention_reference(qkv, heads).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 2.0**-5 * (want.abs() + want.square().mean().sqrt())).all()):
+        raise AssertionError(f"K5 at {key}: max abs err {float(err.max())}")
+    return {"bf16_max_abs_err": float(err.max())}
+
+
 KERNELS = {
     "K1": dict(name="group_norm_silu", src=K1_SRC, replaces=K1_REPLACES, inputs=k1_inputs,
                kernel=group_norm.group_norm_silu, plain=group_norm.group_norm_silu_reference,
@@ -825,6 +914,11 @@ KERNELS = {
     "K4": dict(name="adaln_modulate", src=K4_SRC, replaces="none", inputs=k4_inputs,
                kernel=adaln.adaln_modulate, plain=k4_plain, library=k4_plain,
                bound=k4_bound, fp32_tol=None),
+    # bf16 only, held by check_k5; its library yardstick is SDPA on
+    # contiguous q, k and v, made before the timed calls (k5_library)
+    "K5": dict(name="attention", src=K5_SRC, replaces=K5_REPLACES, inputs=k5_inputs,
+               kernel=attention.fused_attention, plain=attention.attention_reference,
+               library=k5_library, bound=k5_bound, fp32_tol=None),
 }
 
 
@@ -866,6 +960,8 @@ def check_kernel(kid: str, key) -> dict:
     bf16 inputs against the plain version on their fp32 copies."""
     if kid == "K4":
         return check_k4(key)
+    if kid == "K5":
+        return check_k5(key)
     spec = KERNELS[kid]
     out = {}
     for dtype, seed in ((torch.float32, 1), (torch.bfloat16, 2)):
@@ -1162,6 +1258,7 @@ def phase_checks(tmp: Path, only: str | None = None) -> tuple:
     sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
     torch.cuda.synchronize()
     sample_counts, sample_shapes = read_counts(), read_shapes()
+    require_k5("DDIM step", cfg, forwards=1)
     if only in ("K2", "GN"):
         kid = "K2" if only == "K2" else "K1"
         want = expected_launches(cfg, unet_forwards=1, decodes=1)[kid]
@@ -2173,6 +2270,7 @@ def phase_dm_sample_step(tmp: Path) -> tuple:
                            DM_TABLE, 1, compute_psd=False)
     torch.cuda.synchronize()
     counts, shapes = read_counts(), read_shapes()
+    require_k5("DM DDIM step", cfg, forwards=1)
     want = expected_dm_launches(cfg, forwards=1)
     if counts != want or out.shape != (BATCH, 3000, 1) or not np.isfinite(out).all():
         raise AssertionError(f"DM DDIM step: launches {counts}, expected {want}, "
@@ -3721,13 +3819,13 @@ def timed_steps(step, args: tuple) -> dict:
 
 def sdpa_backends(channels: int, length: int, dtype: torch.dtype, mixed: bool) -> dict:
     """Which of SDPA's fused kernels take the q, k and v that
-    ``layers.attention`` hands SDPA for one head of ``channels`` at
-    ``length`` tokens (batch 4; ``mixed``: its mixed-precision path), the
-    first reason each gives for refusing them (torch's own checks), and
-    which would take contiguous copies of them (``*_contiguous``)."""
+    ``attention.sdpa_attention`` (the attention's path under autograd, on
+    the strict path and past K5's lengths) hands SDPA for one head of
+    ``channels`` at ``length`` tokens (batch 4; ``mixed``: its
+    mixed-precision path), the first reason each gives for refusing them
+    (torch's own checks), and which would take contiguous copies of them
+    (``*_contiguous``)."""
     import warnings
-
-    from sleepgen_torch.nn.layers import attention
 
     seen = []
     sdpa = F.scaled_dot_product_attention
@@ -3739,7 +3837,7 @@ def sdpa_backends(channels: int, length: int, dtype: torch.dtype, mixed: bool) -
     qkv = torch.randn((4, 3 * channels, length), device="cuda").to(dtype)
     F.scaled_dot_product_attention = record
     try:
-        attention(qkv, 1, mixed)
+        attention.sdpa_attention(qkv, 1, mixed)
     finally:
         F.scaled_dot_product_attention = sdpa
     q, k, v = seen[0]
@@ -4095,8 +4193,8 @@ def check_new_shapes(checks: dict, path: str, shapes: dict) -> None:
         errs = [checks[kid][key] for key in keys]
         say("check", kernel=KERNELS[kid]["name"], path=path, shapes=len(keys),
             new_shapes=len(new),
-            fp32_max_abs_err=f"{max(r['fp32_max_abs_err'] for r in errs):.3e}",
-            bf16_max_abs_err=f"{max(r['bf16_max_abs_err'] for r in errs):.3e}")
+            **{k: f"{max(r[k] for r in errs):.3e}" for k in ("fp32_max_abs_err",
+                                                              "bf16_max_abs_err") if k in errs[0]})
 
 
 def phase_timings(paths: dict, checks: dict) -> tuple:
@@ -4138,7 +4236,7 @@ def phase_timings(paths: dict, checks: dict) -> tuple:
             if t is None:
                 t = timed[kid, key, dtype, reps] = {}
                 calls = dict(ms=(spec["kernel"], args), plain_ms=(spec["plain"], args),
-                             library_ms=(spec["library"](*args), ()) if kid == "K3"
+                             library_ms=(spec["library"](*args), ()) if kid in ("K3", "K5")
                              else (spec["library"], args))
                 profiling.reset()
                 for name, (fn, fn_args) in calls.items():
@@ -4413,6 +4511,42 @@ def k4_only(smi: str, build_logs: dict) -> int:
     return write_only_report("k4", smi, build_logs, rows, per_shape, checks)
 
 
+def k5_paths() -> dict:
+    """phase_timings' rows of K5: one DDIM step of the LDM and of the DM at
+    batch 64, the launches from the configurations."""
+    ldm, dm = k5_shapes(flagship_config(1), BATCH), k5_shapes(dm_config(), BATCH)
+    return {"K5": ("K5", "DDIM step", ldm, sum(ldm.values())),
+            "K5 dm": ("K5", "DM DDIM step", dm, sum(dm.values()))}
+
+
+def k5_only(smi: str, build_logs: dict) -> int:
+    """``--only K5``: one DDIM step of the LDM and of the DM at batch 64,
+    each of whose UNet attentions must run K5, K5's checks at their shapes,
+    then its timings per step beside its bound, its plain version and SDPA
+    on contiguous q, k and v; no {"ok": ...} line."""
+    with tempfile.TemporaryDirectory() as td:
+        tmp = Path(td)
+        cfg = flagship_config(steps=1)
+        unet_sd, ae_sd = seeded_weights(cfg, SEED)
+        profiling.reset()
+        sample_ldm_trials(cfg, unet_sd, ae_sd, 1.0, tmp / "warmup", 0, BATCH, BATCH)
+        torch.cuda.synchronize()
+        require_k5("DDIM step", cfg, forwards=1)
+        phase_dm_sample_step(tmp)
+    paths, checks = k5_paths(), {}
+    for _, path, shapes, _ in paths.values():
+        check_new_shapes(checks, path, {"K5": shapes})
+    rows, per_shape = phase_timings(paths, checks)
+    for r in per_shape:
+        say("k5-shape", path=r["path"], shape=tuple(r["shape"]), launches=r["launches"],
+            us=f"{r['graph_ms'] * 1e3:.3f}", eager_us=f"{r['ms'] * 1e3:.3f}",
+            bound_us=f"{r['bound_ms'] * 1e3:.3f}",
+            share_of_bound=f"{r['bound_ms'] / r['graph_ms']:.3f}",
+            plain_us=f"{r['plain_graph_ms'] * 1e3:.3f}",
+            library_us=f"{r['library_graph_ms'] * 1e3:.3f}")
+    return write_only_report("k5", smi, build_logs, rows, per_shape, checks)
+
+
 def training_paths(shapes: dict) -> dict:
     """phase_timings' rows of K1 and K3 on one training step of each stage."""
     step, stage1 = shapes["train_counts"], shapes["stage1_counts"]
@@ -4456,6 +4590,8 @@ def main(only: str | None = None) -> int:
         return opt_only(smi, build_logs)
     if only == "K4":
         return k4_only(smi, build_logs)
+    if only == "K5":
+        return k5_only(smi, build_logs)
     with tempfile.TemporaryDirectory() as td:
         tmp = Path(td)
         shapes, checks = phase_checks(tmp)
@@ -4484,6 +4620,9 @@ def main(only: str | None = None) -> int:
         mesh = phase_mesh(tmp)
     dit_shapes, dit_launches = phase_dit_step()
     check_new_shapes(checks, DIT_PATH, {"K4": dit_shapes})
+    attention_paths = k5_paths()
+    for _, path, k5_keys, _ in attention_paths.values():
+        check_new_shapes(checks, path, {"K5": k5_keys})
     guided_path = "guided DPM++2M-20 request"
     check_new_shapes(checks, guided_path, {kid: serve["guided_shapes"][kid] for kid in ("K1", "K2")})
     check_new_shapes(checks, "DM DDIM-200 batch",
@@ -4509,6 +4648,7 @@ def main(only: str | None = None) -> int:
                               torch.float32),
              **v1_paths(shapes, v1), **quant_long_paths(quant, long), **opt["paths"],
              "K4": ("K4", DIT_PATH, dit_shapes, dit_launches),
+             **attention_paths,
              "B2": ("B2", "none", dict.fromkeys(B2_SHAPES, 1), 0),
              "B3": ("B3", "none", dict.fromkeys(B3_SHAPES, 1), 0)}
     rows, per_shape = phase_timings(paths, checks)
@@ -4554,6 +4694,7 @@ if __name__ == "__main__":
         cold_batch(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:] and sys.argv[1:] not in (["--only", "K2"], ["--only", "GN"],
-                                             ["--only", "OPT"], ["--only", "K4"]):
-        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN|OPT|K4]")
+                                             ["--only", "OPT"], ["--only", "K4"],
+                                             ["--only", "K5"]):
+        sys.exit(f"usage: {sys.argv[0]} [--only K2|GN|OPT|K4|K5]")
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -109,12 +109,15 @@
 #include <type_traits>
 
 #include "gn_stats.cuh"
+#include "hopper.cuh"
 
 namespace sg {
 
 // -- bf16: tensor cores ---------------------------------------------------------
 
 namespace tc {
+
+using namespace hopper;
 
 constexpr int KC = 64;        // input channels per chunk: one 128-byte swizzled weight row
 constexpr int TN = 128;       // output channels per tile: one wgmma n128 per warpgroup
@@ -158,27 +161,6 @@ static_assert(SMEM <= 232448, "shared memory of one block");
 // The statistics kernel's threads: one block per group.
 constexpr int STATS_THREADS = 128;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
 // One thread: `bytes` contiguous bytes into shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
@@ -187,26 +169,8 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
-// One thread: the tensor map's box at (c0, c1, c2), zeros outside the tensor.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-// Shared-memory descriptor of a K-major bf16 tile with the 128-byte swizzle:
-// rows of 64 channels (128 bytes), 8-row atoms 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
 }
 // Shared-memory descriptor of a K-major bf16 tile without swizzle: core
 // matrices of 8 rows x 8 channels, each row 16 bytes, rows 16 bytes apart;
@@ -216,16 +180,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 __device__ __forceinline__ uint64_t plain_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving accumulator accesses across the async products.
 __device__ __forceinline__ void fence_acc(float (&d)[16][4]) {
@@ -281,10 +235,6 @@ __device__ __forceinline__ float tanh_approx(float v) {
   float r;
   asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace tc
@@ -569,7 +519,8 @@ gn_silu_conv3_tc(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* 
       wgmma_fence();
       // each operand's descriptor once; a start address moves in its low
       // bits (addresses >> 4, below 2^14)
-      const uint64_t desc_a = plain_desc(h_addr, PLANE, 128), desc_b = sw128_desc(w_addr);
+      const uint64_t desc_a = plain_desc(h_addr, PLANE, 128);
+      const uint64_t desc_b = sw128_desc(w_addr, 16, 1024);
 #pragma unroll
       for (int k = 0; k < 3; ++k)
 #pragma unroll
@@ -622,26 +573,6 @@ gn_silu_conv3_tc(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* 
     named_sync(bar_id, 128);  // the next tile's h may overwrite ys
   }
   if (wg == 0) named_sync(ORDER, 256);  // the last warpgroup's last arrival
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime, so the library links
-// nothing beyond the runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // Per device, set once for the process: the shared-memory opt-in of the
@@ -701,7 +632,7 @@ static cudaError_t launch_tc(const __nv_bfloat16* x, float2* ad, const float* sc
       known = true;
     }
   if (tma && !known) {
-    const EncodeTiled encode = encode_tiled();
+    const hopper::EncodeTiled encode = hopper::encode_tiled();
     if (encode == nullptr) return cudaErrorNotSupported;
     const cuuint64_t dims[3] = {(cuuint64_t)L, (cuuint64_t)Cin, (cuuint64_t)B};
     const cuuint64_t strides[2] = {(cuuint64_t)L * 2, (cuuint64_t)Cin * L * 2};

@@ -38,6 +38,7 @@ SIGNATURES = {
     "sg_group_norm_silu_bwd": ([_p] * 9 + [_i] * 6 + [_p, _ip], _i),
     "sg_gn_silu_conv3": ([_p] * 7 + [_i] * 5 + [_f, _i, _i, _p, _ip], _i),
     "sg_adaln_modulate": ([_p] * 7 + [_i] * 6 + [_p], _i),
+    "sg_attention": ([_p] * 2 + [_i] * 4 + [_f, _p], _i),
 }
 
 _loaded: Optional[ctypes.CDLL] = None

@@ -16,7 +16,7 @@ and ``decoder.blocks.N`` number conv_in, the resblocks (``norm1``,
 (``conv``) in order, then norm_out and conv_out; so a reference v1 state
 dict loads with ``strict=True``. Every GroupNorm runs kernel K1 on a CUDA
 tensor (K3 for its gradient); the convolutions run ``F.conv1d`` and the
-attention ``scaled_dot_product_attention``.
+attention ``layers.attention``.
 
 Random draws: ``sampling`` takes the eps tensor itself or a generator to
 draw it from, so tests can feed the JAX package's threefry draws.

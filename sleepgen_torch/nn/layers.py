@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sleepgen_torch.kernels.attention import attention
 from sleepgen_torch.kernels.group_norm import group_norm_silu
 
 
@@ -185,42 +186,15 @@ def check_kv_block(length: int, block: int) -> None:
 
     In the JAX package the block selects blockwise (online-softmax)
     attention for long windows, which computes the same softmax; the port
-    keeps the refusal and computes the attention with one
-    ``scaled_dot_product_attention`` whatever the block."""
+    keeps the refusal and computes the attention as ``attention`` does
+    whatever the block (one ``scaled_dot_product_attention`` at lengths
+    past K5's ``MAX_L``)."""
     if block and length > block and length % block:
         raise AssertionError(
             f"kv_block_size={block} must divide the attention length "
             f"L={length}. The UNet attends at image_size/ds for each ds in "
             f"attention_resolutions — pick a block size dividing all of them "
             f"(powers of two are always safe for power-of-two windows).")
-
-
-def attention(qkv: torch.Tensor, num_heads: int, mixed_precision: bool = True) -> torch.Tensor:
-    """Softmax attention over the length axis: qkv (B, 3C, L), q, k and v
-    stacked per head along the channels -> (B, C, L) in qkv's dtype. Per
-    head, q and k are each scaled by d^-1/4 in fp32; softmax in fp32 (inside
-    ``scaled_dot_product_attention``, its own scale set to 1).
-
-    ``mixed_precision`` is the JAX package's ``fast_math`` attention
-    (``sleepgen/nn/layers.py:221-238``): the scaled q and k are cast back to
-    the compute dtype and the products run there. Without it (JAX's strict
-    path) q, k and v enter the product in fp32, outside autocast, and the
-    result is cast to the compute dtype; JAX also rounds the softmax
-    weights to the compute dtype before their product with v, which this
-    path does not. In fp32 the two paths are the same computation."""
-    b, c3, l = qkv.shape
-    d = c3 // (3 * num_heads)
-    q, k, v = qkv.reshape(b, num_heads, 3 * d, l).split(d, dim=2)
-    scale = 1.0 / math.sqrt(math.sqrt(d))
-    q, k, v = (t.transpose(-1, -2) for t in (q, k, v))  # (B, h, L, d)
-    if mixed_precision:
-        out = F.scaled_dot_product_attention((q.float() * scale).to(qkv.dtype),
-                                             (k.float() * scale).to(qkv.dtype), v, scale=1.0)
-    else:
-        with torch.autocast(qkv.device.type, enabled=False):
-            out = F.scaled_dot_product_attention(q.float() * scale, k.float() * scale,
-                                                 v.float(), scale=1.0).to(qkv.dtype)
-    return out.transpose(-1, -2).reshape(b, c3 // 3, l)
 
 
 class SelfAttention1d(nn.Module):

@@ -40,8 +40,10 @@ projections become ``QuantConv1d``, loaded from
 then run GroupNorm32 (K1) and the int8 convolution, never K2.
 ``kv_block_size`` is the JAX package's long-window attention option: the
 UNet refuses a block that does not divide each of its attention lengths
-before it runs anything (``check_kv_block``), and its attention stays one
-``scaled_dot_product_attention`` call.
+before it runs anything (``check_kv_block``), and its attention is one
+``scaled_dot_product_attention`` call at lengths past K5's
+(``kernels/attention.py``); without the option, a bf16 sampling UNet's
+attention runs K5 on the card.
 """
 from __future__ import annotations
 

@@ -34,6 +34,8 @@ re-layouts; the DDIM graphs' captures and replays); a traced one counts
 only while the tracer records (host time, the DiT's forwards). A CUDA
 graph's capture runs nothing: it takes back what it counted
 (``take_back_counts``) and each replay adds that again (``add_counts``).
+A traced twin (``register_twin``) gains what its always-on counter gains
+while the tracer records, the replays' counts included.
 ``counters()`` reads the named counts, ``keyed(name)`` a keyed one, and
 ``reset()`` zeroes them all with the spans. A device tally (``tally``, the
 MoE's rows per expert) is a keyed count that a layer adds as a tensor on
@@ -71,6 +73,7 @@ _local = threading.local()  # each thread's stack of open spans
 _counts: collections.Counter = collections.Counter()
 _traced: collections.Counter = collections.Counter()
 _families: Dict[str, collections.Counter] = {}
+_twins: Dict[str, str] = {}  # an always-on counter -> its traced twin
 _tallies: Dict[str, torch.Tensor] = {}  # device tallies not yet read, by name
 
 
@@ -192,6 +195,19 @@ def register(*names: str, traced: bool = False) -> None:
         family[name] += 0
 
 
+def register_twin(name: str, twin: str) -> None:
+    """Register the always-on counter ``name`` and its traced twin, which
+    gains what ``name`` gains while the tracer records, a CUDA graph's
+    replays included (``add_counts``), its capture not."""
+    register(name)
+    register(twin, traced=True)
+    _twins[name] = twin
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def count(name: str, n: int = 1, key: Any = None) -> None:
     """Add ``n`` to the counter ``name``, or to its count of ``key``; to a
     traced counter only while the tracer records."""
@@ -200,6 +216,8 @@ def count(name: str, n: int = 1, key: Any = None) -> None:
             _traced[name] += n
     else:
         _counts[name if key is None else (name, key)] += n
+        if key is None and name in _twins and not _capturing():
+            count(_twins[name], n)
 
 
 def snapshot_counts() -> collections.Counter:
@@ -217,9 +235,12 @@ def take_back_counts(before: collections.Counter) -> collections.Counter:
 
 
 def add_counts(made: collections.Counter, times: int = 1) -> None:
-    """Add ``made`` (``take_back_counts``'s) ``times`` over."""
+    """Add ``made`` (``take_back_counts``'s) ``times`` over, to the traced
+    twins too."""
     for k, n in made.items():
         _counts[k] += times * n
+        if k in _twins:
+            count(_twins[k], times * n)
 
 
 def counters() -> Dict[str, int]:
@@ -235,7 +256,10 @@ def counters() -> Dict[str, int]:
     ``sampler.traced_graph_replays``); the DiT's forwards, their rows x
     tokens and its passes between half-blocks that ran K4, while the
     tracer recorded (``dit.forwards``, ``dit.tokens``,
-    ``dit.fused_norms``); and ``spans.dropped``, the spans past
+    ``dit.fused_norms``); K5's launches, those made while the tracer
+    recorded (``k5.launches``, ``k5.traced_launches``), and the attentions
+    sent to SDPA that K5 would have taken but for their length or width
+    (``k5.declined``); and ``spans.dropped``, the spans past
     ``MAX_SPANS``."""
     out = {k: n for k, n in _counts.items() if isinstance(k, str)}
     out.update(_traced)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from sleepgen_torch.kernels import _build, adaln, fused_resblock, group_norm
+from sleepgen_torch.kernels import _build, adaln, attention, fused_resblock, group_norm
 from sleepgen_torch.nn.layers import GroupNorm32
 from sleepgen_torch.utils import profiling
 
@@ -1434,3 +1434,228 @@ def test_adaln_modulate_time_at_the_dit_cell():
           f"({moved / 1e6:.1f} MB at 3.35 TB/s, {100 * bound / k4:.1f} %); "
           f"composed ops {composed:.4f} ms; {torch.cuda.get_device_name(0)}")
     assert k4 > 0
+
+
+# -- K5: the UNet's attention (kernels/attention.py, csrc/attention.cu) ----------
+
+def _qkv(seed, b, heads, d, l, sigma=1.0):
+    """(B, 3 heads d, L) bf16 with N(0, sigma^2) entries."""
+    rng = np.random.default_rng(seed)
+    x = (sigma * rng.standard_normal((b, 3 * heads * d, l))).astype(np.float32)
+    return torch.from_numpy(x).cuda().bfloat16()
+
+
+def _k5_folded(qkv, heads):
+    """K5's arithmetic in fp32 on the card: the logits of q and k as they
+    are times d^-1/2, an fp32 softmax, the weights p rounded to bf16, their
+    product with v in fp32, rounded to bf16. Also p |v|, the size of what
+    each output sums."""
+    b, c3, l = qkv.shape
+    d = c3 // (3 * heads)
+    q, k, v = qkv.reshape(b, heads, 3 * d, l).split(d, dim=2)
+    logits = torch.einsum("bhci,bhcj->bhij", q.float(), k.float()) / d ** 0.5
+    weights = torch.softmax(logits, dim=-1).bfloat16().float()
+    out = torch.einsum("bhij,bhcj->bhci", weights, v.float())
+    size = torch.einsum("bhij,bhcj->bhci", weights, v.float().abs())
+    return out.bfloat16().reshape(b, c3 // 3, l), size.reshape(b, c3 // 3, l)
+
+
+def _hold_k5_arithmetic(got, qkv, heads):
+    """K5 against its own arithmetic (``_k5_folded``): the two take sums in
+    other orders and K5's exp2 is approximate, so a weight may round to
+    bf16 the other way (a step of 2^-8 of itself) and an output by as much
+    as 2^-8 of the sum of its terms' sizes, sum_j p_j |v_j|, plus a step
+    of its own rounding (2^-7 of itself); and over the whole output the
+    relative L2 gap stays under 2^-10 (1.1e-4 to 1.8e-4 measured on an
+    H100, where two fp32 formulations of the same softmax in torch differ
+    by 0.5e-4 to 0.9e-4)."""
+    folded, size = _k5_folded(qkv, heads)
+    got, folded = got.float(), folded.float()
+    err = (got - folded).abs()
+    tol = 2.0**-8 * size + 2.0**-7 * torch.maximum(got.abs(), folded.abs())
+    assert bool((err <= tol).all()), f"K5 vs its arithmetic: max err {float(err.max())}"
+    rel = float((got - folded).norm() / folded.norm())
+    assert rel < 2.0**-10, f"K5 vs its arithmetic: relative L2 gap {rel}"
+
+
+def _hold_k5(got, qkv, heads):
+    """K5 against its own arithmetic (``_hold_k5_arithmetic``), and against
+    the plain version within 2^-5 (|ref| + rms(ref)): the plain version
+    rounds q d^-1/4 and k d^-1/4 to bf16 before their product, as the JAX
+    package does, which moves each logit by about 2^-9 of its terms' root
+    sum of squares and each weight by as much relatively; at these
+    unit-variance inputs the two differ by up to 0.02 (|ref| + rms) in an
+    fp32 emulation on the CPU, and by 4.0e-3 in relative L2 on an H100."""
+    _hold_k5_arithmetic(got, qkv, heads)
+    got = got.float()
+    plain = attention.attention_reference(qkv, heads).float()
+    err = (got - plain).abs()
+    tol = 2.0**-5 * (plain.abs() + plain.square().mean().sqrt())
+    assert bool((err <= tol).all()), f"K5 vs its plain version: max err {float(err.max())}"
+    return float(err.max())
+
+
+# (B, heads, d, L): the LDM's and the DM's attention (batch 64, one head of
+# 512 at L 192 and 768), several heads, ragged lengths (L not a multiple of
+# 64, a key block of one warpgroup past L) and the shortest row
+K5_SHAPES = [(64, 1, 512, 192), (64, 1, 512, 768), (8, 4, 64, 320), (4, 2, 128, 704),
+             (3, 1, 256, 136), (2, 2, 64, 8)]
+
+
+@pytest.mark.parametrize("b,heads,d,l", K5_SHAPES)
+def test_attention_kernel_against_its_plain_version(b, heads, d, l):
+    qkv = _qkv(41, b, heads, d, l)
+    with torch.no_grad():
+        got = attention.fused_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert got.shape == (b, heads * d, l) and got.dtype == torch.bfloat16
+    _hold_k5(got, qkv, heads)
+
+
+def test_attention_kernel_with_peaked_rows():
+    """Logits of rms 4 (inputs of rms 2 at d 64): rows with few large
+    weights, held to the kernel's own arithmetic."""
+    qkv = _qkv(42, 8, 4, 64, 320, sigma=2.0)
+    with torch.no_grad():
+        got = attention.fused_attention(qkv, 4)
+    _hold_k5_arithmetic(got, qkv, 4)
+
+
+def test_attention_kernel_is_deterministic_and_replays_in_a_graph():
+    """Two eager launches give the same bits, and a CUDA graph captured over
+    K5 replays them on the captured buffer's new contents; the capture's
+    launch count, taken back and added per replay as the DDIM graph does,
+    reaches ``k5.launches`` and, while the tracer records, ``k5.traced_launches``."""
+    qkv = _qkv(43, 16, 1, 512, 768)
+    with torch.no_grad():
+        eager = attention.fused_attention(qkv, 1)
+        assert torch.equal(attention.fused_attention(qkv, 1).view(torch.int16),
+                           eager.view(torch.int16))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            attention.fused_attention(qkv, 1)
+        torch.cuda.current_stream().wait_stream(side)
+        profiling.reset()
+        before = profiling.snapshot_counts()
+        graph = torch.cuda.CUDAGraph()
+        with profiling.tracing(), torch.cuda.graph(graph):
+            out = attention.fused_attention(qkv, 1)
+        made = profiling.take_back_counts(before)
+        assert made["k5.launches"] == 1 and _count("k5.traced_launches") == 0
+        qkv.copy_(qkv.flip(0))
+        graph.replay()
+        flipped = out.clone()
+        qkv.copy_(qkv.flip(0))
+        with profiling.tracing():
+            graph.replay()
+            profiling.add_counts(made, 1)
+        profiling.add_counts(made, 1)
+        torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), eager.view(torch.int16))
+    assert torch.equal(flipped.view(torch.int16), eager.flip(0).view(torch.int16))
+    assert (_count("k5.launches"), _count("k5.traced_launches")) == (2, 1)
+
+
+def test_attention_kernel_raises_on_what_it_does_not_take():
+    """K5's launcher raises, and launches nothing, under autograd, on fp32,
+    fp16, a strided qkv, a head dim that is not a multiple of 64 up to 512,
+    and a row past 768 positions or not a multiple of 8."""
+    qkv = _qkv(44, 2, 1, 512, 192)
+    grad = qkv.float().requires_grad_(True)
+    profiling.reset()
+    with pytest.raises(ValueError, match="no backward"):
+        attention.fused_attention(grad.bfloat16(), 1)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16"):
+            attention.fused_attention(qkv.float(), 1)
+        with pytest.raises(ValueError, match="bf16"):
+            attention.fused_attention(qkv.half(), 1)
+        with pytest.raises(ValueError, match="contiguous"):
+            attention.fused_attention(_qkv(44, 2, 1, 512, 384)[:, :, ::2], 1)
+        for heads, d, l in ((1, 96, 192), (1, 576, 192), (2, 32, 64), (1, 64, 776), (1, 64, 100)):
+            with pytest.raises(ValueError, match="out of range"):
+                attention.fused_attention(_qkv(45, 2, heads, d, l), heads)
+    assert _count("k5.launches") == 0
+
+
+def test_attention_routes_to_k5_only_on_its_path():
+    """On the card: a bf16 fast-math attention without gradient runs K5; under
+    autograd, on the strict path and in fp32 it runs SDPA (K5 uncounted);
+    past K5's longest row it runs SDPA and counts ``k5.declined``."""
+    from sleepgen_torch.nn.layers import attention as layer_attention
+
+    qkv = _qkv(46, 2, 1, 512, 192)
+    profiling.reset()
+    with torch.no_grad():
+        fused = layer_attention(qkv, 1)
+        assert _count("k5.launches") == 1
+        layer_attention(qkv, 1, mixed_precision=False)
+        layer_attention(qkv.float(), 1)
+        long = _qkv(47, 2, 1, 64, 1024)
+        layer_attention(long, 1)
+    trained = layer_attention(qkv.float().requires_grad_(True).bfloat16(), 1)
+    trained.float().sum().backward()
+    assert (_count("k5.launches"), _count("k5.declined")) == (1, 1)
+    _hold_k5(fused, qkv, 1)
+
+
+def test_ddim_steps_run_k5_at_every_unet_attention():
+    """A DDIM loop of the DM's UNet (attention at ds 4: one head of 512 at L
+    768) replaying its graph counts one K5 launch per attention block per
+    step, and so do its traced replays."""
+    steps = 3
+    unet, sched, x_T = _ldm_parts(batch=2, length=3072, attention_resolutions=(8, 4))
+    blocks = sum(type(m).__name__ == "AttentionBlock1d" for m in unet.modules())
+    assert blocks == 6
+    _graphed(unet, sched, x_T, steps)  # captures
+    profiling.reset()
+    with profiling.tracing():
+        _graphed(unet, sched, x_T, steps)
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    assert c["k5.launches"] == c["k5.traced_launches"] == blocks * steps
+    assert c["k5.declined"] == 0
+
+
+def test_attention_kernel_time_at_the_sampling_cells():
+    """K5's device ms a call at the LDM's and the DM's shapes (batch 64, one
+    head of 512, L 192 and 768) against its bound, beside its plain version
+    and SDPA on contiguous q, k and v, the library yardstick."""
+    import torch.nn.functional as F
+
+    n = 20
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    for l in (192, 768):
+        b, d = 64, 512
+        qkv = _qkv(48, b, 1, d, l)
+        q, k, v = (t.transpose(-1, -2).contiguous() for t in _split(qkv, d))
+        with torch.no_grad():
+            k5 = per_call(lambda: attention.fused_attention(qkv, 1))
+            plain = per_call(lambda: attention.attention_reference(qkv, 1))
+            sdpa = per_call(lambda: F.scaled_dot_product_attention(q, k, v))
+        t_ops = 4 * b * l * l * d / 989e12
+        t_bytes = 4 * b * l * d * 2 / 3.35e12
+        bound = 1e3 * max(t_ops, t_bytes)
+        print(f"K5 attention ({b}, 1, {d}, {l}): {k5:.4f} ms a call; bound {bound:.4f} ms "
+              f"({'operations' if t_ops > t_bytes else 'bytes'}, {100 * bound / k5:.1f} %); "
+              f"plain {plain:.4f} ms; SDPA contiguous {sdpa:.4f} ms; "
+              f"{torch.cuda.get_device_name(0)}")
+        assert k5 > 0
+
+
+def _split(qkv, d):
+    """q, k, v of a one-head qkv as (B, 1, d, L) views."""
+    b, _, l = qkv.shape
+    return qkv.reshape(b, 1, 3 * d, l).split(d, dim=2)

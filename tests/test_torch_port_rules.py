@@ -383,7 +383,8 @@ LEFT_OUT = {
     "diffusion/inferer.py": "no caller outside the JAX package's tests (ROADMAP A)",
     "nn/blockwise_attention.py": "jnp online-softmax attention for long windows: the port "
                                  "keeps its kv_block_size contract (layers.check_kv_block) "
-                                 "and computes one scaled_dot_product_attention",
+                                 "and computes one scaled_dot_product_attention at those "
+                                 "lengths, past K5's longest row (kernels/attention.py)",
     "nn/fused_norm.py": "jnp GroupNorm with a custom VJP: its math is K1 and K3's plain "
                         "versions, held to fused_norm._bwd in test_torch_port_backward.py",
     "data/native/": "host C++ window gather: the port gathers with numpy, which gives "

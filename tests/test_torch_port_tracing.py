@@ -101,11 +101,11 @@ def _host_counters():
 
 # Every key of ``counters()``, each at 0 until counted once the samplers
 # are imported, as every `portbench` run imports them
-COUNTER_KEYS = {f"{k}.launches" for k in ("k1", "k2", "k3", "k4")} | {
+COUNTER_KEYS = {f"{k}.launches" for k in ("k1", "k2", "k3", "k4", "k5")} | {
     f"{k}.{c}" for k in ("k1", "k2", "k3") for c in ("host_ns", "traced_launches")} | {
     "k2.relayouts", "k2.traced_relayouts", "sampler.graph_captures", "sampler.graph_replays",
     "sampler.traced_graph_replays", "dit.forwards", "dit.tokens", "dit.fused_norms",
-    "dit.moe_layers", "dit.routed_rows", "spans.dropped"} | {f"k1.form.{f}" for f in ("on_chip", "cluster", "streaming")} | {
+    "dit.moe_layers", "dit.routed_rows", "spans.dropped", "k5.traced_launches", "k5.declined"} | {f"k1.form.{f}" for f in ("on_chip", "cluster", "streaming")} | {
     f"k3.form.{f}" for f in ("on_chip", "cluster", "three_pass")} | {
     f"k2.form.{f}" for f in ("tma", "elem")}
 
